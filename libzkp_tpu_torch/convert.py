@@ -1,0 +1,60 @@
+"""Carry the JAX package's device state into the port.
+
+The system has no weights; its state is the consts blocks of the fold-field
+engines, the basis multiples table, and the STROBE transcript snapshots the
+batched transcript resumes from. The JAX package holds them as numpy arrays
+(or arrays convertible with ``np.asarray``) and bytes; these functions turn
+them into the port's tensors and objects on a given device. Nothing here
+imports the JAX package: callers hand over plain arrays and bytes.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from .ops import curve
+from .ops.keccak_device import TranscriptDevice
+
+
+def consts_block(arr, *, device) -> torch.Tensor:
+    """A ``(rows, n)`` int32 consts block (``EdwardsEngine.consts_np``,
+    ``_compress_consts()``, ``ScalarDeviceCtx.consts_np``) -> tensor."""
+    a = np.asarray(arr)
+    if a.dtype != np.int32 or a.ndim != 2:
+        raise ValueError("consts blocks are 2-D int32 arrays")
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def multiples_table(arr, K: int, *, device) -> curve.DeviceTable:
+    """The JAX ``DeviceTable.table`` (``(Kp*256, 4, n)`` int16) of a K-point
+    basis -> a port :class:`~.ops.curve.DeviceTable` holding the same rows.
+
+    The table is taken as it is, not rebuilt."""
+    eng = curve.edwards_engine()
+    a = np.asarray(arr)
+    if a.dtype != np.int16 or a.ndim != 3 or a.shape[1:] != (eng.coords, eng.n):
+        raise ValueError(f"table must be (Kp*256, {eng.coords}, {eng.n}) int16")
+    table = curve.DeviceTable.__new__(curve.DeviceTable)
+    table.K = K
+    table.Kp = a.shape[0] // 256
+    table.device = torch.device(device)
+    table.consts = consts_block(eng.consts_np, device=device)
+    table.table = torch.from_numpy(np.array(a)).to(device)
+    return table
+
+
+def transcript_state(snapshots: Sequence[bytes], *, device) -> TranscriptDevice:
+    """203-byte ``Strobe128.state_bytes()`` snapshots, one per lane -> the
+    port's batched transcript resumed at that position."""
+    return TranscriptDevice.from_snapshots([bytes(s) for s in snapshots], device=device)
+
+
+def strobe_words(words: Sequence, *, device) -> torch.Tensor:
+    """The JAX ``StrobeDevice.state`` (50 uint32 half-lane arrays, low word
+    first, any lane tiling) -> the port's ``(25, B)`` int64 lane state."""
+    w = np.stack([np.asarray(x, dtype=np.uint32).reshape(-1) for x in words], axis=0)
+    lanes = w[0::2].astype(np.uint64) | (w[1::2].astype(np.uint64) << np.uint64(32))
+    return torch.from_numpy(lanes.view(np.int64).copy()).to(device)

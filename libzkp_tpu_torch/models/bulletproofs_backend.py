@@ -1,0 +1,175 @@
+"""Bulletproofs backend, range part: envelopes, two-sided range proofs and
+their verification.
+
+Port of the range half of the JAX package's
+``libzkp_tpu/models/bulletproofs_backend.py``, wire-identical to it:
+
+* backend envelope ``[u32 body_len][body][u32=32][32B commitment]``;
+* two-sided range body ``[min:8][max:8][n_bits:4][len|rp_min][len|rp_max]
+  [Cmin:32][Cmax:32]`` with transcripts ``b"libzkp_range_min"`` /
+  ``b"libzkp_range_max"`` and blindings ``b`` / ``-b``;
+* homomorphic verification: ``C_min = C - min*B``, ``C_max = max*B - C``.
+
+Proving runs the two single proofs of every range proof on the batched
+device prover (:func:`.bulletproofs.prove_single_batch`); verification is the
+pure-Python host verifier.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional, Tuple
+
+from ..ops import ed25519 as ed
+from ..utils.encoding import read_u64_le, u32_le, u64_le
+from .bp_generators import pedersen_commit, pedersen_gens
+from .bulletproofs import RangeProof, batch_verify_groups, prove_single_batch
+from .strobe import Transcript
+
+L = ed.L
+
+
+def encode_proof_body_with_commit(body: bytes, commit: bytes) -> bytes:
+    if len(commit) != 32:
+        raise ValueError("commitment must be 32 bytes")
+    return u32_le(len(body)) + body + u32_le(32) + commit
+
+
+def decode_proof_body_and_commit(data: bytes) -> Optional[Tuple[bytes, bytes]]:
+    if len(data) < 4 + 4 + 32:
+        return None
+    plen = int.from_bytes(data[0:4], "little")
+    proof_end = 4 + plen
+    if len(data) < proof_end + 4 + 32:
+        return None
+    clen = int.from_bytes(data[proof_end : proof_end + 4], "little")
+    if clen != 32 or len(data) != proof_end + 4 + 32:
+        return None
+    return data[4:proof_end], data[proof_end + 4 :]
+
+
+def _random_blinding() -> int:
+    # reference: Scalar::from_bytes_mod_order(OsRng 32 bytes)
+    return ed.scalar_from_bytes_mod_order(os.urandom(32))
+
+
+def max_u64_for_bit_width(n_bits: int) -> int:
+    return (1 << 64) - 1 if n_bits >= 64 else (1 << n_bits) - 1
+
+
+class BulletproofsBackend:
+    @staticmethod
+    def prove_range_with_bounds_bits(
+        value: int, min_v: int, max_v: int, n_bits: int, *, device=None
+    ) -> bytes:
+        instances, finish = BulletproofsBackend.prepare_range_bits(value, min_v, max_v, n_bits)
+        return finish(prove_single_batch(instances, device=device))
+
+    @staticmethod
+    def prepare_range_bits(value: int, min_v: int, max_v: int, n_bits: int):
+        """Returns ``(instances, finish)``: the two ``(Transcript, value,
+        blinding, n)`` single-proof instances of one range proof, and
+        ``finish(results)`` that assembles the backend wire bytes from their
+        ``(RangeProof, V)`` results. Lets many range proofs share one batch."""
+        if value < min_v or value > max_v:
+            raise ValueError("value out of range")
+        max_diff = max_u64_for_bit_width(n_bits)
+        diff_min = value - min_v
+        diff_max = max_v - value
+        if diff_min > max_diff or diff_max > max_diff:
+            raise ValueError(
+                f"range width exceeds {n_bits}-bit capacity; use n_bits=64"
+            )
+        blinding = _random_blinding()
+        value_commit = ed.compress(pedersen_commit(value % L, blinding))
+        instances = [
+            (Transcript(b"libzkp_range_min"), diff_min, blinding, n_bits),
+            (Transcript(b"libzkp_range_max"), diff_max, (L - blinding) % L, n_bits),
+        ]
+
+        def finish(results):
+            (rp_min, c_min), (rp_max, c_max) = results
+            body = bytearray()
+            body += u64_le(min_v)
+            body += u64_le(max_v)
+            body += u32_le(n_bits)
+            rp_min_b = rp_min.to_bytes()
+            body += u32_le(len(rp_min_b)) + rp_min_b
+            rp_max_b = rp_max.to_bytes()
+            body += u32_le(len(rp_max_b)) + rp_max_b
+            body += c_min
+            body += c_max
+            return encode_proof_body_with_commit(bytes(body), value_commit)
+
+        return instances, finish
+
+    @staticmethod
+    def verify_range_with_bounds(proof_data: bytes, min_v: int, max_v: int) -> bool:
+        return BulletproofsBackend.verify_range_with_bounds_bits(proof_data, min_v, max_v)
+
+    @staticmethod
+    def verify_range_with_bounds_bits(proof_data: bytes, min_v: int, max_v: int) -> bool:
+        """Never raises: anything malformed is ``False``."""
+        try:
+            insts = BulletproofsBackend.range_instances(proof_data, min_v, max_v)
+            if insts is None:
+                return False
+            return batch_verify_groups([insts])[0]
+        except Exception:
+            return False
+
+    @staticmethod
+    def range_instances(proof_data: bytes, min_v: int, max_v: int):
+        """Structural + homomorphic checks; returns the two single-proof
+        verification instances ``(RangeProof, Transcript, V, n_bits)`` or
+        None."""
+        decoded = decode_proof_body_and_commit(proof_data)
+        if decoded is None:
+            return None
+        body, commit_bytes = decoded
+        value_commit = ed.decompress(commit_bytes)
+        if value_commit is None:
+            return None
+        if len(body) < 20:
+            return None
+        proof_min = read_u64_le(body, 0)
+        proof_max = read_u64_le(body, 8)
+        if proof_min != min_v or proof_max != max_v:
+            return None
+        n_bits = int.from_bytes(body[16:20], "little")
+        pos = 20
+        if len(body) < pos + 4:
+            return None
+        l1 = int.from_bytes(body[pos : pos + 4], "little")
+        pos += 4
+        if len(body) < pos + l1:
+            return None
+        rp_min = RangeProof.from_bytes(body[pos : pos + l1])
+        pos += l1
+        if rp_min is None or len(body) < pos + 4:
+            return None
+        l2 = int.from_bytes(body[pos : pos + 4], "little")
+        pos += 4
+        if len(body) < pos + l2:
+            return None
+        rp_max = RangeProof.from_bytes(body[pos : pos + l2])
+        pos += l2
+        if rp_max is None or len(body) != pos + 64:
+            return None
+        c_min_bytes = body[pos : pos + 32]
+        c_max_bytes = body[pos + 32 : pos + 64]
+
+        B, _ = pedersen_gens()
+        expected_min = ed.compress(
+            ed.point_add(value_commit, ed.point_neg(ed.scalar_mul(min_v % L, B)))
+        )
+        expected_max = ed.compress(
+            ed.point_add(ed.scalar_mul(max_v % L, B), ed.point_neg(value_commit))
+        )
+        if expected_min != c_min_bytes or expected_max != c_max_bytes:
+            return None
+
+        return [
+            (rp_min, Transcript(b"libzkp_range_min"), expected_min, n_bits),
+            (rp_max, Transcript(b"libzkp_range_max"), expected_max, n_bits),
+        ]

@@ -1,0 +1,82 @@
+"""Range proof (scheme 1): min <= value <= max via two-sided Bulletproofs.
+
+Port of the JAX package's ``libzkp_tpu/models/schemes/range_proof.py``. The
+provers take a keyword-only ``device=`` (default: the CUDA card; ``"cpu"``
+runs the plain PyTorch path); the verifier runs on the host.
+"""
+
+from __future__ import annotations
+
+from ...device import resolve
+from ...utils.envelope import SCHEME_RANGE
+from ...utils.errors import BackendError
+from ...utils.validation import validate_range_params
+from ..bulletproofs import prove_single_batch
+from ..bulletproofs_backend import BulletproofsBackend
+from .common import (
+    create_proof,
+    extract_bulletproofs_components,
+    parse_and_validate_proof,
+    reconstruct_bulletproofs_proof,
+    validate_standard_commitment,
+)
+
+SCHEME_ID = SCHEME_RANGE
+
+
+def prove_range(value: int, min_v: int, max_v: int, *, device=None) -> bytes:
+    return prove_range_with_bits(value, min_v, max_v, 64, device=device)
+
+
+def prove_range_with_bits(
+    value: int, min_v: int, max_v: int, n_bits: int, *, device=None
+) -> bytes:
+    """Range proof with a configurable bit width (64 only in this port)."""
+    device = resolve(device)
+    validate_range_params(value, min_v, max_v)
+    try:
+        backend_proof = BulletproofsBackend.prove_range_with_bounds_bits(
+            value, min_v, max_v, n_bits, device=device
+        )
+    except ValueError as e:
+        raise BackendError(str(e)) from None
+    proof_bytes, commitment = extract_bulletproofs_components(backend_proof)
+    return create_proof(SCHEME_ID, proof_bytes, commitment)
+
+
+def prove_range_batch(triples, *, device=None) -> list:
+    """Batched variant over ``(value, min_v, max_v)`` triples: the min/max
+    single proofs of every triple run as one lockstep device batch."""
+    device = resolve(device)
+    triples = list(triples)
+    for value, min_v, max_v in triples:
+        validate_range_params(value, min_v, max_v)
+    prepared = []
+    try:
+        for value, min_v, max_v in triples:
+            prepared.append(BulletproofsBackend.prepare_range_bits(value, min_v, max_v, 64))
+    except ValueError as e:
+        raise BackendError(str(e)) from None
+    instances = [inst for insts, _ in prepared for inst in insts]
+    results = prove_single_batch(instances, device=device)
+    out = []
+    pos = 0
+    for insts, finish in prepared:
+        backend_proof = finish(results[pos : pos + len(insts)])
+        pos += len(insts)
+        proof_bytes, commitment = extract_bulletproofs_components(backend_proof)
+        out.append(create_proof(SCHEME_ID, proof_bytes, commitment))
+    return out
+
+
+def verify_range(proof: bytes, min_v: int, max_v: int) -> bool:
+    """Host verifier; never raises."""
+    if min_v > max_v:
+        return False
+    try:
+        p = parse_and_validate_proof(proof, SCHEME_ID)
+        validate_standard_commitment(p.commitment)
+    except Exception:
+        return False
+    backend_proof = reconstruct_bulletproofs_proof(p.proof, p.commitment)
+    return BulletproofsBackend.verify_range_with_bounds(backend_proof, min_v, max_v)
