@@ -6,14 +6,31 @@ Phases, each printing one JSON line:
 
 1. the card (``nvidia-smi`` and torch's view of it);
 2. the build of the CUDA kernels from ``libzkp_tpu_torch/csrc`` (timed);
-3. each kernel (window_sum, horner, pair_add) against its plain PyTorch
-   version on the card at the main path's shapes, both timed with CUDA events;
+3. each kernel instance against its plain PyTorch version on the card at its
+   path's shapes, both timed with CUDA events: the ed25519 window_sum,
+   horner and pair_add of the range prover; pair_add, window_sum4 and
+   horner4 for BN254 G1 (Kp = 512) and G2 (Kp = 352) at 256 lanes, the shapes
+   of the Groth16 prover;
 4. the main path: ``prove_range_batch`` of 256 range proofs (512 prover
    lanes; T1/T2 and the L/R MSMs at 1024 lanes) with the launch counters
    zeroed just before and read just after, then warm batches timed, a sample
    of proofs verified by the port's host verifier, and 4 lanes held byte for
    byte against the port's host prover under injected randomness;
-5. the kernels line, the card's name and power limit, and the last line
+5. the Groth16 path: setup, then ``prove_equality_batch`` of 256 distinct
+   equality statements with the launch counters zeroed just before and read
+   just after (the five query MSMs: 40 window_sum4 and 40 horner4 launches,
+   and the five table builds), then warm batches: three timed, one split into
+   host h, device query MSMs and host finish, one under ``torch.profiler``
+   for the device's busy time; 8 sampled proofs verified by the port's host
+   verifier, a tampered one rejected, and 2 lanes held byte for byte against
+   the port's host golden prover under injected randomness;
+6. the Groth16 grouped route: ``prove_equality_batch`` of 256 proofs of 8
+   statements (32 each), every statement through ``_finish_proof_group``,
+   with the launch counters zeroed just before and read just after; then
+   the per-proof and grouped routes interleaved on the same batch and the
+   same injected draws, timed, every run's bytes equal; 2 lanes held byte
+   for byte against the host golden prover;
+7. the kernels line, the card's name and power limit, and the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero before the last line. Without a CUDA
@@ -27,6 +44,7 @@ import random
 import subprocess
 import sys
 import time
+from collections import defaultdict
 
 import torch
 
@@ -36,8 +54,15 @@ MSM_LANES = 1024      # T1||T2 and L||R MSMs run at twice the prover lanes
 TIMED_BATCHES = 3
 HOST_MEM_BW = 3.35e12  # H100 SXM HBM3 bytes/s (NVIDIA data sheet)
 INT32_LANES_PER_SM = 64  # IMAD results per clock per SM, compute capability 9.0
-PADD_MACS = 9 * (24 * 24 + 26 * 24)    # 9 products of 576 conv + 624 fold multiply-adds
-PDOUBLE_MACS = 8 * (24 * 24 + 26 * 24)
+MUL_MACS = 24 * 24 + 26 * 24  # one field product: 576 conv + 624 fold multiply-adds
+PADD_MACS = 9 * MUL_MACS      # Edwards padd: 9 products
+PDOUBLE_MACS = 8 * MUL_MACS
+WPADD_MACS = {"bn254_g1": 12 * MUL_MACS + 2 * 24,  # RCB padd: 12 products + 2 small multiplies
+              "bn254_g2": 42 * MUL_MACS}           # 14 Fq2 products of 3
+BN_KP = {"bn254_g1": 512, "bn254_g2": 352}  # h query (511 points), b_g2 query (334)
+G16_LANES = 256        # distinct equality statements per batch
+G16_VERIFY = 8
+G16_GROUP_STATEMENTS = 8  # statements of the grouped batch: 32 proofs each
 
 
 def emit(obj) -> None:
@@ -73,6 +98,33 @@ def bound(macs: float, nbytes: float, int_rate: float):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def _edwards_point_err(a, b) -> int:
+    """Largest residue mod p of the projective cross-products
+    X1*Z2 - X2*Z1, Y1*Z2 - Y2*Z1, T1*Z2 - T2*Z1 between the lanes of ``a``
+    and ``b`` (each (C, n, B) ed25519 limbs) and of the extended-coordinate
+    invariant T*Z - X*Y within each lane: 0 when every lane of ``a`` is the
+    same valid point as in ``b``. A lane with Z = 0 mod p on either side
+    (a lane left unwritten, say, which passes every cross-product) is no
+    point and gives p."""
+    import numpy as np
+
+    from libzkp_tpu_torch.ops import curve, ed25519 as ed
+
+    eng = curve.edwards_engine()
+    P = ed.P
+
+    def pts(t):
+        return eng.decode_points(np.transpose(t.cpu().numpy(), (2, 0, 1)))
+
+    err = 0
+    for (X1, Y1, Z1, T1), (X2, Y2, Z2, T2) in zip(pts(a), pts(b), strict=True):
+        if Z1 % P == 0 or Z2 % P == 0:
+            return P
+        err = max(err, (X1 * Z2 - X2 * Z1) % P, (Y1 * Z2 - Y2 * Z1) % P,
+                  (T1 * Z2 - T2 * Z1) % P, (T1 * Z1 - X1 * Y1) % P, (T2 * Z2 - X2 * Y2) % P)
+    return err
+
+
 def check_kernels(dev, int_rate: float) -> list:
     """Phase 3: each kernel against its plain version at the path's shapes."""
     import numpy as np
@@ -97,28 +149,11 @@ def check_kernels(dev, int_rate: float) -> list:
     digits = torch.randint(0, 256, (KP, MSM_LANES), generator=torch.Generator().manual_seed(7),
                            dtype=torch.int32).to(dev)
 
-    def point_err(a, b) -> int:
-        """Largest residue mod p of the projective cross-products
-        X1*Z2 - X2*Z1, Y1*Z2 - Y2*Z1, T1*Z2 - T2*Z1 between the lanes of
-        ``a`` and ``b`` (each (C, n, B)) and of the extended-coordinate
-        invariant T*Z - X*Y within each lane: 0 when every lane of ``a`` is
-        the same valid point as in ``b``."""
-        P = ed.P
-
-        def pts(t):
-            return eng.decode_points(np.transpose(t.cpu().numpy(), (2, 0, 1)))
-
-        err = 0
-        for (X1, Y1, Z1, T1), (X2, Y2, Z2, T2) in zip(pts(a), pts(b), strict=True):
-            err = max(err, (X1 * Z2 - X2 * Z1) % P, (Y1 * Z2 - Y2 * Z1) % P,
-                      (T1 * Z2 - T2 * Z1) % P, (T1 * Z1 - X1 * Y1) % P, (T2 * Z2 - X2 * Y2) % P)
-        return err
-
     results = []
     ws_k = kernels.window_sum(consts, table, digits)
     ws_p = kernels.window_sum_plain(consts, table, digits)
     torch.cuda.synchronize()
-    err = point_err(ws_k, ws_p)
+    err = _edwards_point_err(ws_k, ws_p)
     if err != 0:
         raise AssertionError(f"window_sum disagrees with its plain version (point err {err})")
     t_k = cuda_ms(lambda: kernels.window_sum(consts, table, digits), 20)
@@ -168,6 +203,384 @@ def check_kernels(dev, int_rate: float) -> list:
     return results
 
 
+def _random_points(curve: str, count: int, rng: random.Random) -> list:
+    """``count`` random multiples of the generator (host Jacobian points)."""
+    from libzkp_tpu_torch.models import groth16
+
+    g1b, g2b = groth16._bases()
+    base = g1b if curve == "bn254_g1" else g2b
+    return [base.mul(rng.randrange(1, groth16.R)) for _ in range(count)]
+
+
+def _weierstrass_point_err(curve: str, a, b) -> int:
+    """Largest residue mod p, over the lanes of ``a`` and ``b`` (each
+    (C, n, L)), of the projective cross-products X1*Z2 - X2*Z1 and
+    Y1*Z2 - Y2*Z1 (per Fq or Fq2 coordinate) and of the curve equation
+    Y^2 Z - X^3 - b Z^3 of each lane: 0 when every lane of ``a`` is the same
+    point of the curve as in ``b``. A lane that is (0 : 0 : 0) on either side
+    (a lane left unwritten, say, which passes every cross-product and the
+    curve equation) is no point and gives p."""
+    import numpy as np
+
+    from libzkp_tpu_torch.ops import bn254 as bn
+    from libzkp_tpu_torch.ops.weierstrass import get_engine
+
+    eng = get_engine(curve)
+    P = bn.P
+
+    def coords(t):
+        vals = eng.ctx.decode(np.transpose(t.cpu().numpy(), (2, 0, 1)))
+        r = eng.rows
+        return [[tuple(vals[i + k * r : i + (k + 1) * r]) for k in range(3)]
+                for i in range(0, len(vals), eng.coords)]
+
+    if eng.rows == 1:
+        mul = lambda x, y: ((x[0] * y[0]) % P,)  # noqa: E731
+        sub = lambda x, y: ((x[0] - y[0]) % P,)  # noqa: E731
+        bconst = (bn.B_G1,)
+    else:
+        mul, sub, bconst = bn.fq2_mul, bn.fq2_sub, bn.B_G2
+    err = 0
+    for (X1, Y1, Z1), (X2, Y2, Z2) in zip(coords(a), coords(b), strict=True):
+        if not any(c % P for c in X1 + Y1 + Z1) or not any(c % P for c in X2 + Y2 + Z2):
+            return P
+        diffs = [sub(mul(X1, Z2), mul(X2, Z1)), sub(mul(Y1, Z2), mul(Y2, Z1))]
+        for X, Y, Z in ((X1, Y1, Z1), (X2, Y2, Z2)):
+            lhs = mul(mul(Y, Y), Z)
+            rhs = mul(mul(X, X), X)
+            zz = mul(mul(Z, Z), Z)
+            diffs.append(sub(sub(lhs, rhs), mul(bconst, zz)))
+        err = max(err, *(c for d in diffs for c in d))
+    return err
+
+
+def check_bn254_kernels(dev, int_rate: float) -> list:
+    """Phase 3b: pair_add, window_sum4 and horner4 for BN254 G1 and G2
+    against their plain versions at the Groth16 prover's shapes: 256
+    statements, so 4 * 256 window-sum lanes; Kp = 512 (G1, the h query) and
+    352 (G2, the b_g2 query)."""
+    import numpy as np
+
+    from libzkp_tpu_torch.ops import kernels
+    from libzkp_tpu_torch.ops.weierstrass import get_engine
+
+    results = []
+    rng = random.Random(20261017)
+    B = G16_LANES
+    WG = kernels.WIN_GROUP
+    for curve in ("bn254_g1", "bn254_g2"):
+        eng = get_engine(curve)
+        C, n = eng.coords, eng.n
+        Kp = BN_KP[curve]
+        consts = torch.from_numpy(eng.consts_np).to(dev)
+        baseT = torch.from_numpy(np.ascontiguousarray(np.transpose(
+            eng.encode_points(_random_points(curve, Kp, rng)), (1, 2, 0)))).to(dev)
+        acc = eng.identity(Kp, dev)
+        rows = [acc]
+        for _ in range(255):
+            acc = kernels.pair_add_plain(consts, acc, baseT, curve=curve)
+            rows.append(acc)
+        table = torch.stack(rows).permute(3, 0, 1, 2).reshape(Kp * 256, C, n).to(torch.int16).contiguous()
+        digits = torch.randint(0, 256, (WG, Kp, B), generator=torch.Generator().manual_seed(8),
+                               dtype=torch.int32).to(dev)
+        padd = WPADD_MACS[curve]
+
+        def plain4():
+            # in lane chunks: the plain tree's stacked products would take
+            # tens of GB at all 4 * 256 lanes at once
+            out = torch.empty((C, n, WG * B), dtype=torch.int32, device=dev)
+            ch = min(64, B)
+            for b0 in range(0, B, ch):
+                part = kernels.window_sum4_plain(consts, table, digits[:, :, b0:b0 + ch].contiguous(),
+                                                 curve=curve)
+                for w in range(WG):
+                    out[..., w * B + b0:w * B + b0 + ch] = part[..., w * ch:(w + 1) * ch]
+            return out
+
+        ws_k = kernels.window_sum4(consts, table, digits, curve=curve)
+        ws_p = plain4()
+        torch.cuda.synchronize()
+        err = _weierstrass_point_err(curve, ws_k, ws_p)
+        if err != 0:
+            raise AssertionError(f"window_sum4 {curve} disagrees with its plain version (point err {err})")
+        t_k = cuda_ms(lambda: kernels.window_sum4(consts, table, digits, curve=curve), 5)
+        t_p = cuda_ms(plain4, 1)
+        b_ms, b_by = bound((Kp - 1) * padd * WG * B,
+                           table.numel() * 2 + digits.numel() * 4 + C * n * WG * B * 4, int_rate)
+        results.append(dict(name=kernels.instance("window_sum4", curve), route="cuda",
+                            source="libzkp_tpu_torch/csrc/window_sum4.cu",
+                            replaces="libzkp_tpu/ops/curve_jax.py:737",
+                            max_abs_err=float(err),
+                            tolerance="projective equality (X, Y cross-products with Z, mod p) and the curve equation",
+                            ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                            shape=f"table ({Kp * 256},{C},{n}) i16, digits ({WG},{Kp},{B}) i32"))
+
+        acc_in = ws_k[..., :B].contiguous()
+        wsums = ws_p
+        h_k = kernels.horner4(consts, acc_in, wsums, curve=curve)
+        h_p = kernels.horner4_plain(consts, acc_in, wsums, curve=curve)
+        torch.cuda.synchronize()
+        err = int((h_k - h_p).abs().max())
+        if err != 0:
+            raise AssertionError(f"horner4 {curve} limbs differ from its plain version (max {err})")
+        t_k = cuda_ms(lambda: kernels.horner4(consts, acc_in, wsums, curve=curve), 5)
+        t_p = cuda_ms(lambda: kernels.horner4_plain(consts, acc_in, wsums, curve=curve), 2)
+        b_ms, b_by = bound(WG * 9 * padd * B, (2 + WG) * C * n * B * 4, int_rate)
+        results.append(dict(name=kernels.instance("horner4", curve), route="cuda",
+                            source="libzkp_tpu_torch/csrc/horner4.cu",
+                            replaces="libzkp_tpu/ops/curve_jax.py:841",
+                            max_abs_err=float(err), tolerance="exact limbs",
+                            ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                            shape=f"acc ({C},{n},{B}), wsums ({C},{n},{WG * B}) i32"))
+
+        p = table.view(Kp, 256, C, n)[:, 7].permute(1, 2, 0).to(torch.int32).contiguous()
+        q = table.view(Kp, 256, C, n)[:, 200].permute(1, 2, 0).to(torch.int32).contiguous()
+        a_k = kernels.pair_add(consts, p, q, curve=curve)
+        a_p = kernels.pair_add_plain(consts, p, q, curve=curve)
+        torch.cuda.synchronize()
+        err = int((a_k - a_p).abs().max())
+        if err != 0:
+            raise AssertionError(f"pair_add {curve} limbs differ from its plain version (max {err})")
+        t_k = cuda_ms(lambda: kernels.pair_add(consts, p, q, curve=curve), 50)
+        t_p = cuda_ms(lambda: kernels.pair_add_plain(consts, p, q, curve=curve), 10)
+        b_ms, b_by = bound(padd * Kp, 3 * C * n * Kp * 4, int_rate)
+        results.append(dict(name=kernels.instance("pair_add", curve), route="cuda",
+                            source="libzkp_tpu_torch/csrc/pair_add.cu",
+                            replaces="libzkp_tpu/ops/curve_jax.py:482",
+                            max_abs_err=float(err), tolerance="exact limbs",
+                            ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                            shape=f"p, q ({C},{n},{Kp}) i32"))
+    for r in results:
+        emit({"phase": "kernel_check", **r})
+    return results
+
+
+def groth16_path(dev) -> dict:
+    """Phase 5: 256 distinct equality proofs through the port's entry point."""
+    import libzkp_tpu_torch as zkp
+    from libzkp_tpu_torch.models import groth16, snark_backend
+    from libzkp_tpu_torch.ops import kernels
+    from libzkp_tpu_torch.profile_prover import _wrap
+    from libzkp_tpu_torch.utils.commitment import commit_value_snark
+    from libzkp_tpu_torch.utils.envelope import Proof as Envelope
+
+    t0 = time.perf_counter()
+    pk = snark_backend._get_equality_setup()
+    emit({"phase": "groth16_setup", "seconds": time.perf_counter() - t0,
+          "queries": {"a": len(pk.a_query), "b_g1": len(pk.b_g1_query), "b_g2": len(pk.b_g2_query),
+                      "h": len(pk.h_query), "l": len(pk.l_query)}})
+
+    rng = random.Random(1017)
+    values = [(1 << 64) - 1, 0] + rng.sample(range(1, 1 << 62), G16_LANES - 2)
+    pairs = [(v, v) for v in values]
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    envs = zkp.prove_equality_batch(pairs, device=dev)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    counts = kernels.launches()
+    want = dict.fromkeys(kernels.INSTANCES, 0) | {
+        "pair_add_bn254_g1": 4 * 255, "pair_add_bn254_g2": 255,
+        "window_sum4_bn254_g1": 4 * 8, "window_sum4_bn254_g2": 8,
+        "horner4_bn254_g1": 4 * 8, "horner4_bn254_g2": 8,
+    }
+    if counts != want:
+        raise AssertionError(f"kernel launches {counts}, the Groth16 path needs {want}")
+    if len(envs) != G16_LANES or any(not isinstance(e, bytes) or len(e) < 256 for e in envs):
+        raise AssertionError("prove_equality_batch returned malformed envelopes")
+    emit({"phase": "groth16_cold", "equality_proofs": G16_LANES, "seconds": cold_s,
+          "launches": {k: v for k, v in counts.items() if v}})
+
+    batch_s = []
+    for _ in range(TIMED_BATCHES):
+        t0 = time.perf_counter()
+        zkp.prove_equality_batch(pairs, device=dev)
+        torch.cuda.synchronize()
+        batch_s.append(time.perf_counter() - t0)
+    batch_ms = sum(batch_s) / len(batch_s) * 1e3  # mean over every uninstrumented warm batch
+    emit({"phase": "groth16_warm", "batch_ms": [s * 1e3 for s in batch_s], "ms_per_batch": batch_ms,
+          "spread_ms": [min(batch_s) * 1e3, max(batch_s) * 1e3],
+          "ms_per_equality_proof": batch_ms / G16_LANES})
+
+    # the split: host h, device query MSMs (with their host digit and
+    # decode glue), host finish; the rest is commitments, assignments and
+    # proof bytes
+    spent: dict = defaultdict(float)
+    depth = [0]
+    undo = [_wrap(groth16, name, name, spent, depth)
+            for name in ("_h_many", "_accs_many", "_finish_proof")]
+    try:
+        t0 = time.perf_counter()
+        zkp.prove_equality_batch(pairs, device=dev)
+        torch.cuda.synchronize()
+        split_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for u in undo:
+            u()
+    split = {"host_h_ms": spent["_h_many"] * 1e3, "device_query_msms_ms": spent["_accs_many"] * 1e3,
+             "host_finish_ms": spent["_finish_proof"] * 1e3}
+    split["host_assign_rest_ms"] = split_ms - sum(split.values())
+    emit({"phase": "groth16_split", "batch_ms": split_ms, **split})
+
+    # one batch under the profiler, with injected randomness for the
+    # byte-exact check below
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    seeded = random.Random(4242)
+    draws = [seeded.randrange(1, groth16.R) for _ in range(2 * G16_LANES)]
+    saved = groth16._rand_fr
+    it = iter(draws)
+    groth16._rand_fr = lambda: next(it)
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            seeded_envs = zkp.prove_equality_batch(pairs, device=dev)
+            torch.cuda.synchronize()
+            prof_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        groth16._rand_fr = saved
+    busy = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(b[1] for b in busy) / 1e3
+    top = sorted(busy, key=lambda b: -b[1])[:6]
+    emit({"phase": "groth16_profile", "batch_ms_profiled": prof_ms, "device_busy_ms": busy_ms,
+          "device_idle_share": 1 - busy_ms / prof_ms, "device_ops": sum(b[2] for b in busy),
+          "top": [{"name": b[0][:60], "device_ms": b[1] / 1e3, "calls": b[2]} for b in top]})
+
+    sample = list(range(0, G16_LANES, G16_LANES // G16_VERIFY))[:G16_VERIFY]
+    t0 = time.perf_counter()
+    for i in sample:
+        if not zkp.verify_equality(envs[i], values[i], values[i]):
+            raise AssertionError(f"equality proof {i} does not verify")
+    bad = bytearray(envs[sample[1]])
+    bad[len(bad) // 2] ^= 1
+    if zkp.verify_equality(bytes(bad), values[sample[1]], values[sample[1]]):
+        raise AssertionError("a tampered equality proof verified")
+    emit({"phase": "groth16_verify_sample", "verified": len(sample), "tamper_rejected": True,
+          "seconds": time.perf_counter() - t0})
+
+    # byte-exactness: 2 lanes of the seeded device batch against the host
+    # golden prover (host h, host MSMs, host finish) with the same (r, s)
+    lanes = [1, G16_LANES - 1]
+    for lane in lanes:
+        v = values[lane]
+        c = commit_value_snark(v)
+        cs = snark_backend.build_equality_circuit(v, v, int.from_bytes(c, "little"))
+        it = iter(draws[2 * lane : 2 * lane + 2])
+        groth16._rand_fr = lambda: next(it)
+        try:
+            proof = groth16.proof_to_bytes(groth16.prove(pk, cs))
+        finally:
+            groth16._rand_fr = saved
+        if Envelope.from_bytes(seeded_envs[lane]).proof != proof:
+            raise AssertionError(f"lane {lane}: device batch proof differs from the host golden prover")
+    emit({"phase": "groth16_byte_exact", "lanes": lanes, "proof_bytes": 256, "identical": True})
+    return {"counts": counts, "ms_per_batch": batch_ms, "split": split}
+
+
+def groth16_grouped(dev) -> dict:
+    """Phase 6: 256 equality proofs of 8 statements, 32 proofs each, so
+    every statement takes the grouped finish (``_finish_proof_group``: its
+    per-proof terms as fixed-basis MSMs on the card), against the per-proof
+    finish (``_finish_proof`` on the host) on the same batch and the same
+    injected (r, s) draws. The per-proof route is forced by raising
+    ``groth16.GROUP_MIN`` above the group size for the call."""
+    import libzkp_tpu_torch as zkp
+    from libzkp_tpu_torch.models import groth16, snark_backend
+    from libzkp_tpu_torch.ops import kernels
+    from libzkp_tpu_torch.profile_prover import _wrap
+    from libzkp_tpu_torch.utils.commitment import commit_value_snark
+    from libzkp_tpu_torch.utils.envelope import Proof as Envelope
+
+    S = G16_GROUP_STATEMENTS
+    per = G16_LANES // S
+    rng = random.Random(1018)
+    values = rng.sample(range(1, 1 << 62), S)
+    pairs = [(values[i % S], values[i % S]) for i in range(G16_LANES)]
+    seeded = random.Random(4343)
+    draws = [seeded.randrange(1, groth16.R) for _ in range(2 * G16_LANES)]
+
+    def run(grouped: bool, wrap=()):
+        saved = groth16._rand_fr, groth16.GROUP_MIN
+        it = iter(draws)
+        groth16._rand_fr = lambda: next(it)
+        groth16.GROUP_MIN = saved[1] if grouped else G16_LANES + 1
+        spent: dict = defaultdict(float)
+        undo = [_wrap(groth16, name, name, spent, [0]) for name in wrap]
+        try:
+            t0 = time.perf_counter()
+            envs = zkp.prove_equality_batch(pairs, device=dev)
+            torch.cuda.synchronize()
+            return envs, (time.perf_counter() - t0) * 1e3, {k: v * 1e3 for k, v in spent.items()}
+        finally:
+            for u in undo:
+                u()
+            groth16._rand_fr, groth16.GROUP_MIN = saved
+
+    # the grouped route's launches on its first batch: the five query MSMs
+    # at 8 lanes (8 window groups each); the key's [delta_g1] and
+    # [delta_g2] tables, built once; per statement, its own
+    # [P1, P2, delta_g1] table and three 32-lane MSMs
+    kernels.reset_launches()
+    envs, cold_ms, _ = run(True)
+    counts = kernels.launches()
+    want = dict.fromkeys(kernels.INSTANCES, 0) | {
+        "pair_add_bn254_g1": 255 + S * 255, "pair_add_bn254_g2": 255,
+        "window_sum4_bn254_g1": 4 * 8 + S * 2 * 8, "window_sum4_bn254_g2": 8 + S * 8,
+        "horner4_bn254_g1": 4 * 8 + S * 2 * 8, "horner4_bn254_g2": 8 + S * 8,
+    }
+    if counts != want:
+        raise AssertionError(f"kernel launches {counts}, the grouped route needs {want}")
+    emit({"phase": "groth16_grouped_cold", "equality_proofs": G16_LANES, "statements": S,
+          "batch_ms": cold_ms, "launches": {k: v for k, v in counts.items() if v}})
+
+    # parent, change, change, parent: the per-proof and grouped routes
+    # interleaved, every run under the same draws, so every run's bytes
+    # must equal the first's
+    times: dict = {"per_proof": [], "grouped": []}
+    for grouped in (False, True, True, False):
+        out, ms, _ = run(grouped)
+        if out != envs:
+            raise AssertionError(f"{'grouped' if grouped else 'per-proof'} route gave other proof bytes")
+        times["grouped" if grouped else "per_proof"].append(ms)
+    mean = {k: sum(v) / len(v) for k, v in times.items()}
+    out, split_ms, spent = run(True, wrap=("_h_many", "_accs_many", "_finish_proof_group"))
+    if out != envs:
+        raise AssertionError("the grouped split run gave other proof bytes")
+    emit({"phase": "groth16_grouped_vs_per_proof", "batch_ms": times,
+          "ms_per_equality_proof": {k: v / G16_LANES for k, v in mean.items()},
+          "per_proof_over_grouped": mean["per_proof"] / mean["grouped"],
+          "grouped_split": {"batch_ms": split_ms, "host_h_ms": spent["_h_many"],
+                            "device_query_msms_ms": spent["_accs_many"],
+                            "finish_group_ms": spent["_finish_proof_group"]}})
+
+    # byte-exactness against the host golden prover: proof m of statement k
+    # drew (r, s) = draws[2 * (per * k + m) : + 2] on both routes
+    pk = snark_backend._get_equality_setup()
+    lanes = [3, G16_LANES - 6]
+    saved = groth16._rand_fr
+    for lane in lanes:
+        k, m = lane % S, lane // S
+        v = values[k]
+        cs = snark_backend.build_equality_circuit(v, v, int.from_bytes(commit_value_snark(v), "little"))
+        it = iter(draws[2 * (per * k + m) : 2 * (per * k + m) + 2])
+        groth16._rand_fr = lambda: next(it)
+        try:
+            proof = groth16.proof_to_bytes(groth16.prove(pk, cs))
+        finally:
+            groth16._rand_fr = saved
+        if Envelope.from_bytes(envs[lane]).proof != proof:
+            raise AssertionError(f"lane {lane}: grouped proof differs from the host golden prover")
+    for i in (0, G16_LANES - 1):
+        if not zkp.verify_equality(envs[i], pairs[i][0], pairs[i][1]):
+            raise AssertionError(f"grouped equality proof {i} does not verify")
+    emit({"phase": "groth16_grouped_byte_exact", "lanes": lanes, "identical": True,
+          "runs_identical": 6, "verified": 2})
+    return {"counts": counts, "ms_per_batch": mean}
+
+
 def main_path(dev) -> dict:
     """Phase 4: 256 range proofs through the port's entry point."""
     import libzkp_tpu_torch as zkp
@@ -188,7 +601,8 @@ def main_path(dev) -> dict:
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
     counts = kernels.launches()
-    want = {"pair_add": 255, "window_sum": 32 * 10, "horner": 32 * 10}
+    want = dict.fromkeys(kernels.INSTANCES, 0) | {"pair_add": 255, "window_sum": 32 * 10,
+                                                  "horner": 32 * 10}
     if counts != want:
         raise AssertionError(f"kernel launches {counts}, the path needs {want}")
     if len(envs) != N_TRIPLES or any(not isinstance(e, bytes) or len(e) < 1400 for e in envs):
@@ -268,18 +682,26 @@ def main() -> int:
     kernels.build()
     ptxas = {
         n: [ln.strip() for ln in (kernels.BUILD_DIR / f"{n}.log").read_text().splitlines()
-            if "registers" in ln or "spill" in ln]
+            if "ptxas info" in ln or "stack frame" in ln]
         for n in kernels.SOURCES
         if (kernels.BUILD_DIR / f"{n}.log").exists()
     }
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas})
 
-    checks = check_kernels(dev, int_rate)
+    checks = check_kernels(dev, int_rate) + check_bn254_kernels(dev, int_rate)
     path = main_path(dev)
+    g16 = groth16_path(dev)
+    grouped = groth16_grouped(dev)
+    # launches of each instance on the paths that run it: the range prover
+    # for ed25519, the Groth16 prover's two routes for BN254
+    launched = {name: path["counts"][name] + g16["counts"][name] + grouped["counts"][name]
+                for name in kernels.INSTANCES}
+    if sorted(r["name"] for r in checks) != sorted(kernels.INSTANCES):
+        raise AssertionError("a kernel instance was not checked against its plain version")
 
     emit({"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces")}
-        | {"launches": path["counts"][r["name"]]}
+        | {"launches": launched[r["name"]]}
         | {k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
         for r in checks
     ]})

@@ -1,9 +1,11 @@
 """libzkp_tpu_torch — the PyTorch / CUDA port of libzkp_tpu for NVIDIA Hopper.
 
 A second package beside the JAX reference ``libzkp_tpu``, ported slice by
-slice. This slice is the main path: the batched 64-bit Bulletproofs range
-prover, from :func:`prove_range_batch` down to three hand-written CUDA
-kernels (``ops/kernels.py``, sources in ``csrc/``). Proofs and envelopes are
+slice. Two slices are ported: the main path, the batched 64-bit
+Bulletproofs range prover (:func:`prove_range_batch`), and the batched
+Groth16 equality prover (:func:`prove_equality_batch`), whose query MSMs over
+BN254 G1 and G2 run on the same family of hand-written CUDA kernels
+(``ops/kernels.py``, sources in ``csrc/``). Proofs and envelopes are
 byte-compatible with the JAX package's.
 
 Entry points run on the CUDA card unless called with ``device="cpu"``, which
@@ -11,6 +13,12 @@ runs the plain PyTorch path. The package imports neither jax nor
 ``libzkp_tpu``.
 """
 
+from .models.schemes.equality_proof import (  # noqa: F401
+    prove_equality,
+    prove_equality_batch,
+    verify_equality,
+    verify_equality_with_commitment,
+)
 from .models.schemes.range_proof import (  # noqa: F401
     prove_range,
     prove_range_batch,
@@ -18,4 +26,13 @@ from .models.schemes.range_proof import (  # noqa: F401
     verify_range,
 )
 
-__all__ = ["prove_range", "prove_range_batch", "prove_range_with_bits", "verify_range"]
+__all__ = [
+    "prove_equality",
+    "prove_equality_batch",
+    "prove_range",
+    "prove_range_batch",
+    "prove_range_with_bits",
+    "verify_equality",
+    "verify_equality_with_commitment",
+    "verify_range",
+]

@@ -1,11 +1,13 @@
-"""Carry the JAX package's device state into the port.
+"""Carry the JAX package's state into the port.
 
-The system has no weights; its state is the consts blocks of the fold-field
-engines, the basis multiples table, and the STROBE transcript snapshots the
-batched transcript resumes from. The JAX package holds them as numpy arrays
-(or arrays convertible with ``np.asarray``) and bytes; these functions turn
-them into the port's tensors and objects on a given device. Nothing here
-imports the JAX package: callers hand over plain arrays and bytes.
+The system has no weights; its state is the Groth16 proving key (the
+counterpart of weights: both packages prove with one key), the consts blocks
+of the fold-field engines, the basis multiples tables, and the STROBE
+transcript snapshots the batched transcript resumes from. The JAX package
+holds them as Python ints and tuples, numpy arrays (or arrays convertible
+with ``np.asarray``) and bytes; these functions turn them into the port's
+tensors and objects on a given device. Nothing here imports the JAX package:
+callers hand over plain values, arrays and bytes.
 """
 
 from __future__ import annotations
@@ -15,7 +17,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from .ops import curve
+from .models import groth16
+from .ops import curve as curve_ops
 from .ops.keccak_device import TranscriptDevice
 
 
@@ -28,16 +31,43 @@ def consts_block(arr, *, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device)
 
 
-def multiples_table(arr, K: int, *, device) -> curve.DeviceTable:
-    """The JAX ``DeviceTable.table`` (``(Kp*256, 4, n)`` int16) of a K-point
-    basis -> a port :class:`~.ops.curve.DeviceTable` holding the same rows.
+def proving_key(pk) -> groth16.ProvingKey:
+    """A JAX ``groth16.ProvingKey`` (its ``vk`` included) -> the port's.
+
+    Both hold points as Python ints and tuples (Jacobian G1 ``(X, Y, Z)``,
+    G2 over Fq2 pairs), so the fields are copied as they are."""
+    vk = pk.vk
+
+    def g(p):
+        return tuple(tuple(c) if isinstance(c, tuple) else int(c) for c in p)
+
+    return groth16.ProvingKey(
+        vk=groth16.VerifyingKey(
+            alpha_g1=g(vk.alpha_g1), beta_g2=g(vk.beta_g2), gamma_g2=g(vk.gamma_g2),
+            delta_g2=g(vk.delta_g2), gamma_abc_g1=[g(p) for p in vk.gamma_abc_g1],
+        ),
+        beta_g1=g(pk.beta_g1),
+        delta_g1=g(pk.delta_g1),
+        a_query=[g(p) for p in pk.a_query],
+        b_g1_query=[g(p) for p in pk.b_g1_query],
+        b_g2_query=[g(p) for p in pk.b_g2_query],
+        h_query=[g(p) for p in pk.h_query],
+        l_query=[g(p) for p in pk.l_query],
+    )
+
+
+def multiples_table(arr, K: int, *, device, curve: str = "ed25519") -> curve_ops.DeviceTable:
+    """The JAX ``DeviceTable.table`` (``(Kp*256, C, n)`` int16) of a K-point
+    basis of ``curve`` -> a port :class:`~.ops.curve.DeviceTable` holding the
+    same rows.
 
     The table is taken as it is, not rebuilt."""
-    eng = curve.edwards_engine()
+    eng = curve_ops.get_engine(curve)
     a = np.asarray(arr)
     if a.dtype != np.int16 or a.ndim != 3 or a.shape[1:] != (eng.coords, eng.n):
         raise ValueError(f"table must be (Kp*256, {eng.coords}, {eng.n}) int16")
-    table = curve.DeviceTable.__new__(curve.DeviceTable)
+    table = curve_ops.DeviceTable.__new__(curve_ops.DeviceTable)
+    table.curve = curve
     table.K = K
     table.Kp = a.shape[0] // 256
     table.device = torch.device(device)

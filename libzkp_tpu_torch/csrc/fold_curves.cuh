@@ -1,0 +1,430 @@
+// Fold-field arithmetic on 12-bit limbs and the point formulas of the three
+// curves of the MSM (ed25519, BN254 G1, BN254 G2), one lane per thread,
+// shared by the window-sum, Horner and table-add kernels.
+//
+// The same schedule as the plain PyTorch version (ops/limbfold.py FieldOps,
+// ops/edwards.py, ops/weierstrass.py) and the JAX package's ops/limbfold.py
+// and ops/curve_jax.py: a field element is N = 24 relaxed signed 12-bit
+// limbs in int32; a product is the schoolbook convolution (2N+2 columns),
+// two no-wrap carry passes, the fold of the high columns through
+// FOLD[k] = limbs(2^(12(N+k)) mod p), and three wrap carries through
+// ONE = limbs(2^(12N) mod p). Each step is the same integer operation on the
+// same operands, so limbs are identical to the plain version's. The field
+// code is the same for every prime: p enters only through the consts block.
+//
+// Consts block (rows of N int32, in __constant__ memory): ONE, FOLD[N + 2],
+// then the curve's constants — ed25519: 2d (N + 4 rows); BN254 G1: none
+// (N + 3 rows, b3 = 9 is a small multiply); BN254 G2: b3 = 3 * 3/(9+u) as
+// two Fq rows c0, c1 (N + 5 rows). Every lane of a warp reads the same word
+// at the same time, which the constant cache broadcasts.
+//
+// int32 headroom (signed overflow is undefined in C++, so it must not occur):
+// * p = 2^255 - 19: inputs have |limb| <= ~2^13.1, so |a_i * b_j| <= 2^26.2
+//   and a column of at most N = 24 such products stays below 24 * 2^26.2 ~=
+//   2^30.8 < 2^31. After the two no-wrap passes |t_k| < 2^12 + 2^7; a fold
+//   term is < 2^13 * 2^12 = 2^25 and a row of N + 3 terms stays below 2^30.
+//   The wrap carries keep the relaxed bound for the next product.
+// * p = BN254 Fq: ONE and every FOLD row are full 254-bit values (limbs up
+//   to 4095 in limbs 0..20), so the Curve25519 argument does not carry over
+//   and a per-limb bound is needed. Interval arithmetic over the RCB formula
+//   with this p's actual ONE, FOLD and b3 limbs (every add, sub, carry, conv
+//   column, fold row and b3 product of padd, for G1 and for G2;
+//   tests/test_torch_weierstrass.py::test_int32_headroom) shows: starting from
+//   canonical limbs [0, 4095], every padd output limb lies in
+//   [-7643, 11737], that interval is closed under padd, and every conv
+//   column (as the sum of its terms' magnitudes), fold row and carry
+//   intermediate stays below 2^30.31 < 2^31. Every point the kernels see
+//   (encoded basis points, the identity, table rows, window sums, Horner
+//   accumulators) is canonical or a padd output, so no sum overflows; the
+//   limbs also fit the int16 table.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace fold {
+
+constexpr int N = 24;             // limbs per field element
+constexpr int NCOL = 2 * N + 2;   // schoolbook columns, top one spare
+constexpr int NCONST_MAX = N + 5; // ONE, FOLD[N + 2], up to two curve rows
+constexpr int LIMB_BITS = 12;
+constexpr int32_t MASK = (1 << LIMB_BITS) - 1;
+constexpr int ROW_ONE = 0;
+constexpr int ROW_FOLD = 1;
+constexpr int ROW_CURVE = N + 3;  // first curve constant (2d or b3.c0)
+
+}  // namespace fold
+
+__constant__ int32_t c_consts[fold::NCONST_MAX * fold::N];
+
+// Copy a (rows, N) int32 consts block, a device tensor, into constant
+// memory, ordered on the launch stream before the kernel that reads it.
+static inline cudaError_t fold_load_consts(const int32_t* consts, int rows, cudaStream_t stream) {
+  return cudaMemcpyToSymbolAsync(c_consts, consts, sizeof(int32_t) * rows * fold::N, 0,
+                                 cudaMemcpyDeviceToDevice, stream);
+}
+
+// One wrap-carry pass: lo + (hi shifted up one limb) + hi_top * ONE.
+// >> on a negative int32 is arithmetic (floor), as in torch and jnp.
+__device__ __forceinline__ void fe_carry(int32_t* x) {
+  using namespace fold;
+  const int32_t top = x[N - 1] >> LIMB_BITS;
+#pragma unroll
+  for (int i = N - 1; i > 0; --i) x[i] = (x[i] & MASK) + (x[i - 1] >> LIMB_BITS);
+  x[0] &= MASK;
+#pragma unroll
+  for (int i = 0; i < N; ++i) x[i] += top * c_consts[ROW_ONE * N + i];
+}
+
+__device__ __forceinline__ void fe_add(int32_t* r, const int32_t* a, const int32_t* b) {
+#pragma unroll
+  for (int i = 0; i < fold::N; ++i) r[i] = a[i] + b[i];
+  fe_carry(r);
+}
+
+__device__ __forceinline__ void fe_sub(int32_t* r, const int32_t* a, const int32_t* b) {
+#pragma unroll
+  for (int i = 0; i < fold::N; ++i) r[i] = a[i] - b[i];
+  fe_carry(r);
+}
+
+// r = a * k for a small k (|k| <= ~2^16): two wrap carries.
+__device__ __forceinline__ void fe_smul(int32_t* r, const int32_t* a, int32_t k) {
+#pragma unroll
+  for (int i = 0; i < fold::N; ++i) r[i] = a[i] * k;
+  fe_carry(r);
+  fe_carry(r);
+}
+
+// r = a * b. r may alias a or b: every read of a and b comes before the
+// first write of r. Kept out of line so each point formula is a handful of
+// calls and the kernels compile in seconds.
+__device__ __noinline__ void fe_mul(int32_t* r, const int32_t* a, const int32_t* b) {
+  using namespace fold;
+  int32_t t[NCOL];
+#pragma unroll
+  for (int k = 0; k < NCOL; ++k) t[k] = 0;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int32_t ai = a[i];
+#pragma unroll
+    for (int j = 0; j < N; ++j) t[i + j] += ai * b[j];
+  }
+  // two no-wrap passes; the carry out of the spare top column is dropped,
+  // as in the plain version
+#pragma unroll
+  for (int pass = 0; pass < 2; ++pass) {
+#pragma unroll
+    for (int k = NCOL - 1; k > 0; --k) t[k] = (t[k] & MASK) + (t[k - 1] >> LIMB_BITS);
+    t[0] &= MASK;
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    int32_t acc = t[i];
+#pragma unroll
+    for (int k = 0; k < N + 2; ++k) acc += t[N + k] * c_consts[(ROW_FOLD + k) * N + i];
+    r[i] = acc;
+  }
+  fe_carry(r);
+  fe_carry(r);
+  fe_carry(r);
+}
+
+// ---------------------------------------------------------------------------
+// Coordinate fields: Fq (R = 1 row) and Fq2 = Fq[u]/(u^2+1) (R = 2 rows)
+// ---------------------------------------------------------------------------
+
+template <int R>
+__device__ __forceinline__ void ext_add(int32_t (*r)[fold::N], int32_t (*a)[fold::N],
+                                        int32_t (*b)[fold::N]) {
+#pragma unroll
+  for (int k = 0; k < R; ++k) fe_add(r[k], a[k], b[k]);
+}
+
+template <int R>
+__device__ __forceinline__ void ext_sub(int32_t (*r)[fold::N], int32_t (*a)[fold::N],
+                                        int32_t (*b)[fold::N]) {
+#pragma unroll
+  for (int k = 0; k < R; ++k) fe_sub(r[k], a[k], b[k]);
+}
+
+// r = a * b; r may alias a or b. Fq2 is the JAX _Fq2.mul Karatsuba:
+// m0 = a0 b0, m1 = a1 b1, t = (a0 + a1)(b0 + b1), c0 = m0 - m1,
+// c1 = (t - m0) - m1.
+template <int R>
+__device__ __forceinline__ void ext_mul(int32_t (*r)[fold::N], int32_t (*a)[fold::N],
+                                        int32_t (*b)[fold::N]) {
+  using namespace fold;
+  if constexpr (R == 1) {
+    fe_mul(r[0], a[0], b[0]);
+  } else {
+    int32_t m0[N], m1[N], sa[N], sb[N], t[N];
+    fe_mul(m0, a[0], b[0]);
+    fe_mul(m1, a[1], b[1]);
+    fe_add(sa, a[0], a[1]);
+    fe_add(sb, b[0], b[1]);
+    fe_mul(t, sa, sb);
+    fe_sub(r[0], m0, m1);
+    fe_sub(t, t, m0);
+    fe_sub(r[1], t, m1);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Curves: coordinates, consts rows, padd, pdouble, identity
+// ---------------------------------------------------------------------------
+
+// Extended twisted Edwards a = -1 (Curve25519 / Ristretto255), (X, Y, Z, T).
+struct Ed25519 {
+  static constexpr int COORDS = 4;
+  static constexpr int NCONST = fold::N + 4;  // ONE, FOLD[N + 2], 2d
+
+  // add-2008-hwcd-3, unified and complete for Ristretto points. r may alias
+  // p or q.
+  static __device__ __forceinline__ void padd(int32_t (*r)[fold::N], int32_t (*p)[fold::N],
+                                              int32_t (*q)[fold::N]) {
+    using namespace fold;
+    int32_t u[N], v[N], A[N], B[N], C[N], D[N], two_d[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) two_d[i] = c_consts[ROW_CURVE * N + i];
+    fe_sub(u, p[1], p[0]);
+    fe_sub(v, q[1], q[0]);
+    fe_mul(A, u, v);
+    fe_add(u, p[1], p[0]);
+    fe_add(v, q[1], q[0]);
+    fe_mul(B, u, v);
+    fe_mul(u, p[3], q[3]);
+    fe_mul(C, u, two_d);
+    fe_mul(u, p[2], q[2]);
+#pragma unroll
+    for (int i = 0; i < N; ++i) D[i] = u[i] + u[i];
+    fe_carry(D);
+    int32_t E[N], F[N], G[N], H[N];
+    fe_sub(E, B, A);
+    fe_sub(F, D, C);
+    fe_add(G, D, C);
+    fe_add(H, B, A);
+    fe_mul(r[0], E, F);
+    fe_mul(r[1], G, H);
+    fe_mul(r[2], F, G);
+    fe_mul(r[3], E, H);
+  }
+
+  // dbl-2008-hwcd (8 products, identity-safe). r may alias p.
+  static __device__ __forceinline__ void pdouble(int32_t (*r)[fold::N], int32_t (*p)[fold::N]) {
+    using namespace fold;
+    int32_t A[N], B[N], C[N], H[N], u[N], v[N];
+    fe_mul(A, p[0], p[0]);
+    fe_mul(B, p[1], p[1]);
+    fe_mul(u, p[2], p[2]);
+#pragma unroll
+    for (int i = 0; i < N; ++i) C[i] = u[i] + u[i];
+    fe_carry(C);
+    fe_add(H, A, B);
+    fe_add(u, p[0], p[1]);
+    fe_mul(v, u, u);
+    int32_t E[N], F[N], G[N];
+    fe_sub(E, H, v);
+    fe_sub(G, A, B);
+    fe_add(F, C, G);
+    fe_mul(r[0], E, F);
+    fe_mul(r[1], G, H);
+    fe_mul(r[2], F, G);
+    fe_mul(r[3], E, H);
+  }
+
+  // (0 : 1 : 1 : 0)
+  static __device__ __forceinline__ void identity(int32_t (*r)[fold::N]) {
+#pragma unroll
+    for (int c = 0; c < COORDS; ++c)
+#pragma unroll
+      for (int i = 0; i < fold::N; ++i) r[c][i] = (i == 0 && (c == 1 || c == 2)) ? 1 : 0;
+  }
+};
+
+// Complete projective y^2 = x^3 + b, a = 0: Renes-Costello-Batina 2015,
+// algorithm 7, step for step as the JAX WeierstrassEngine.padd. Coordinates
+// X, Y, Z of W::ROWS rows each. r may alias p or q: every read of p and q
+// comes before the first write of r.
+template <class W>
+__device__ __forceinline__ void rcb_padd(int32_t (*r)[fold::N], int32_t (*p)[fold::N],
+                                         int32_t (*q)[fold::N]) {
+  using namespace fold;
+  constexpr int R = W::ROWS;
+  int32_t (*X1)[N] = p;
+  int32_t (*Y1)[N] = p + R;
+  int32_t (*Z1)[N] = p + 2 * R;
+  int32_t (*X2)[N] = q;
+  int32_t (*Y2)[N] = q + R;
+  int32_t (*Z2)[N] = q + 2 * R;
+  int32_t t0[R][N], t1[R][N], t2[R][N], t3[R][N], t4[R][N], X3[R][N], Y3[R][N], Z3[R][N];
+  int32_t u[R][N], v[R][N];
+  ext_mul<R>(t0, X1, X2);
+  ext_mul<R>(t1, Y1, Y2);
+  ext_mul<R>(t2, Z1, Z2);
+  ext_add<R>(u, X1, Y1);
+  ext_add<R>(v, X2, Y2);
+  ext_mul<R>(t3, u, v);
+  ext_add<R>(u, t0, t1);
+  ext_sub<R>(t3, t3, u);
+  ext_add<R>(u, Y1, Z1);
+  ext_add<R>(v, Y2, Z2);
+  ext_mul<R>(t4, u, v);
+  ext_add<R>(u, t1, t2);
+  ext_sub<R>(t4, t4, u);
+  ext_add<R>(u, X1, Z1);
+  ext_add<R>(v, X2, Z2);
+  ext_mul<R>(X3, u, v);
+  ext_add<R>(u, t0, t2);
+  ext_sub<R>(Y3, X3, u);
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) X3[k][i] = t0[k][i] + t0[k][i] + t0[k][i];
+    fe_carry(X3[k]);
+  }
+  W::mul_b3(t2, t2);
+  ext_add<R>(Z3, t1, t2);
+  ext_sub<R>(t1, t1, t2);
+  W::mul_b3(Y3, Y3);
+  ext_mul<R>(u, t3, t1);
+  ext_mul<R>(v, t4, Y3);
+  ext_sub<R>(r, u, v);
+  ext_mul<R>(u, t1, Z3);
+  ext_mul<R>(v, Y3, X3);
+  ext_add<R>(r + R, u, v);
+  ext_mul<R>(u, Z3, t4);
+  ext_mul<R>(v, X3, t3);
+  ext_add<R>(r + 2 * R, u, v);
+}
+
+// BN254 G1 over Fq: (X, Y, Z), b3 = 9.
+struct Bn254G1 {
+  static constexpr int ROWS = 1;
+  static constexpr int COORDS = 3;
+  static constexpr int NCONST = fold::N + 3;  // ONE, FOLD[N + 2]
+
+  static __device__ __forceinline__ void mul_b3(int32_t (*r)[fold::N], int32_t (*x)[fold::N]) {
+    fe_smul(r[0], x[0], 9);
+  }
+  static __device__ __forceinline__ void padd(int32_t (*r)[fold::N], int32_t (*p)[fold::N],
+                                              int32_t (*q)[fold::N]) {
+    rcb_padd<Bn254G1>(r, p, q);
+  }
+  static __device__ __forceinline__ void pdouble(int32_t (*r)[fold::N], int32_t (*p)[fold::N]) {
+    rcb_padd<Bn254G1>(r, p, p);
+  }
+  // (0 : 1 : 0)
+  static __device__ __forceinline__ void identity(int32_t (*r)[fold::N]) {
+#pragma unroll
+    for (int c = 0; c < COORDS; ++c)
+#pragma unroll
+      for (int i = 0; i < fold::N; ++i) r[c][i] = (i == 0 && c == ROWS) ? 1 : 0;
+  }
+};
+
+// BN254 G2 over Fq2: (X, Y, Z), each (c0, c1); b3 from the consts block.
+struct Bn254G2 {
+  static constexpr int ROWS = 2;
+  static constexpr int COORDS = 6;
+  static constexpr int NCONST = fold::N + 5;  // ONE, FOLD[N + 2], b3.c0, b3.c1
+
+  static __device__ __forceinline__ void mul_b3(int32_t (*r)[fold::N], int32_t (*x)[fold::N]) {
+    using namespace fold;
+    int32_t b3[2][N];
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+#pragma unroll
+      for (int i = 0; i < N; ++i) b3[k][i] = c_consts[(ROW_CURVE + k) * N + i];
+    ext_mul<2>(r, x, b3);
+  }
+  static __device__ __forceinline__ void padd(int32_t (*r)[fold::N], int32_t (*p)[fold::N],
+                                              int32_t (*q)[fold::N]) {
+    rcb_padd<Bn254G2>(r, p, q);
+  }
+  static __device__ __forceinline__ void pdouble(int32_t (*r)[fold::N], int32_t (*p)[fold::N]) {
+    rcb_padd<Bn254G2>(r, p, p);
+  }
+  // (0 : 1 : 0), Y = (1, 0)
+  static __device__ __forceinline__ void identity(int32_t (*r)[fold::N]) {
+#pragma unroll
+    for (int c = 0; c < COORDS; ++c)
+#pragma unroll
+      for (int i = 0; i < fold::N; ++i) r[c][i] = (i == 0 && c == ROWS) ? 1 : 0;
+  }
+};
+
+// ---------------------------------------------------------------------------
+// Lane loads and stores
+// ---------------------------------------------------------------------------
+
+// Load / store lane `lane` of a (COORDS, N, stride) int32 tensor.
+template <class Cv>
+__device__ __forceinline__ void pt_load_lanes(int32_t (*r)[fold::N], const int32_t* __restrict__ src,
+                                              int lane, int stride) {
+#pragma unroll
+  for (int c = 0; c < Cv::COORDS; ++c)
+#pragma unroll
+    for (int i = 0; i < fold::N; ++i) r[c][i] = src[(c * fold::N + i) * (size_t)stride + lane];
+}
+
+template <class Cv>
+__device__ __forceinline__ void pt_store_lanes(int32_t* __restrict__ dst, int32_t (*p)[fold::N],
+                                               int lane, int stride) {
+#pragma unroll
+  for (int c = 0; c < Cv::COORDS; ++c)
+#pragma unroll
+    for (int i = 0; i < fold::N; ++i) dst[(c * fold::N + i) * (size_t)stride + lane] = p[c][i];
+}
+
+// Row `row` of a (rows, COORDS, N) int16 multiples table, widened to int32:
+// COORDS * N * 2 bytes (192, 144 or 288) as 16-byte loads.
+template <class Cv>
+__device__ __forceinline__ void load_row(int32_t (*pt)[fold::N], const int16_t* __restrict__ table,
+                                         int row) {
+  constexpr int WORDS = Cv::COORDS * fold::N / 8;  // 16-byte words per row
+  const int4* src = reinterpret_cast<const int4*>(table + (size_t)row * Cv::COORDS * fold::N);
+#pragma unroll
+  for (int w = 0; w < WORDS; ++w) {
+    const int4 v = __ldg(src + w);
+    const int32_t words[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      const int f = w * 8 + h * 2;
+      pt[f / fold::N][f % fold::N] = (int32_t)(int16_t)(words[h] & 0xFFFF);
+      pt[(f + 1) / fold::N][(f + 1) % fold::N] = words[h] >> 16;
+    }
+  }
+}
+
+// Sum over the basis k = 0..Kp-1 of table[k * 256 + digit(k)] for one
+// output lane, by one warp: thread s adds the points k = s, s + 32, ...,
+// then the 32 partial sums meet in a shuffle tree (16, 8, 4, 2, 1); lane 0
+// of the warp holds the sum. `digit` is this lane's digit column with its
+// stride over k. Every thread of the warp must call it.
+template <class Cv>
+__device__ __forceinline__ void warp_window_sum(int32_t (*acc)[fold::N], int32_t (*pt)[fold::N],
+                                                const int16_t* __restrict__ table,
+                                                const int32_t* __restrict__ digit, size_t stride,
+                                                int Kp, int s) {
+  bool have = false;
+  for (int k = s; k < Kp; k += 32) {
+    const int d = digit[(size_t)k * stride] & 0xFF;
+    if (!have) {
+      load_row<Cv>(acc, table, k * 256 + d);
+      have = true;
+    } else {
+      load_row<Cv>(pt, table, k * 256 + d);
+      Cv::padd(acc, acc, pt);
+    }
+  }
+  if (!have) Cv::identity(acc);  // Kp < 32: this thread's share is the identity
+#pragma unroll 1
+  for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+    for (int c = 0; c < Cv::COORDS; ++c)
+#pragma unroll
+      for (int i = 0; i < fold::N; ++i) pt[c][i] = __shfl_down_sync(0xffffffffu, acc[c][i], off);
+    if (s < off) Cv::padd(acc, acc, pt);
+  }
+}

@@ -1,16 +1,19 @@
 """The fixed-basis windowed MSM on torch tensors.
 
-Port of the Edwards half of the JAX package's ``libzkp_tpu/ops/curve_jax.py``:
+Port of the MSM half of the JAX package's ``libzkp_tpu/ops/curve_jax.py``:
 
-* Points are ``(..., 4, n, L)`` int32 tensors in extended coordinates; the
-  point engine (``EdwardsEngine``, ``_tree_reduce``) lives in
-  :mod:`.edwards` and is re-exported here under the JAX module's names.
+* Points are ``(..., C, n, L)`` int32 tensors; the point engines live in
+  :mod:`.edwards` (ed25519, re-exported here under the JAX module's names)
+  and :mod:`.weierstrass` (BN254 G1 and G2, :func:`get_engine`).
 * MSM = shared-multiples radix-256 windows: each basis point has a 256-entry
   multiples table (:class:`DeviceTable`, int16, built on the device by
   chaining the table-add kernel); scalar digits are the scalars' bytes. The
-  MSM walks the 32 windows high to low: the window-sum kernel gathers and
-  sums each lane's multiples, the Horner kernel folds the sum in
-  (:mod:`.kernels`).
+  MSM walks the 32 windows high to low.
+* Two window loops, as in the JAX package's v3 and v4 MSMs: ed25519 (the
+  Bulletproofs path) runs :func:`msm_windows`, one window-sum and one Horner
+  launch per window; BN254 G1/G2 (the Groth16 path) runs
+  :func:`msm_windows4`, one ``window_sum4`` and one ``horner4`` launch per
+  group of four windows (:mod:`.kernels`).
 """
 
 from __future__ import annotations
@@ -22,10 +25,12 @@ import torch
 
 from . import kernels
 from .edwards import EdwardsEngine, _tree_reduce, edwards_engine  # noqa: F401  (re-exported)
+from .weierstrass import get_engine
 
 SCALAR_BYTES = 32
 NWIN = SCALAR_BYTES
 K_CHUNK = 32  # basis padding granule (the JAX kernels' K chunk)
+WIN_GROUP = kernels.WIN_GROUP
 
 
 def _pad_batch(B: int) -> int:
@@ -39,17 +44,20 @@ def _pad_batch(B: int) -> int:
 class DeviceTable:
     """A basis's radix-256 multiples table on a device.
 
-    ``table`` is ``(Kp*256, 4, n)`` int16: row ``k*256 + d`` holds ``d`` times
-    basis point ``k`` (relaxed limbs are < 2^13, so int16 holds them). The
-    basis is padded with identity points to a multiple of the K chunk. The
-    table is built where it lives, by 255 chained table-add launches (the
-    plain version of that kernel on the CPU), as the JAX
-    ``_table_build_jit`` chains its table-add kernel.
+    ``table`` is ``(Kp*256, C, n)`` int16: row ``k*256 + d`` holds ``d`` times
+    basis point ``k`` (relaxed limbs stay within int16: below 2^13 for
+    ed25519, in [-7643, 11737] for BN254, ``csrc/fold_curves.cuh``). The basis
+    (``base_np``, ``(K, C, n)`` limbs from the engine's ``encode_points``) is
+    padded with identity points to a multiple of the K chunk. The table is
+    built where it lives, by 255 chained table-add launches (the plain
+    version of that kernel on the CPU), as the JAX ``_table_build_jit``
+    chains its table-add kernel.
     """
 
-    def __init__(self, base_np: np.ndarray, *, device):
-        eng = edwards_engine()
+    def __init__(self, base_np: np.ndarray, *, device, curve: str = "ed25519"):
+        eng = get_engine(curve)
         C, n = eng.coords, eng.n
+        self.curve = curve
         self.K = base_np.shape[0]
         kc = min(K_CHUNK, _pad_batch(self.K))
         self.Kp = ((self.K + kc - 1) // kc) * kc
@@ -63,7 +71,7 @@ class DeviceTable:
         acc = eng.identity(self.Kp, self.device)
         rows = [acc]
         for _ in range(255):
-            acc = kernels.pair_add(self.consts, acc, baseT)
+            acc = kernels.pair_add(self.consts, acc, baseT, curve=curve)
             rows.append(acc)
         table = torch.stack(rows, dim=0)  # (256, C, n, Kp)
         self.table = (
@@ -90,9 +98,9 @@ def _digits_to_windows(digits: torch.Tensor) -> torch.Tensor:
 
 
 def msm_windows(table: DeviceTable, dw: torch.Tensor) -> torch.Tensor:
-    """Batched MSM from digit windows ``(NWIN, Kp, B)`` (high first) -> (4, n, B).
-
-    One window-sum and one Horner launch per window."""
+    """v3 MSM (ed25519): batched MSM from digit windows ``(NWIN, Kp, B)``
+    (high first) -> (4, n, B). One window-sum and one Horner launch per
+    window."""
     eng = edwards_engine()
     acc = eng.identity(dw.shape[-1], dw.device)
     for w in range(dw.shape[0]):
@@ -101,8 +109,23 @@ def msm_windows(table: DeviceTable, dw: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def msm_windows4(table: DeviceTable, dw: torch.Tensor) -> torch.Tensor:
+    """v4 MSM (BN254): batched MSM from digit windows ``(NWIN, Kp, B)``
+    (high first) -> (C, n, B), the JAX ``_msm_jit_v4`` as a loop over the 8
+    groups of WIN_GROUP windows, high group first: per group one
+    ``window_sum4`` launch, (C, n, 4B), and one ``horner4`` launch."""
+    eng = get_engine(table.curve)
+    acc = eng.identity(dw.shape[-1], dw.device)
+    for g in range(0, dw.shape[0], WIN_GROUP):
+        wsums = kernels.window_sum4(table.consts, table.table, dw[g : g + WIN_GROUP],
+                                    curve=table.curve)
+        acc = kernels.horner4(table.consts, acc, wsums, curve=table.curve)
+    return acc
+
+
 def msm_many(table: DeviceTable, scalar_vecs: Sequence[Sequence[int]]):
-    """Batch of independent MSMs over one fixed basis -> host extended points."""
+    """Batch of independent MSMs over one fixed basis -> host points
+    (extended Edwards for ed25519, Jacobian for BN254 G1/G2)."""
     B = len(scalar_vecs)
     if B == 0:
         return []
@@ -111,6 +134,7 @@ def msm_many(table: DeviceTable, scalar_vecs: Sequence[Sequence[int]]):
     if Bp != B:
         digits = np.pad(digits, ((0, Bp - B), (0, 0), (0, 0)))
     dw = _digits_to_windows(torch.from_numpy(digits).to(table.device))
-    out = msm_windows(table, dw).cpu().numpy()
+    walk = msm_windows if table.curve == "ed25519" else msm_windows4
+    out = walk(table, dw).cpu().numpy()
     pts_np = np.transpose(out, (2, 0, 1))[:B]  # (B, C, n)
-    return edwards_engine().decode_points(pts_np)
+    return get_engine(table.curve).decode_points(pts_np)

@@ -1,20 +1,28 @@
 """The hand-written Hopper kernels of the MSM, their build and their wrappers.
 
-Three CUDA C++ kernels under ``libzkp_tpu_torch/csrc/``, each compiled for
+Five CUDA C++ sources under ``libzkp_tpu_torch/csrc/``, each compiled for
 ``sm_90a`` by ``nvcc`` into its own shared library with a plain C interface
-and bound with ``ctypes``:
+and bound with ``ctypes``; the field and curve code they share is
+``csrc/fold_curves.cuh``. Each kernel is instantiated for the curves its path
+runs, and each instance is a kernel of its own, named ``<kernel>`` for
+ed25519 and ``<kernel>_<curve>`` for BN254 (:data:`INSTANCES`):
 
-* ``window_sum`` (K1, ``csrc/window_sum.cu``) replaces
+* ``window_sum`` (K1, ``csrc/window_sum.cu``, ed25519) replaces
   ``libzkp_tpu/ops/curve_jax.py:_window_fused_call``;
-* ``horner`` (K2, ``csrc/horner.cu``) replaces ``curve_jax.py:_horner_call``;
-* ``pair_add`` (K3, ``csrc/pair_add.cu``) replaces ``curve_jax.py:_pair_add_call``.
+* ``horner`` (K2, ``csrc/horner.cu``, ed25519) replaces ``_horner_call``;
+* ``pair_add`` (K3, ``csrc/pair_add.cu``; ed25519, bn254_g1, bn254_g2)
+  replaces ``_pair_add_call``;
+* ``window_sum4`` (``csrc/window_sum4.cu``; bn254_g1, bn254_g2) replaces
+  ``_window_fused4_call``;
+* ``horner4`` (``csrc/horner4.cu``; bn254_g1, bn254_g2) replaces
+  ``_horner4_call``.
 
 Each wrapper takes the kernel's plain PyTorch version (``*_plain``, in this
 module) for tensors on the CPU, and launches the kernel for tensors on a CUDA
 device, or raises: there is no fall back from a failed build or launch. The
 libraries are built at first use into ``libzkp_tpu_torch/_build/`` (all
-``nvcc`` processes at once), never at import. Each wrapper counts its kernel
-launches in its ``launches`` attribute.
+``nvcc`` processes at once), never at import. Each wrapper adds one to its
+instance's count in :func:`launches` where it launches the kernel.
 """
 
 from __future__ import annotations
@@ -30,13 +38,28 @@ from typing import Dict
 
 import torch
 
-from .edwards import _tree_reduce, edwards_engine
+from .edwards import _tree_reduce
+from .weierstrass import CURVES, get_engine
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-HEADER = "fe25519_fold.cuh"
-SOURCES = {"window_sum": "window_sum.cu", "horner": "horner.cu", "pair_add": "pair_add.cu"}
+HEADER = "fold_curves.cuh"
+SOURCES = {
+    "window_sum": "window_sum.cu",
+    "horner": "horner.cu",
+    "pair_add": "pair_add.cu",
+    "window_sum4": "window_sum4.cu",
+    "horner4": "horner4.cu",
+}
+KERNEL_CURVES = {
+    "window_sum": ("ed25519",),
+    "horner": ("ed25519",),
+    "pair_add": CURVES,
+    "window_sum4": ("bn254_g1", "bn254_g2"),
+    "horner4": ("bn254_g1", "bn254_g2"),
+}
+WIN_GROUP = 4  # windows per window_sum4 / horner4 launch
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -48,7 +71,28 @@ _ARGTYPES = {
     "window_sum": [_P, _P, _P, _P, _I, _I, _P],
     "horner": [_P, _P, _P, _P, _I, _P],
     "pair_add": [_P, _P, _P, _P, _I, _P],
+    "window_sum4": [_P, _P, _P, _P, _I, _I, _P],
+    "horner4": [_P, _P, _P, _P, _I, _P],
 }
+
+
+def instance(kernel: str, curve: str) -> str:
+    """Name of a kernel's instance for one curve."""
+    return kernel if curve == "ed25519" else f"{kernel}_{curve}"
+
+
+INSTANCES = tuple(instance(k, c) for k in SOURCES for c in KERNEL_CURVES[k])
+_LAUNCHES: Dict[str, int] = dict.fromkeys(INSTANCES, 0)
+
+
+def reset_launches() -> None:
+    for name in _LAUNCHES:
+        _LAUNCHES[name] = 0
+
+
+def launches() -> Dict[str, int]:
+    """Kernel launches per instance since the last :func:`reset_launches`."""
+    return dict(_LAUNCHES)
 
 
 def _nvcc() -> str:
@@ -105,30 +149,36 @@ def build() -> Dict[str, Path]:
 
 
 @functools.lru_cache(maxsize=None)
-def _launcher(name: str):
+def _launcher(name: str, curve: str):
     lib = ctypes.CDLL(str(build()[name]))
-    fn = getattr(lib, f"{name}_launch")
+    fn = getattr(lib, f"{name}_{curve}_launch")
     fn.argtypes = _ARGTYPES[name]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _run(name: str, dev: torch.device, *args) -> None:
+def _run(name: str, curve: str, dev: torch.device, *args) -> None:
     with torch.cuda.device(dev):
-        err = _launcher(name)(*args, torch.cuda.current_stream(dev).cuda_stream)
+        err = _launcher(name, curve)(*args, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")
+        raise RuntimeError(f"{instance(name, curve)} kernel launch failed with CUDA error {err}")
+    _LAUNCHES[instance(name, curve)] += 1
 
 
-def _check_cuda(consts: torch.Tensor, **tensors) -> torch.device:
+def _engine(kernel: str, curve: str):
+    if curve not in KERNEL_CURVES[kernel]:
+        raise ValueError(f"{kernel} has no {curve} instance")
+    return get_engine(curve)
+
+
+def _check_cuda(eng, consts: torch.Tensor, **tensors) -> torch.device:
     """The kernels take contiguous tensors on one CUDA device and the
-    (n + 4, n) int32 Edwards consts block."""
-    eng = edwards_engine()
+    curve's int32 consts block."""
     dev = consts.device
     if dev.type != "cuda":
         raise ValueError(f"kernel wrappers take CUDA or CPU tensors, got {dev}")
-    if consts.dtype != torch.int32 or tuple(consts.shape) != (eng.n + 4, eng.n):
-        raise ValueError("consts must be the (n + 4, n) int32 Edwards consts block")
+    if consts.dtype != torch.int32 or tuple(consts.shape) != eng.consts_np.shape:
+        raise ValueError(f"consts must be the {eng.consts_np.shape} int32 consts block")
     for key, t in {"consts": consts, **tensors}.items():
         if t.device != dev:
             raise ValueError(f"{key} is on {t.device}, consts on {dev}")
@@ -137,27 +187,37 @@ def _check_cuda(consts: torch.Tensor, **tensors) -> torch.device:
     return dev
 
 
-def _check_points(name: str, t: torch.Tensor, lanes: int) -> None:
-    eng = edwards_engine()
+def _check_points(eng, name: str, t: torch.Tensor, lanes: int) -> None:
     if t.dtype != torch.int32 or tuple(t.shape) != (eng.coords, eng.n, lanes):
         raise ValueError(f"{name} must be ({eng.coords}, {eng.n}, {lanes}) int32")
 
 
+def _check_table(eng, table: torch.Tensor, digits: torch.Tensor, Kp: int) -> None:
+    if digits.dtype != torch.int32:
+        raise ValueError("digits must be int32")
+    if table.dtype != torch.int16 or tuple(table.shape) != (Kp * 256, eng.coords, eng.n):
+        raise ValueError(f"table must be ({Kp * 256}, {eng.coords}, {eng.n}) int16")
+
+
+def _gather_sum(eng, consts: torch.Tensor, table: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
+    """Index the int16 table with (Kp, L) digits, widen, tree-reduce over the
+    basis with ``padd`` in the JAX ``_tree_reduce`` pairing -> (C, n, L)."""
+    Kp = digits.shape[0]
+    koff = torch.arange(Kp, device=digits.device, dtype=torch.int64)[:, None] * 256
+    pts = table[digits.to(torch.int64) + koff]  # (Kp, L, C, n) int16
+    pts = pts.permute(0, 2, 3, 1).to(torch.int32)  # (Kp, C, n, L)
+    return _tree_reduce(lambda a, b: eng.padd(consts, a, b), pts)
+
+
 # ---------------------------------------------------------------------------
-# K1: window sum
+# K1: window sum (ed25519)
 # ---------------------------------------------------------------------------
 
 
 def window_sum_plain(consts: torch.Tensor, table: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
-    """Plain version of K1: index the int16 table, widen, tree-reduce with
-    ``padd`` in the JAX ``_tree_reduce`` pairing (limbs equal the JAX
-    ``_window_fused_call`` CPU branch)."""
-    eng = edwards_engine()
-    Kp = digits.shape[0]
-    koff = torch.arange(Kp, device=digits.device, dtype=torch.int64)[:, None] * 256
-    pts = table[digits.to(torch.int64) + koff]  # (Kp, B, C, n) int16
-    pts = pts.permute(0, 2, 3, 1).to(torch.int32)  # (Kp, C, n, B)
-    return _tree_reduce(lambda a, b: eng.padd(consts, a, b), pts)
+    """Plain version of K1 (limbs equal the JAX ``_window_fused_call`` CPU
+    branch)."""
+    return _gather_sum(get_engine("ed25519"), consts, table, digits)
 
 
 def window_sum(consts: torch.Tensor, table: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
@@ -167,32 +227,25 @@ def window_sum(consts: torch.Tensor, table: torch.Tensor, digits: torch.Tensor) 
     Returns (4, n, B) int32."""
     if table.device.type == "cpu":
         return window_sum_plain(consts, table, digits)
-    eng = edwards_engine()
-    dev = _check_cuda(consts, table=table, digits=digits)
+    eng = _engine("window_sum", "ed25519")
+    dev = _check_cuda(eng, consts, table=table, digits=digits)
     Kp, B = digits.shape
-    if digits.dtype != torch.int32:
-        raise ValueError("digits must be int32")
-    if table.dtype != torch.int16 or tuple(table.shape) != (Kp * 256, eng.coords, eng.n):
-        raise ValueError(f"table must be ({Kp * 256}, {eng.coords}, {eng.n}) int16")
+    _check_table(eng, table, digits, Kp)
     out = torch.empty((eng.coords, eng.n, B), dtype=torch.int32, device=table.device)
-    _run("window_sum", dev, consts.data_ptr(), table.data_ptr(), digits.data_ptr(),
+    _run("window_sum", "ed25519", dev, consts.data_ptr(), table.data_ptr(), digits.data_ptr(),
          out.data_ptr(), Kp, B)
-    window_sum.launches += 1
     return out
 
 
-window_sum.launches = 0
-
-
 # ---------------------------------------------------------------------------
-# K2: Horner step
+# K2: Horner step (ed25519)
 # ---------------------------------------------------------------------------
 
 
 def horner_plain(consts: torch.Tensor, acc: torch.Tensor, wsum: torch.Tensor) -> torch.Tensor:
     """Plain version of K2: 8 doublings then one addition (the loop of the
     JAX ``_horner_call`` CPU branch)."""
-    eng = edwards_engine()
+    eng = get_engine("ed25519")
     for _ in range(8):
         acc = eng.pdouble(consts, acc)
     return eng.padd(consts, acc, wsum)
@@ -202,52 +255,110 @@ def horner(consts: torch.Tensor, acc: torch.Tensor, wsum: torch.Tensor) -> torch
     """acc <- 2^8 * acc + wsum over (4, n, B) int32 lanes."""
     if acc.device.type == "cpu":
         return horner_plain(consts, acc, wsum)
-    dev = _check_cuda(consts, acc=acc, wsum=wsum)
+    eng = _engine("horner", "ed25519")
+    dev = _check_cuda(eng, consts, acc=acc, wsum=wsum)
     B = acc.shape[-1]
-    _check_points("acc", acc, B)
-    _check_points("wsum", wsum, B)
+    _check_points(eng, "acc", acc, B)
+    _check_points(eng, "wsum", wsum, B)
     out = torch.empty_like(acc)
-    _run("horner", dev, consts.data_ptr(), acc.data_ptr(), wsum.data_ptr(), out.data_ptr(), B)
-    horner.launches += 1
+    _run("horner", "ed25519", dev, consts.data_ptr(), acc.data_ptr(), wsum.data_ptr(),
+         out.data_ptr(), B)
     return out
 
 
-horner.launches = 0
-
-
 # ---------------------------------------------------------------------------
-# K3: elementwise point addition (table-build step)
+# K3: elementwise point addition (table-build step), every curve
 # ---------------------------------------------------------------------------
 
 
-def pair_add_plain(consts: torch.Tensor, p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+def pair_add_plain(consts: torch.Tensor, p: torch.Tensor, q: torch.Tensor, *,
+                   curve: str = "ed25519") -> torch.Tensor:
     """Plain version of K3: one ``padd``."""
-    return edwards_engine().padd(consts, p, q)
+    return get_engine(curve).padd(consts, p, q)
 
 
-def pair_add(consts: torch.Tensor, p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """p + q per lane over (4, n, K) int32."""
+def pair_add(consts: torch.Tensor, p: torch.Tensor, q: torch.Tensor, *,
+             curve: str = "ed25519") -> torch.Tensor:
+    """p + q per lane over (C, n, K) int32."""
     if p.device.type == "cpu":
-        return pair_add_plain(consts, p, q)
-    dev = _check_cuda(consts, p=p, q=q)
+        return pair_add_plain(consts, p, q, curve=curve)
+    eng = _engine("pair_add", curve)
+    dev = _check_cuda(eng, consts, p=p, q=q)
     K = p.shape[-1]
-    _check_points("p", p, K)
-    _check_points("q", q, K)
+    _check_points(eng, "p", p, K)
+    _check_points(eng, "q", q, K)
     out = torch.empty_like(p)
-    _run("pair_add", dev, consts.data_ptr(), p.data_ptr(), q.data_ptr(), out.data_ptr(), K)
-    pair_add.launches += 1
+    _run("pair_add", curve, dev, consts.data_ptr(), p.data_ptr(), q.data_ptr(), out.data_ptr(), K)
     return out
 
 
-pair_add.launches = 0
-
-WRAPPERS = {"window_sum": window_sum, "horner": horner, "pair_add": pair_add}
-
-
-def reset_launches() -> None:
-    for fn in WRAPPERS.values():
-        fn.launches = 0
+# ---------------------------------------------------------------------------
+# A4: window sum of a group of WIN_GROUP windows (BN254)
+# ---------------------------------------------------------------------------
 
 
-def launches() -> Dict[str, int]:
-    return {name: fn.launches for name, fn in WRAPPERS.items()}
+def window_sum4_plain(consts: torch.Tensor, table: torch.Tensor, digits: torch.Tensor, *,
+                      curve: str) -> torch.Tensor:
+    """Plain version of ``window_sum4``: the (WG, Kp, B) digits laid out as
+    (Kp, WG*B), lane w*B + b, then the gather and tree sum (limbs equal the
+    JAX ``_window_fused4_call`` CPU branch)."""
+    WG, Kp, B = digits.shape
+    d = digits.permute(1, 0, 2).reshape(Kp, WG * B)
+    return _gather_sum(get_engine(curve), consts, table, d)
+
+
+def window_sum4(consts: torch.Tensor, table: torch.Tensor, digits: torch.Tensor, *,
+                curve: str) -> torch.Tensor:
+    """Window sums of WIN_GROUP windows at once.
+
+    ``table``: (Kp*256, C, n) int16; ``digits``: (WIN_GROUP, Kp, B) int32 in
+    [0, 256), window 0 the highest of the group. Returns (C, n, WIN_GROUP*B)
+    int32, window w of lane b in lane w*B + b."""
+    if table.device.type == "cpu":
+        return window_sum4_plain(consts, table, digits, curve=curve)
+    eng = _engine("window_sum4", curve)
+    dev = _check_cuda(eng, consts, table=table, digits=digits)
+    WG, Kp, B = digits.shape
+    if WG != WIN_GROUP:
+        raise ValueError(f"digits must hold {WIN_GROUP} windows, got {WG}")
+    _check_table(eng, table, digits, Kp)
+    out = torch.empty((eng.coords, eng.n, WG * B), dtype=torch.int32, device=table.device)
+    _run("window_sum4", curve, dev, consts.data_ptr(), table.data_ptr(), digits.data_ptr(),
+         out.data_ptr(), Kp, B)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# A5: WIN_GROUP Horner steps (BN254)
+# ---------------------------------------------------------------------------
+
+
+def horner4_plain(consts: torch.Tensor, acc: torch.Tensor, wsums: torch.Tensor, *,
+                  curve: str) -> torch.Tensor:
+    """Plain version of ``horner4``: for each window of the group, 8
+    doublings then one addition (the loop of the JAX ``_horner4_call`` CPU
+    branch)."""
+    eng = get_engine(curve)
+    B = acc.shape[-1]
+    for w in range(WIN_GROUP):
+        for _ in range(8):
+            acc = eng.pdouble(consts, acc)
+        acc = eng.padd(consts, acc, wsums[..., w * B : (w + 1) * B])
+    return acc
+
+
+def horner4(consts: torch.Tensor, acc: torch.Tensor, wsums: torch.Tensor, *,
+            curve: str) -> torch.Tensor:
+    """acc <- 2^8 * acc + wsums[window w], for w = 0..WIN_GROUP-1, over
+    (C, n, B) int32 lanes; ``wsums`` is ``window_sum4``'s (C, n, WG*B)."""
+    if acc.device.type == "cpu":
+        return horner4_plain(consts, acc, wsums, curve=curve)
+    eng = _engine("horner4", curve)
+    dev = _check_cuda(eng, consts, acc=acc, wsums=wsums)
+    B = acc.shape[-1]
+    _check_points(eng, "acc", acc, B)
+    _check_points(eng, "wsums", wsums, WIN_GROUP * B)
+    out = torch.empty_like(acc)
+    _run("horner4", curve, dev, consts.data_ptr(), acc.data_ptr(), wsums.data_ptr(),
+         out.data_ptr(), B)
+    return out

@@ -14,7 +14,7 @@ Port of the JAX package's ``libzkp_tpu/ops/limbfold.py``:
 
 Every operation is the JAX version's, in the same order, so the limbs are
 bit-identical to it (int32 wraps alike in both, and every sum here is exact
-under the bounds). The CUDA kernels (``csrc/fe25519_fold.cuh``) run the same
+under the bounds). The CUDA kernels (``csrc/fold_curves.cuh``) run the same
 schedule per lane.
 """
 

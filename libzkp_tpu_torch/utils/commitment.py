@@ -1,8 +1,7 @@
-"""SHA-256 commitment helpers.
+"""Commitment helpers (SHA-256 and MiMC based).
 
-Copy of the SHA-256 half of the JAX package's ``libzkp_tpu/utils/commitment.py``
-(mirroring the Rust reference's ``utils/commitment.rs``). The MiMC commitment
-belongs to the Groth16 slice and is not in this package yet.
+Copy of the JAX package's ``libzkp_tpu/utils/commitment.py`` (mirroring the
+Rust reference's ``utils/commitment.rs``).
 """
 
 from __future__ import annotations
@@ -10,6 +9,7 @@ from __future__ import annotations
 import hashlib
 from typing import Sequence
 
+from ..ops.mimc import fr_to_commitment, mimc_hash_native
 from .encoding import u64_le
 from .errors import InvalidInput, InvalidProofFormat
 
@@ -17,6 +17,11 @@ from .errors import InvalidInput, InvalidProofFormat
 def commit_value(value: int) -> bytes:
     """SHA-256 of u64 LE (commitment.rs:6-10) — Bulletproofs-based proofs."""
     return hashlib.sha256(u64_le(value)).digest()
+
+
+def commit_value_snark(value: int) -> bytes:
+    """MiMC-5 commitment over BN254 Fr, 32-byte canonical LE (commitment.rs:14-16)."""
+    return fr_to_commitment(mimc_hash_native(value))
 
 
 def commit_values(values: Sequence[int]) -> bytes:

@@ -120,7 +120,7 @@ def test_horner_and_pair_add_plain_match_jax(engines, small_tables):
     np.testing.assert_array_equal(kernels.horner(ct, acc, w).numpy(), want_h)
     want_a = np.asarray(cj._pair_add_call("ed25519", Kp)(cj_consts, jnp.asarray(acc.numpy()), jnp.asarray(w.numpy())))
     np.testing.assert_array_equal(kernels.pair_add(ct, acc, w).numpy(), want_a)
-    assert kernels.launches() == {"window_sum": 0, "horner": 0, "pair_add": 0}
+    assert not any(kernels.launches().values())
 
 
 def test_basis_table_decodes_to_host_table():
@@ -182,4 +182,4 @@ def test_wrappers_take_cpu_or_cuda_only():
     ):
         with pytest.raises(ValueError, match="CUDA or CPU"):
             call()
-    assert kernels.launches() == {"window_sum": 0, "horner": 0, "pair_add": 0}
+    assert not any(kernels.launches().values())

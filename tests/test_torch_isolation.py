@@ -31,9 +31,19 @@ def test_port_imports_neither_jax_nor_reference():
 import json, sys
 import libzkp_tpu_torch as zkp
 from libzkp_tpu_torch import convert
-from libzkp_tpu_torch.ops import kernels, ristretto
+from libzkp_tpu_torch.models import groth16, r1cs, snark_backend
+from libzkp_tpu_torch.models.schemes import equality_proof
+from libzkp_tpu_torch.ops import bn254, field, kernels, mimc, msm_device, ntt, ristretto, weierstrass
+from libzkp_tpu_torch.utils.commitment import commit_value_snark
 env = zkp.prove_range(7, 0, 10, device="cpu")
 ok = zkp.verify_range(env, 0, 10)
+# the Groth16 slice's host pipeline: commitment, circuit, CSR, h
+v = 7
+fr = int.from_bytes(commit_value_snark(v), "little")
+cs = snark_backend.build_equality_circuit(v, v, fr)
+num_instance, csr = snark_backend._equality_shape()
+h = groth16._h_from_csr(512, num_instance, csr, snark_backend._equality_assignment(v, v, fr))
+ok = ok and cs.is_satisfied() and h == groth16._compute_h(cs, 512)
 mods = [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "libzkp_tpu."))
         or m == "libzkp_tpu"]
 print(json.dumps({"ok": ok, "mods": mods}))
@@ -48,6 +58,8 @@ print(json.dumps({"ok": ok, "mods": mods}))
     "zkp.prove_range(7, 0, 10)",
     "zkp.prove_range_batch([(7, 0, 10)])",
     "bp.prove_single_batch([(Transcript(b'x'), 7, 1, 64)])",
+    "zkp.prove_equality(7, 7)",
+    "zkp.prove_equality_batch([(7, 7), (8, 8)])",
 ])
 def test_entry_points_raise_without_cuda(call):
     code = f"""
