@@ -10,8 +10,12 @@ Phases, each printing one JSON line:
    path's shapes, both timed with CUDA events: the ed25519 window_sum,
    horner and pair_add of the range prover; pair_add, window_sum4 and
    horner4 for BN254 G1 (Kp = 512) and G2 (Kp = 352) at 256 lanes, the shapes
-   of the Groth16 prover;
-4. the main path: ``prove_range_batch`` of 256 range proofs (512 prover
+   of the Groth16 prover; tree_sum (all three curves) and the BN254 horner at
+   one block of the mesh-sharded Groth16 MSMs (128 lanes, 256 or 192 basis
+   points; ed25519 at phase 7's range-basis MSM, 96 points); the probe
+   kernels padd_chain and fe_mul, and pair_add at P5's shape;
+4. (phases 4 to 6 run with the seam pinned to the single-device route, a
+   one-position mesh, on any number of cards) the main path: ``prove_range_batch`` of 256 range proofs (512 prover
    lanes; T1/T2 and the L/R MSMs at 1024 lanes) with the launch counters
    zeroed just before and read just after, then warm batches timed, a sample
    of proofs verified by the port's host verifier, and 4 lanes held byte for
@@ -30,8 +34,18 @@ Phases, each printing one JSON line:
    the per-proof and grouped routes interleaved on the same batch and the
    same injected draws, timed, every run's bytes equal; 2 lanes held byte
    for byte against the host golden prover;
-7. the kernels line, the card's name and power limit, and the last line
-   ``{"ok": true, "device": {...}}``.
+7. the mesh-sharded MSM on a (dp 2, shard 2) mesh whose four positions are
+   all this card (it checks the sharding, the per-block kernels and the
+   cross-shard fold, and measures no interconnect): the five query MSMs of a
+   256-statement batch and one ed25519 MSM through ``msm_many_sharded``,
+   launch counts checked, every point equal to the single-device route's;
+8. ``prove_equality_batch`` of phase 5's statements with the seam on that
+   mesh (``set_mesh``), cold and warm, every envelope equal to phase 5's
+   under the same injected draws; phases 7 and 8 run again on a mesh of the
+   real devices when more than one card is visible;
+9. the probes (``libzkp_tpu_torch.probes``: P2, P4, P5);
+10. the kernels line (launches summed over the paths), the card's name and
+    power limit, and the last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero before the last line. Without a CUDA
 device it exits non-zero at once.
@@ -63,6 +77,12 @@ BN_KP = {"bn254_g1": 512, "bn254_g2": 352}  # h query (511 points), b_g2 query (
 G16_LANES = 256        # distinct equality statements per batch
 G16_VERIFY = 8
 G16_GROUP_STATEMENTS = 8  # statements of the grouped batch: 32 proofs each
+CURVE_PADD_MACS = {"ed25519": PADD_MACS, **WPADD_MACS}
+SHARD_DP, SHARD_SHARD = 2, 2  # the one-card mesh: four positions, all cuda:0
+SHARD_B_LOCAL = G16_LANES // SHARD_DP
+# basis points per block of phase 7's MSMs (shard 2): the range basis (Kp 160),
+# the h query (Kp 512), the b_g2 query (Kp 352)
+SHARD_K_LOCAL = {"ed25519": 96, "bn254_g1": 256, "bn254_g2": 192}
 
 
 def emit(obj) -> None:
@@ -125,8 +145,9 @@ def _edwards_point_err(a, b) -> int:
     return err
 
 
-def check_kernels(dev, int_rate: float) -> list:
-    """Phase 3: each kernel against its plain version at the path's shapes."""
+def check_kernels(dev, int_rate: float, tables: dict) -> list:
+    """Phase 3: each kernel against its plain version at the path's shapes.
+    Leaves the table in ``tables["ed25519"]``."""
     import numpy as np
 
     from libzkp_tpu_torch.ops import curve, ed25519 as ed, kernels
@@ -148,6 +169,7 @@ def check_kernels(dev, int_rate: float) -> list:
     table = torch.stack(rows).permute(3, 0, 1, 2).reshape(KP * 256, C, n).to(torch.int16).contiguous()
     digits = torch.randint(0, 256, (KP, MSM_LANES), generator=torch.Generator().manual_seed(7),
                            dtype=torch.int32).to(dev)
+    tables["ed25519"] = (consts, table, KP)
 
     results = []
     ws_k = kernels.window_sum(consts, table, digits)
@@ -254,11 +276,11 @@ def _weierstrass_point_err(curve: str, a, b) -> int:
     return err
 
 
-def check_bn254_kernels(dev, int_rate: float) -> list:
+def check_bn254_kernels(dev, int_rate: float, tables: dict) -> list:
     """Phase 3b: pair_add, window_sum4 and horner4 for BN254 G1 and G2
     against their plain versions at the Groth16 prover's shapes: 256
     statements, so 4 * 256 window-sum lanes; Kp = 512 (G1, the h query) and
-    352 (G2, the b_g2 query)."""
+    352 (G2, the b_g2 query). Leaves each table in ``tables[curve]``."""
     import numpy as np
 
     from libzkp_tpu_torch.ops import kernels
@@ -283,6 +305,7 @@ def check_bn254_kernels(dev, int_rate: float) -> list:
         table = torch.stack(rows).permute(3, 0, 1, 2).reshape(Kp * 256, C, n).to(torch.int16).contiguous()
         digits = torch.randint(0, 256, (WG, Kp, B), generator=torch.Generator().manual_seed(8),
                                dtype=torch.int32).to(dev)
+        tables[curve] = (consts, table, Kp)
         padd = WPADD_MACS[curve]
 
         def plain4():
@@ -352,6 +375,115 @@ def check_bn254_kernels(dev, int_rate: float) -> list:
                             shape=f"p, q ({C},{n},{Kp}) i32"))
     for r in results:
         emit({"phase": "kernel_check", **r})
+    return results
+
+
+def _point_err(curve: str, a, b) -> int:
+    return _edwards_point_err(a, b) if curve == "ed25519" else _weierstrass_point_err(curve, a, b)
+
+
+def check_sharded_kernels(dev, int_rate: float, tables: dict) -> list:
+    """Phase 3c: the kernels of one block of the mesh-sharded Groth16 MSMs
+    (dp = shard = 2: 128 lanes per block; 256 basis points per block for the
+    h query, 192 for the 334- and 332-point queries, 96 for phase 7's
+    ed25519 MSM over the range basis): tree_sum for every curve on rows
+    gathered from the tables of phases 3 and 3b, held by point equality (it
+    sums in another order than the plain tree); horner for BN254 G1 and G2,
+    limb for limb."""
+    from libzkp_tpu_torch.ops import kernels
+    from libzkp_tpu_torch.ops.weierstrass import CURVES
+
+    results = []
+    for i, curve in enumerate(CURVES):
+        consts, table, table_kp = tables[curve]
+        C, n = table.shape[1:]
+        k = SHARD_K_LOCAL[curve]
+        digits = torch.randint(0, 256, (k, SHARD_B_LOCAL), generator=torch.Generator().manual_seed(9 + i),
+                               dtype=torch.int32).to(dev)
+        koff = (torch.arange(k, device=dev, dtype=torch.int64) % table_kp) * 256
+        pts = table[digits.T.to(torch.int64) + koff].contiguous()  # (B, k, C, n) int16
+        ts_k = kernels.tree_sum(consts, pts, curve=curve)
+        ts_p = kernels.tree_sum_plain(consts, pts, curve=curve)
+        torch.cuda.synchronize()
+        err = _point_err(curve, ts_k, ts_p)
+        if err != 0:
+            raise AssertionError(f"tree_sum {curve} disagrees with its plain version (point err {err})")
+        t_k = cuda_ms(lambda: kernels.tree_sum(consts, pts, curve=curve), 20)
+        t_p = cuda_ms(lambda: kernels.tree_sum_plain(consts, pts, curve=curve), 2)
+        padd = CURVE_PADD_MACS[curve]
+        b_ms, b_by = bound((k - 1) * padd * SHARD_B_LOCAL, pts.numel() * 2 + C * n * SHARD_B_LOCAL * 4,
+                           int_rate)
+        results.append(dict(name=kernels.instance("tree_sum", curve), route="cuda",
+                            source="libzkp_tpu_torch/csrc/tree_sum.cu",
+                            replaces="libzkp_tpu/ops/curve_jax.py:364",
+                            max_abs_err=float(err), tolerance="point equality (cross-products mod p; "
+                            "a lane of no point fails)",
+                            ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                            shape=f"pts ({SHARD_B_LOCAL},{k},{C},{n}) i16"))
+        if curve == "ed25519":
+            continue
+        acc_in, wsum = ts_k, ts_p
+        h_k = kernels.horner(consts, acc_in, wsum, curve=curve)
+        h_p = kernels.horner_plain(consts, acc_in, wsum, curve=curve)
+        torch.cuda.synchronize()
+        err = int((h_k - h_p).abs().max())
+        if err != 0:
+            raise AssertionError(f"horner {curve} limbs differ from its plain version (max {err})")
+        t_k = cuda_ms(lambda: kernels.horner(consts, acc_in, wsum, curve=curve), 20)
+        t_p = cuda_ms(lambda: kernels.horner_plain(consts, acc_in, wsum, curve=curve), 3)
+        b_ms, b_by = bound(9 * padd * SHARD_B_LOCAL, 3 * C * n * SHARD_B_LOCAL * 4, int_rate)
+        results.append(dict(name=kernels.instance("horner", curve), route="cuda",
+                            source="libzkp_tpu_torch/csrc/horner.cu",
+                            replaces="libzkp_tpu/ops/curve_jax.py:431",
+                            max_abs_err=float(err), tolerance="exact limbs",
+                            ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                            shape=f"acc, wsum ({C},{n},{SHARD_B_LOCAL}) i32"))
+    for r in results:
+        emit({"phase": "kernel_check", **r})
+    return results
+
+
+def check_probe_kernels(dev, int_rate: float) -> list:
+    """Phase 3d: the probe kernels at the probes' shapes, limb for limb
+    against their plain versions: padd_chain (P2, 64 chained additions over
+    512 lanes), fe_mul for both fields (P4, 2^20 lanes), and K3 pair_add at
+    P5's shape (2^18 lanes; emitted, not returned: K3's row in the kernels
+    line stays at the range path's shape)."""
+    from libzkp_tpu_torch import probes
+    from libzkp_tpu_torch.ops import kernels
+
+    def check(name, source, replaces, run, plain, iters, macs, nbytes, shape, **extra):
+        out_k, out_p = run(), plain()
+        torch.cuda.synchronize()
+        err = int((out_k - out_p).abs().max())
+        if err != 0:
+            raise AssertionError(f"{name} limbs differ from its plain version (max {err})")
+        b_ms, b_by = bound(macs, nbytes, int_rate)
+        row = dict(name=name, route="cuda", source=source, replaces=replaces, max_abs_err=float(err),
+                   tolerance="exact limbs", ms=cuda_ms(run, iters), plain_ms=cuda_ms(plain, 1),
+                   bound_ms=b_ms, bound_by=b_by, library_ms=None, shape=shape, **extra)
+        emit({"phase": "kernel_check", **row})
+        return row
+
+    R = probes.CHAIN_R
+    consts, p, q, _, _ = probes.chain_inputs(dev)
+    lanes = p.shape[-1]
+    results = [check("padd_chain", "libzkp_tpu_torch/csrc/probes.cu", "scripts/bench_pallas_padd.py:65",
+                     lambda: kernels.padd_chain(consts, p, q, R),
+                     lambda: kernels.padd_chain_plain(consts, p, q, R), 20,
+                     R * PADD_MACS * lanes, 3 * p.numel() * 4, f"p, q (4,24,{lanes}) i32, chain {R}")]
+    for curve in ("ed25519", "bn254_g1"):
+        mc, a, b, _, _ = probes.mul_inputs(dev, curve)
+        results.append(check(
+            kernels.instance("fe_mul", curve), "libzkp_tpu_torch/csrc/probes.cu",
+            "scripts/bench_fold.py:138",
+            lambda: kernels.fe_mul(mc, a, b, curve=curve),
+            lambda: kernels.fe_mul_plain(mc, a, b, curve=curve), 50,
+            MUL_MACS * a.shape[-1], 3 * a.numel() * 4, f"a, b (24,{a.shape[-1]}) i32"))
+    consts, p, q, _, _ = probes.add_inputs(dev)
+    check("pair_add", "libzkp_tpu_torch/csrc/pair_add.cu", "scripts/bench_fold.py:185",
+          lambda: kernels.pair_add(consts, p, q), lambda: kernels.pair_add_plain(consts, p, q), 20,
+          PADD_MACS * p.shape[-1], 3 * p.numel() * 4, f"p, q (4,24,{p.shape[-1]}) i32", probe="P5")
     return results
 
 
@@ -477,7 +609,8 @@ def groth16_path(dev) -> dict:
         if Envelope.from_bytes(seeded_envs[lane]).proof != proof:
             raise AssertionError(f"lane {lane}: device batch proof differs from the host golden prover")
     emit({"phase": "groth16_byte_exact", "lanes": lanes, "proof_bytes": 256, "identical": True})
-    return {"counts": counts, "ms_per_batch": batch_ms, "split": split}
+    return {"counts": counts, "ms_per_batch": batch_ms, "split": split, "pairs": pairs,
+            "draws": draws, "seeded_envs": seeded_envs}
 
 
 def groth16_grouped(dev) -> dict:
@@ -579,6 +712,148 @@ def groth16_grouped(dev) -> dict:
     emit({"phase": "groth16_grouped_byte_exact", "lanes": lanes, "identical": True,
           "runs_identical": 6, "verified": 2})
     return {"counts": counts, "ms_per_batch": mean}
+
+
+def mesh_launches(dp: int, shard: int) -> dict:
+    """Launches of the sharded_msm phase on a (dp, shard) mesh: per MSM,
+    every block runs 32 windows of one tree_sum and one horner, and each dp
+    group folds its shard partial sums with shard - 1 pair_adds. Four G1
+    MSMs (a, b_g1, h, l), one G2 (b_g2) and one ed25519."""
+    per = 32 * dp * shard
+    fold = dp * (shard - 1)
+    return {"tree_sum_bn254_g1": 4 * per, "horner_bn254_g1": 4 * per, "pair_add_bn254_g1": 4 * fold,
+            "tree_sum_bn254_g2": per, "horner_bn254_g2": per, "pair_add_bn254_g2": fold,
+            "tree_sum": per, "horner": per, "pair_add": fold}
+
+
+def sharded_msm(dev, mesh, tag: str) -> dict:
+    """Phase 7: the five query MSMs of one batch of 256 distinct equality
+    statements (``groth16._accs_many``'s calls) and one ed25519 MSM of 256
+    lanes over the range prover's 130-point basis, each through
+    ``msm_many_sharded`` on ``mesh`` with the launch counters zeroed just
+    before and read just after, every point equal to the single-device
+    route's (v4 for BN254, v3 for ed25519), both routes timed."""
+    from libzkp_tpu_torch.models import bp_device, groth16, snark_backend
+    from libzkp_tpu_torch.ops import bn254 as bn, curve, ed25519 as ed, kernels, msm_device
+    from libzkp_tpu_torch.utils.commitment import commit_value_snark
+
+    pk = snark_backend._get_equality_setup()
+    num_instance, csr = snark_backend._equality_shape()
+    rng = random.Random(1019)
+    values = rng.sample(range(1, 1 << 62), G16_LANES)
+    z_list = [snark_backend._equality_assignment(v, v, int.from_bytes(commit_value_snark(v), "little"))
+              for v in values]
+    h_list = groth16._h_many(pk, z_list, num_instance, csr)
+    msms = [("b_g2", "bn254_g2", z_list, pk.b_g2_query), ("a", "bn254_g1", z_list, pk.a_query),
+            ("b_g1", "bn254_g1", z_list, pk.b_g1_query), ("h", "bn254_g1", h_list, pk.h_query),
+            ("l", "bn254_g1", [z[num_instance:] for z in z_list], pk.l_query)]
+    basis = bp_device._basis_points(64)
+    msms.append(("range_basis", "ed25519", [[rng.randrange(ed.L) for _ in basis] for _ in range(G16_LANES)],
+                 basis))
+    tables = [msm_device._get_table(c, pts, dev) for _, c, _, pts in msms]
+    sharded = [curve.ShardedTable(t.table, t.K, mesh, curve=t.curve) for t in tables]
+    if mesh.shape == {"dp": SHARD_DP, "shard": SHARD_SHARD}:
+        # phase 3c checked tree_sum at these blocks' shapes
+        for c, k in SHARD_K_LOCAL.items():
+            if k not in {t.k_local for t in sharded if t.curve == c}:
+                raise AssertionError(f"no {c} block of {k} points: phase 3c checked another shape")
+
+    single, single_ms = [], []
+    for t, (_, _, vecs, _) in zip(tables, msms):
+        t0 = time.perf_counter()
+        single.append(curve.msm_many(t, vecs))
+        single_ms.append((time.perf_counter() - t0) * 1e3)
+
+    kernels.reset_launches()
+    got, mesh_ms = [], []
+    for t, (_, _, vecs, _) in zip(sharded, msms):
+        t0 = time.perf_counter()
+        got.append(curve.msm_many_sharded(t, vecs, mesh))
+        mesh_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    counts = kernels.launches()
+    want = dict.fromkeys(kernels.INSTANCES, 0) | mesh_launches(mesh.shape["dp"], mesh.shape["shard"])
+    if counts != want:
+        raise AssertionError(f"kernel launches {counts}, the sharded MSMs need {want}")
+
+    affine = {"bn254_g1": bn.g1_to_affine, "bn254_g2": bn.g2_to_affine}
+    for (name, c, _, _), a, b in zip(msms, got, single):
+        for i, (p, q) in enumerate(zip(a, b, strict=True)):
+            same = ed.point_equal(tuple(p), tuple(q)) if c == "ed25519" else affine[c](p) == affine[c](q)
+            if not same:
+                raise AssertionError(f"{tag} {name} lane {i}: the mesh route's point differs")
+    emit({"phase": f"sharded_msm_{tag}", "mesh": mesh.shape, "devices": str(mesh.devices[0][0]),
+          "lanes": G16_LANES, "msms": [m[0] for m in msms], "points_equal": True,
+          "mesh_ms": mesh_ms, "single_device_ms": single_ms,
+          "mesh_over_single_groth16": sum(mesh_ms[:5]) / sum(single_ms[:5]),
+          "launches": {k: v for k, v in counts.items() if v}})
+    return {"counts": counts}
+
+
+def groth16_mesh(dev, mesh, g16: dict, tag: str) -> dict:
+    """Phase 8: ``prove_equality_batch`` of phase 5's 256 statements with the
+    seam on ``mesh`` (``set_mesh``), under phase 5's injected (r, s) draws:
+    a cold batch (the five sharded tables built; launches zeroed before and
+    read after), then a timed warm batch; every envelope of both equals the
+    single-device route's under the same draws."""
+    import libzkp_tpu_torch as zkp
+    from libzkp_tpu_torch.models import groth16
+    from libzkp_tpu_torch.ops import kernels
+    from libzkp_tpu_torch.parallel import mesh as meshmod
+
+    def run():
+        saved = groth16._rand_fr
+        it = iter(g16["draws"])
+        groth16._rand_fr = lambda: next(it)
+        try:
+            t0 = time.perf_counter()
+            envs = zkp.prove_equality_batch(g16["pairs"], device=dev)
+            torch.cuda.synchronize()
+            return envs, (time.perf_counter() - t0) * 1e3
+        finally:
+            groth16._rand_fr = saved
+
+    pinned = meshmod.current_mesh()
+    meshmod.set_mesh(mesh)
+    try:
+        kernels.reset_launches()
+        cold, cold_ms = run()
+        counts = kernels.launches()
+        warm, warm_ms = run()
+    finally:
+        meshmod.set_mesh(pinned)
+    dp, shard = mesh.shape["dp"], mesh.shape["shard"]
+    want = dict.fromkeys(kernels.INSTANCES, 0) | {
+        k: v for k, v in mesh_launches(dp, shard).items() if "bn254" in k}
+    want["pair_add_bn254_g1"] += 4 * 255  # the four G1 tables, built on the mesh's first device
+    want["pair_add_bn254_g2"] += 255
+    if counts != want:
+        raise AssertionError(f"kernel launches {counts}, the mesh route needs {want}")
+    for name, envs in (("cold", cold), ("warm", warm)):
+        if envs != g16["seeded_envs"]:
+            raise AssertionError(f"{tag} {name} batch: envelopes differ from the single-device route's")
+    emit({"phase": f"groth16_mesh_{tag}", "mesh": mesh.shape, "equality_proofs": G16_LANES,
+          "cold_ms": cold_ms, "warm_ms": warm_ms, "ms_per_equality_proof": warm_ms / G16_LANES,
+          "envelopes_identical": 2 * G16_LANES, "launches": {k: v for k, v in counts.items() if v}})
+    return {"counts": counts}
+
+
+def probes_phase(dev) -> dict:
+    """Phase 9: P2, P4 (both fields) and P5 through ``probes.run``, the
+    launch counters zeroed just before and read just after."""
+    from libzkp_tpu_torch import probes
+    from libzkp_tpu_torch.ops import kernels
+
+    kernels.reset_launches()
+    out = probes.run(dev)
+    counts = kernels.launches()
+    per = 3 + probes.ITERS  # the checked launch, 2 warm-up launches, the timed ones
+    want = dict.fromkeys(kernels.INSTANCES, 0) | {"padd_chain": per, "fe_mul": per,
+                                                  "fe_mul_bn254_g1": per, "pair_add": per}
+    if counts != want:
+        raise AssertionError(f"kernel launches {counts}, the probes need {want}")
+    emit({"phase": "probes", "probes": out, "launches": {k: v for k, v in counts.items() if v}})
+    return {"counts": counts}
 
 
 def main_path(dev) -> dict:
@@ -683,21 +958,38 @@ def main() -> int:
     ptxas = {
         n: [ln.strip() for ln in (kernels.BUILD_DIR / f"{n}.log").read_text().splitlines()
             if "ptxas info" in ln or "stack frame" in ln]
-        for n in kernels.SOURCES
+        for n in kernels.LIBRARIES
         if (kernels.BUILD_DIR / f"{n}.log").exists()
     }
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas})
 
-    checks = check_kernels(dev, int_rate) + check_bn254_kernels(dev, int_rate)
-    path = main_path(dev)
+    from libzkp_tpu_torch.parallel import mesh as meshmod
+
+    # a one-position mesh pins the seam to the single-device route (v3, v4)
+    # on any number of cards, so phases 4 to 6 and phase 8's reference
+    # envelopes never take the mesh route
+    meshmod.set_mesh(meshmod.get_mesh(dp=1, devices=[dev]))
+    tables: dict = {}
+    checks = (check_kernels(dev, int_rate, tables) + check_bn254_kernels(dev, int_rate, tables)
+              + check_sharded_kernels(dev, int_rate, tables) + check_probe_kernels(dev, int_rate))
+    del tables
+    paths = [main_path(dev)]
     g16 = groth16_path(dev)
-    grouped = groth16_grouped(dev)
-    # launches of each instance on the paths that run it: the range prover
-    # for ed25519, the Groth16 prover's two routes for BN254
-    launched = {name: path["counts"][name] + g16["counts"][name] + grouped["counts"][name]
-                for name in kernels.INSTANCES}
+    paths += [g16, groth16_grouped(dev)]
+    # the mesh route on one card: four positions, all cuda:0 (no interconnect)
+    meshes = [("one_card", meshmod.get_mesh(dp=SHARD_DP, shard=SHARD_SHARD, devices=[dev] * 4))]
+    if torch.cuda.device_count() > 1:
+        n_dev = torch.cuda.device_count()
+        meshes.append(("devices", meshmod.get_mesh(shard=2 if n_dev % 2 == 0 else 1)))
+    for tag, mesh in meshes:
+        paths += [sharded_msm(dev, mesh, tag), groth16_mesh(dev, mesh, g16, tag)]
+    paths.append(probes_phase(dev))
+    # launches of each instance summed over the paths that run it
+    launched = {name: sum(p["counts"][name] for p in paths) for name in kernels.INSTANCES}
     if sorted(r["name"] for r in checks) != sorted(kernels.INSTANCES):
         raise AssertionError("a kernel instance was not checked against its plain version")
+    if not all(launched.values()):
+        raise AssertionError(f"instances no path launched: {[k for k, v in launched.items() if not v]}")
 
     emit({"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces")}

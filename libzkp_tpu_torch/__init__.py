@@ -5,7 +5,10 @@ slice. Two slices are ported: the main path, the batched 64-bit
 Bulletproofs range prover (:func:`prove_range_batch`), and the batched
 Groth16 equality prover (:func:`prove_equality_batch`), whose query MSMs over
 BN254 G1 and G2 run on the same family of hand-written CUDA kernels
-(``ops/kernels.py``, sources in ``csrc/``). Proofs and envelopes are
+(``ops/kernels.py``, sources in ``csrc/``). The query MSMs also run
+sharded over a (dp, shard) device mesh (``parallel/``,
+``ops.curve.msm_many_sharded``) when ``parallel.mesh.set_mesh`` names one or
+more than one CUDA device is visible. Proofs and envelopes are
 byte-compatible with the JAX package's.
 
 Entry points run on the CUDA card unless called with ``device="cpu"``, which

@@ -76,6 +76,14 @@ def multiples_table(arr, K: int, *, device, curve: str = "ed25519") -> curve_ops
     return table
 
 
+def sharded_table(arr, K: int, mesh, *, curve: str = "ed25519") -> curve_ops.ShardedTable:
+    """The JAX ``DeviceTable.table`` of a K-point basis of ``curve`` -> the
+    port's per-shard slices of it over ``mesh``, padded with identity rows as
+    the JAX ``_msm_many_sharded_impl`` pads the table it shards."""
+    rows = multiples_table(arr, K, device="cpu", curve=curve).table
+    return curve_ops.ShardedTable(rows, K, mesh, curve=curve)
+
+
 def transcript_state(snapshots: Sequence[bytes], *, device) -> TranscriptDevice:
     """203-byte ``Strobe128.state_bytes()`` snapshots, one per lane -> the
     port's batched transcript resumed at that position."""

@@ -377,13 +377,12 @@ __device__ __forceinline__ void pt_store_lanes(int32_t* __restrict__ dst, int32_
     for (int i = 0; i < fold::N; ++i) dst[(c * fold::N + i) * (size_t)stride + lane] = p[c][i];
 }
 
-// Row `row` of a (rows, COORDS, N) int16 multiples table, widened to int32:
-// COORDS * N * 2 bytes (192, 144 or 288) as 16-byte loads.
+// One int16 point of COORDS * N limbs at `row` (16-byte aligned), widened to
+// int32: COORDS * N * 2 bytes (192, 144 or 288) as 16-byte loads.
 template <class Cv>
-__device__ __forceinline__ void load_row(int32_t (*pt)[fold::N], const int16_t* __restrict__ table,
-                                         int row) {
+__device__ __forceinline__ void load_row(int32_t (*pt)[fold::N], const int16_t* __restrict__ row) {
   constexpr int WORDS = Cv::COORDS * fold::N / 8;  // 16-byte words per row
-  const int4* src = reinterpret_cast<const int4*>(table + (size_t)row * Cv::COORDS * fold::N);
+  const int4* src = reinterpret_cast<const int4*>(row);
 #pragma unroll
   for (int w = 0; w < WORDS; ++w) {
     const int4 v = __ldg(src + w);
@@ -397,28 +396,24 @@ __device__ __forceinline__ void load_row(int32_t (*pt)[fold::N], const int16_t* 
   }
 }
 
-// Sum over the basis k = 0..Kp-1 of table[k * 256 + digit(k)] for one
-// output lane, by one warp: thread s adds the points k = s, s + 32, ...,
-// then the 32 partial sums meet in a shuffle tree (16, 8, 4, 2, 1); lane 0
-// of the warp holds the sum. `digit` is this lane's digit column with its
-// stride over k. Every thread of the warp must call it.
-template <class Cv>
-__device__ __forceinline__ void warp_window_sum(int32_t (*acc)[fold::N], int32_t (*pt)[fold::N],
-                                                const int16_t* __restrict__ table,
-                                                const int32_t* __restrict__ digit, size_t stride,
-                                                int Kp, int s) {
+// Sum over k = 0..K-1 of the int16 point at row(k) for one output lane, by
+// one warp: thread s adds the points k = s, s + 32, ..., then the 32 partial
+// sums meet in a shuffle tree (16, 8, 4, 2, 1); lane 0 of the warp holds the
+// sum. Every thread of the warp must call it.
+template <class Cv, class Row>
+__device__ __forceinline__ void warp_point_sum(int32_t (*acc)[fold::N], int32_t (*pt)[fold::N],
+                                               Row row, int K, int s) {
   bool have = false;
-  for (int k = s; k < Kp; k += 32) {
-    const int d = digit[(size_t)k * stride] & 0xFF;
+  for (int k = s; k < K; k += 32) {
     if (!have) {
-      load_row<Cv>(acc, table, k * 256 + d);
+      load_row<Cv>(acc, row(k));
       have = true;
     } else {
-      load_row<Cv>(pt, table, k * 256 + d);
+      load_row<Cv>(pt, row(k));
       Cv::padd(acc, acc, pt);
     }
   }
-  if (!have) Cv::identity(acc);  // Kp < 32: this thread's share is the identity
+  if (!have) Cv::identity(acc);  // K < 32: this thread's share is the identity
 #pragma unroll 1
   for (int off = 16; off > 0; off >>= 1) {
 #pragma unroll
@@ -427,4 +422,18 @@ __device__ __forceinline__ void warp_window_sum(int32_t (*acc)[fold::N], int32_t
       for (int i = 0; i < fold::N; ++i) pt[c][i] = __shfl_down_sync(0xffffffffu, acc[c][i], off);
     if (s < off) Cv::padd(acc, acc, pt);
   }
+}
+
+// The window sum of the MSM: sum over the basis k = 0..Kp-1 of
+// table[k * 256 + digit(k)], a (rows, COORDS, N) int16 multiples table, for
+// one output lane. `digit` is this lane's digit column with its stride over k.
+template <class Cv>
+__device__ __forceinline__ void warp_window_sum(int32_t (*acc)[fold::N], int32_t (*pt)[fold::N],
+                                                const int16_t* __restrict__ table,
+                                                const int32_t* __restrict__ digit, size_t stride,
+                                                int Kp, int s) {
+  warp_point_sum<Cv>(acc, pt, [=](int k) {
+    const int d = digit[(size_t)k * stride] & 0xFF;
+    return table + (size_t)(k * 256 + d) * Cv::COORDS * fold::N;
+  }, Kp, s);
 }

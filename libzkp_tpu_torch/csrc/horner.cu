@@ -1,49 +1,69 @@
 // K2 horner: one Horner step of the windowed MSM, acc <- 2^8 * acc + wsum
-// (ed25519).
+// (ed25519, BN254 G1, BN254 G2).
 //
 // Replaces the JAX package's Pallas kernel libzkp_tpu/ops/curve_jax.py
-// _horner_call: 8 pdoubles and 1 padd per lane over (COORDS, N, B).
+// _horner_call: 8 pdoubles and 1 padd per lane over (COORDS, N, B). The
+// ed25519 instance runs in the range prover's window walk; the BN254
+// instances in the v1 window walk of the mesh-sharded MSM.
 //
-// Bound: integer multiply-adds. 8 pdoubles of 8 field products and one padd
-// of 9, each product N^2 + (N + 2) * N = 1200 multiply-adds, against 768
-// bytes read and 384 written per lane.
+// Bound: integer multiply-adds. Per lane, ed25519: 8 pdoubles of 8 field
+// products and one padd of 9; BN254: 9 padds (a Weierstrass pdouble is
+// padd(p, p)) of 12 products and 2 small multiplies (G1) or 42 products
+// (G2). Each product is N^2 + (N + 2) * N = 1200 multiply-adds, against
+// 3 * COORDS * N * 4 bytes moved per lane.
 //
 // Design: one thread per lane, the lanes of a warp on neighbouring words of
-// each (COORDS, N, B) row, so loads and stores coalesce. The formula is the
+// each (COORDS, N, B) row, so loads and stores coalesce. The BN254 instances
+// take blocks of one warp, as horner4 does, so the 128 lanes of a block of the
+// sharded Groth16 batch spread over 4 SMs instead of 1. The formula is the
 // plain version's, step for step, so the limbs are identical to it.
 
 #include "fold_curves.cuh"
 
 namespace {
 
-constexpr int THREADS = 128;
-
+template <class Cv, int THREADS>
 __global__ void __launch_bounds__(THREADS)
 horner_kernel(const int32_t* __restrict__ acc_in, const int32_t* __restrict__ wsum,
               int32_t* __restrict__ out, int B) {
-  using namespace fold;
   const int b = blockIdx.x * THREADS + threadIdx.x;
   if (b >= B) return;
-  int32_t acc[Ed25519::COORDS][N];
-  int32_t w[Ed25519::COORDS][N];
-  pt_load_lanes<Ed25519>(acc, acc_in, b, B);
-  pt_load_lanes<Ed25519>(w, wsum, b, B);
+  int32_t acc[Cv::COORDS][fold::N];
+  int32_t w[Cv::COORDS][fold::N];
+  pt_load_lanes<Cv>(acc, acc_in, b, B);
+  pt_load_lanes<Cv>(w, wsum, b, B);
 #pragma unroll 1
-  for (int r = 0; r < 8; ++r) Ed25519::pdouble(acc, acc);
-  Ed25519::padd(acc, acc, w);
-  pt_store_lanes<Ed25519>(out, acc, b, B);
+  for (int r = 0; r < 8; ++r) Cv::pdouble(acc, acc);
+  Cv::padd(acc, acc, w);
+  pt_store_lanes<Cv>(out, acc, b, B);
+}
+
+template <class Cv, int THREADS>
+int launch(const int32_t* consts, const int32_t* acc, const int32_t* wsum, int32_t* out, int B,
+           void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = fold_load_consts(consts, Cv::NCONST, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (B + THREADS - 1) / THREADS;
+  horner_kernel<Cv, THREADS><<<blocks, THREADS, 0, st>>>(acc, wsum, out, B);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// consts: (N + 4, N) int32; acc, wsum, out: (4, N, B) int32. Returns the
-// CUDA error of the launch (0 on success).
+// consts: the curve's (NCONST, N) int32 block; acc, wsum, out: (COORDS, N, B)
+// int32. Each returns the CUDA error of the launch (0 on success).
 extern "C" int horner_ed25519_launch(const int32_t* consts, const int32_t* acc,
                                      const int32_t* wsum, int32_t* out, int B, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = fold_load_consts(consts, Ed25519::NCONST, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (B + THREADS - 1) / THREADS;
-  horner_kernel<<<blocks, THREADS, 0, st>>>(acc, wsum, out, B);
-  return static_cast<int>(cudaGetLastError());
+  return launch<Ed25519, 128>(consts, acc, wsum, out, B, stream);
+}
+
+extern "C" int horner_bn254_g1_launch(const int32_t* consts, const int32_t* acc,
+                                      const int32_t* wsum, int32_t* out, int B, void* stream) {
+  return launch<Bn254G1, 32>(consts, acc, wsum, out, B, stream);
+}
+
+extern "C" int horner_bn254_g2_launch(const int32_t* consts, const int32_t* acc,
+                                      const int32_t* wsum, int32_t* out, int B, void* stream) {
+  return launch<Bn254G2, 32>(consts, acc, wsum, out, B, stream);
 }

@@ -15,6 +15,12 @@ raises; on the CPU it runs their plain versions.
   proving key's tables.
 * Batches are cut into chunks of 512 lanes, each padded to a power of two,
   so the set of launch shapes stays small.
+* The mesh route (JAX ``try_device``'s ``msm_many_sharded`` branch): when
+  ``parallel.mesh.set_mesh`` names a mesh of more than one position, or
+  ``use_mesh()`` holds (more than one CUDA device) on a CUDA entry device,
+  the whole batch runs :func:`curve.msm_many_sharded` over that mesh. Its
+  per-shard tables sit in the same LRU, keyed with the mesh. A failure on
+  the mesh raises.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from typing import List, Sequence
 
 import torch
 
+from ..parallel import mesh as meshmod
 from . import curve
 
 CHUNK_B = 512  # lanes per MSM launch sequence
@@ -33,24 +40,42 @@ _MAX_TABLES = 16  # each entry holds a device table; bound the cache
 _LOCK = threading.Lock()
 
 
-def _build_table(curve_name: str, points: Sequence, device: torch.device) -> curve.DeviceTable:
+def _build_table(curve_name: str, points: Sequence, where):
+    """The basis's table on a device, or cut over a mesh (built on the
+    mesh's first device, then sliced to each block's)."""
     eng = curve.get_engine(curve_name)
-    return curve.DeviceTable(eng.encode_points(list(points)), device=device, curve=curve_name)
+    base = eng.encode_points(list(points))
+    if isinstance(where, meshmod.Mesh):
+        built = curve.DeviceTable(base, device=where.devices[0][0], curve=curve_name)
+        return curve.ShardedTable(built.table, built.K, where, curve=curve_name)
+    return curve.DeviceTable(base, device=where, curve=curve_name)
 
 
-def _get_table(curve_name: str, points: Sequence, device: torch.device) -> curve.DeviceTable:
-    key = (curve_name, str(device), tuple(points))
+def _get_table(curve_name: str, points: Sequence, where):
+    key = (curve_name, where if isinstance(where, meshmod.Mesh) else str(where), tuple(points))
     with _LOCK:
         tbl = _TABLES.get(key)
         if tbl is not None:
             _TABLES.move_to_end(key)
             return tbl
-    table = _build_table(curve_name, points, device)
+    table = _build_table(curve_name, points, where)
     with _LOCK:
         _TABLES[key] = table
         while len(_TABLES) > _MAX_TABLES:
             _TABLES.popitem(last=False)
     return table
+
+
+def _mesh_for(dev: torch.device):
+    """The mesh the seam shards over for entry device ``dev``, or None."""
+    mesh = meshmod.current_mesh()
+    if mesh is None and dev.type == "cuda" and meshmod.use_mesh():
+        mesh = meshmod.get_mesh()
+    if mesh is None or mesh.size <= 1:
+        return None
+    if mesh.device_type != dev.type:
+        raise ValueError(f"the mesh is on {mesh.device_type}, the entry device is {dev}")
+    return mesh
 
 
 def _dispatch(table: curve.DeviceTable, scalar_vecs: Sequence[Sequence[int]]) -> List:
@@ -69,10 +94,14 @@ def _dispatch(table: curve.DeviceTable, scalar_vecs: Sequence[Sequence[int]]) ->
 def msm_fixed_many(curve_name: str, scalar_vecs: Sequence[Sequence[int]], points: Sequence, *,
                    device, cache: bool = True) -> List:
     """Independent MSMs of ``scalar_vecs`` over the fixed basis ``points``
-    (host Jacobian points) on ``device`` -> host Jacobian points. With
-    ``cache=False`` the basis's table is built for this call only."""
+    (host Jacobian points) on ``device``, or on the mesh (module docstring)
+    -> host Jacobian points. With ``cache=False`` the basis's table is built
+    for this call only."""
     if not scalar_vecs:
         return []
     dev = torch.device(device)
     get = _get_table if cache else _build_table
+    mesh = _mesh_for(dev)
+    if mesh is not None:
+        return curve.msm_many_sharded(get(curve_name, points, mesh), scalar_vecs, mesh)
     return _dispatch(get(curve_name, points, dev), scalar_vecs)

@@ -30,7 +30,8 @@ def test_port_imports_neither_jax_nor_reference():
     code = """
 import json, sys
 import libzkp_tpu_torch as zkp
-from libzkp_tpu_torch import convert
+from libzkp_tpu_torch import convert, probes
+from libzkp_tpu_torch.parallel import collective, mesh
 from libzkp_tpu_torch.models import groth16, r1cs, snark_backend
 from libzkp_tpu_torch.models.schemes import equality_proof
 from libzkp_tpu_torch.ops import bn254, field, kernels, mimc, msm_device, ntt, ristretto, weierstrass
@@ -60,12 +61,16 @@ print(json.dumps({"ok": ok, "mods": mods}))
     "bp.prove_single_batch([(Transcript(b'x'), 7, 1, 64)])",
     "zkp.prove_equality(7, 7)",
     "zkp.prove_equality_batch([(7, 7), (8, 8)])",
+    "mesh.get_mesh()",
+    "probes.run()",
 ])
 def test_entry_points_raise_without_cuda(call):
     code = f"""
 import libzkp_tpu_torch as zkp
+from libzkp_tpu_torch import probes
 from libzkp_tpu_torch.models import bulletproofs as bp
 from libzkp_tpu_torch.models.strobe import Transcript
+from libzkp_tpu_torch.parallel import mesh
 try:
     {call}
 except RuntimeError as e:
