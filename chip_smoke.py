@@ -13,7 +13,10 @@ Phases, each printing one JSON line:
    of the Groth16 prover; tree_sum (all three curves) and the BN254 horner at
    one block of the mesh-sharded Groth16 MSMs (128 lanes, 256 or 192 basis
    points; ed25519 at phase 7's range-basis MSM, 96 points); the probe
-   kernels padd_chain and fe_mul, and pair_add at P5's shape;
+   kernels padd_chain and fe_mul, and pair_add at P5's shape; mont_padd,
+   the five fold_ablate variants and padd_f32_chain at their probes'
+   shapes; mont_mul at an NTT stage of a 256-statement h batch (twiddles
+   broadcast), with a one-row operand, and at P6's 2^20 rows;
 4. (phases 4 to 6 run with the seam pinned to the single-device route, a
    one-position mesh, on any number of cards) the main path: ``prove_range_batch`` of 256 range proofs (512 prover
    lanes; T1/T2 and the L/R MSMs at 1024 lanes) with the launch counters
@@ -22,9 +25,10 @@ Phases, each printing one JSON line:
    byte against the port's host prover under injected randomness;
 5. the Groth16 path: setup, then ``prove_equality_batch`` of 256 distinct
    equality statements with the launch counters zeroed just before and read
-   just after (the five query MSMs: 40 window_sum4 and 40 horner4 launches,
-   and the five table builds), then warm batches: three timed, one split into
-   host h, device query MSMs and host finish, one under ``torch.profiler``
+   just after (h: 43 mont_mul launches; the five query MSMs: 40 window_sum4
+   and 40 horner4 launches, and the five table builds), then warm batches:
+   three timed, one split into h (host sparse products, device NTTs), device
+   query MSMs and host finish, one under ``torch.profiler``
    for the device's busy time; 8 sampled proofs verified by the port's host
    verifier, a tampered one rejected, and 2 lanes held byte for byte against
    the port's host golden prover under injected randomness;
@@ -43,8 +47,13 @@ Phases, each printing one JSON line:
    mesh (``set_mesh``), cold and warm, every envelope equal to phase 5's
    under the same injected draws; phases 7 and 8 run again on a mesh of the
    real devices when more than one card is visible;
-9. the probes (``libzkp_tpu_torch.probes``: P2, P4, P5);
-10. the kernels line (launches summed over the paths), the card's name and
+9. the h crossover: ``h_batch_device`` against the host NTTs for 1, 16, 64,
+   170 and 256 distinct statements, every h equal;
+10. ``mimc_hash_batch`` of 4096 values, cold (332 mont_mul launches) and
+    warm, every digest equal to the host's, and again on a one-card dp 2
+    mesh;
+11. the probes (``libzkp_tpu_torch.probes``: P2, P4, P5, P6, P7, P1, P3);
+12. the kernels line (launches summed over the paths), the card's name and
     power limit, and the last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero before the last line. Without a CUDA
@@ -68,7 +77,14 @@ MSM_LANES = 1024      # T1||T2 and L||R MSMs run at twice the prover lanes
 TIMED_BATCHES = 3
 HOST_MEM_BW = 3.35e12  # H100 SXM HBM3 bytes/s (NVIDIA data sheet)
 INT32_LANES_PER_SM = 64  # IMAD results per clock per SM, compute capability 9.0
+FP32_LANES_PER_SM = 128  # FFMA results per clock per SM, compute capability 9.0
 MUL_MACS = 24 * 24 + 26 * 24  # one field product: 576 conv + 624 fold multiply-adds
+MONT_MACS = 2 * 22 * 22 + 22  # one Montgomery product: 484 conv + 484 REDC + 22 m
+H_N = 512              # the equality circuit's domain
+H_BATCHES = (1, 16, 64, 170, 256)  # distinct statements per h batch (groth16_h)
+H_MONT_MULS = 43       # mont_mul launches of one h_batch_device call at n = 512
+MIMC_VALUES = 4096     # values per MiMC batch (bench.py's size)
+MIMC_MONT_MULS = 332   # to_mont, 110 rounds x 3, from_mont
 PADD_MACS = 9 * MUL_MACS      # Edwards padd: 9 products
 PDOUBLE_MACS = 8 * MUL_MACS
 WPADD_MACS = {"bn254_g1": 12 * MUL_MACS + 2 * 24,  # RCB padd: 12 products + 2 small multiplies
@@ -113,6 +129,8 @@ def cuda_ms(fn, iters: int) -> float:
 
 
 def bound(macs: float, nbytes: float, int_rate: float):
+    """The larger of ``macs`` operations at ``int_rate`` per second (or an
+    FP32 rate) and ``nbytes`` at the card's memory rate, in ms."""
     t_ops = macs / int_rate * 1e3
     t_bytes = nbytes / HOST_MEM_BW * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -443,22 +461,25 @@ def check_sharded_kernels(dev, int_rate: float, tables: dict) -> list:
     return results
 
 
-def check_probe_kernels(dev, int_rate: float) -> list:
+def check_probe_kernels(dev, int_rate: float, fp32_rate: float) -> list:
     """Phase 3d: the probe kernels at the probes' shapes, limb for limb
     against their plain versions: padd_chain (P2, 64 chained additions over
     512 lanes), fe_mul for both fields (P4, 2^20 lanes), and K3 pair_add at
     P5's shape (2^18 lanes; emitted, not returned: K3's row in the kernels
-    line stays at the range path's shape)."""
+    line stays at the range path's shape); mont_padd (P7, 2^18 lanes), the
+    five fold_ablate variants (P1, 2^20 lanes, n = 24) and padd_f32_chain
+    (P3, 64 chained additions over 512 lanes; float32, exact, so limb for
+    limb too, its bound at the FP32 rate)."""
     from libzkp_tpu_torch import probes
     from libzkp_tpu_torch.ops import kernels
 
-    def check(name, source, replaces, run, plain, iters, macs, nbytes, shape, **extra):
+    def check(name, source, replaces, run, plain, iters, macs, nbytes, shape, rate=int_rate, **extra):
         out_k, out_p = run(), plain()
         torch.cuda.synchronize()
-        err = int((out_k - out_p).abs().max())
+        err = float((out_k - out_p).abs().max())
         if err != 0:
             raise AssertionError(f"{name} limbs differ from its plain version (max {err})")
-        b_ms, b_by = bound(macs, nbytes, int_rate)
+        b_ms, b_by = bound(macs, nbytes, rate)
         row = dict(name=name, route="cuda", source=source, replaces=replaces, max_abs_err=float(err),
                    tolerance="exact limbs", ms=cuda_ms(run, iters), plain_ms=cuda_ms(plain, 1),
                    bound_ms=b_ms, bound_by=b_by, library_ms=None, shape=shape, **extra)
@@ -484,6 +505,86 @@ def check_probe_kernels(dev, int_rate: float) -> list:
     check("pair_add", "libzkp_tpu_torch/csrc/pair_add.cu", "scripts/bench_fold.py:185",
           lambda: kernels.pair_add(consts, p, q), lambda: kernels.pair_add_plain(consts, p, q), 20,
           PADD_MACS * p.shape[-1], 3 * p.numel() * 4, f"p, q (4,24,{p.shape[-1]}) i32", probe="P5")
+    # P7, P1, P3
+    mc, mp, mq, _, _ = probes.mont_padd_inputs(dev)
+    E = mp.shape[-1]
+    results.append(check("mont_padd", "libzkp_tpu_torch/csrc/probes.cu", "scripts/bench_pallas_mul.py:149",
+                         lambda: kernels.mont_padd(mc, mp, mq), lambda: kernels.mont_padd_plain(mc, mp, mq),
+                         20, 9 * MONT_MACS * E, 3 * mp.numel() * 4, f"p, q (4,22,{E}) i32, 2^255-19"))
+    for v in kernels.ABLATE_VARIANTS:
+        ac, aa, ab = probes.ablate_inputs(dev, v)
+        L = aa.shape[-1]
+        results.append(check(
+            kernels.instance("fold_ablate", v), "libzkp_tpu_torch/csrc/probes.cu",
+            "scripts/bench_ablate.py:101",
+            lambda: kernels.fold_ablate(ac, aa, ab, variant=v),
+            lambda: kernels.fold_ablate_plain(ac, aa, ab, variant=v), 50,
+            probes.ABLATE_OPS[v](ac.shape[1]) * L, (aa.numel() + (ab.numel() if ab is not None else 0)
+                                                    + ac.shape[1] * L) * 4,
+            f"a ({aa.shape[0]},{L}){'' if ab is None else f', b ({ab.shape[0]},{L})'} i32, n = 24"))
+    fc, fp, fq, _, _ = probes.f32_chain_inputs(dev)
+    B = fp.shape[-1]
+    results.append(check("padd_f32_chain", "libzkp_tpu_torch/csrc/probes.cu",
+                         "scripts/bench_pallas_padd.py:220",
+                         lambda: kernels.padd_f32_chain(fc, fp, fq, R),
+                         lambda: kernels.padd_f32_chain_plain(fc, fp, fq, R), 10,
+                         R * 9 * probes.F32_FMAS * B, 3 * fp.numel() * 4,
+                         f"p, q (4,29,{B}) f32, chain {R}", rate=fp32_rate))
+    return results
+
+
+def check_mont_kernels(dev, int_rate: float) -> list:
+    """Phase 3e: mont_mul against its plain version, limb for limb, in BN254
+    Fr at one NTT stage of a 256-statement h batch (3 * 256 polynomials of
+    512 points: 3 * 256 * 256 butterflies, the stage's twiddles broadcast,
+    256 rows) and with a one-row operand (``to_mont`` of the whole batch,
+    R^2 broadcast: the Z^-1, R^2, 1 and R mod p case); then P6's 2^20 rows in
+    2^255 - 19 (emitted, not returned: the kernels line keeps the path's
+    shape)."""
+    import numpy as np
+
+    from libzkp_tpu_torch import probes
+    from libzkp_tpu_torch.ops import kernels
+    from libzkp_tpu_torch.ops.field import BN254_FR
+    from libzkp_tpu_torch.ops.limb import get_context
+    from libzkp_tpu_torch.ops.ntt import _twiddle_table
+
+    ctx = get_context(BN254_FR.p, "bn254_fr")
+    n = ctx.n
+    consts = ctx.tensor("consts", dev)
+    gen = np.random.default_rng(20261018)
+    rows = 3 * G16_LANES * H_N
+    tw = torch.from_numpy(_twiddle_table(ctx.p, H_N, False)[-1]).to(dev)  # (256, n), the last stage
+    cases = [
+        ("mont_mul", torch.from_numpy(gen.integers(-4096, 4096, (3 * G16_LANES, H_N // 2, n),
+                                                   dtype=np.int32)).to(dev), tw, "BN254 Fr", None,
+         f"a ({3 * G16_LANES},{H_N // 2},{n}) i32, b ({H_N // 2},{n}) broadcast"),
+        ("mont_mul", torch.from_numpy(gen.integers(0, 4096, (3 * G16_LANES, H_N, n),
+                                                   dtype=np.int32)).to(dev),
+         ctx.tensor("r2", dev), "BN254 Fr", "one-row operand", f"a ({rows // H_N},{H_N},{n}) i32, b ({n},)"),
+    ]
+    pc, pa, pb = probes.mont_mul_inputs(dev)
+    cases.append(("mont_mul", pa, pb, "2^255-19", "P6", f"a, b ({pa.shape[0]},{n}) i32"))
+    results = []
+    for name, a, b, field, tag, shape in cases:
+        c = pc if tag == "P6" else consts
+        out_k = kernels.mont_mul(c, a, b)
+        out_p = kernels.mont_mul_plain(c, a, b)
+        torch.cuda.synchronize()
+        err = int((out_k - out_p).abs().max())
+        if err != 0:
+            raise AssertionError(f"mont_mul ({field}, {shape}) limbs differ from its plain version (max {err})")
+        M, Mb = a.numel() // n, b.numel() // n
+        b_ms, b_by = bound(MONT_MACS * M, (2 * M + Mb) * n * 4, int_rate)
+        row = dict(name=name, route="cuda", source="libzkp_tpu_torch/csrc/mont.cu",
+                   replaces="scripts/bench_pallas_mul.py:96", max_abs_err=float(err),
+                   tolerance="exact limbs", ms=cuda_ms(lambda: kernels.mont_mul(c, a, b), 20),
+                   plain_ms=cuda_ms(lambda: kernels.mont_mul_plain(c, a, b), 2),
+                   bound_ms=b_ms, bound_by=b_by, library_ms=None, shape=shape, field=field)
+        emit({"phase": "kernel_check", **row, **({"probe": tag} if tag == "P6" else
+                                                 {"case": tag} if tag else {})})
+        if tag is None:
+            results.append(row)
     return results
 
 
@@ -515,7 +616,7 @@ def groth16_path(dev) -> dict:
     want = dict.fromkeys(kernels.INSTANCES, 0) | {
         "pair_add_bn254_g1": 4 * 255, "pair_add_bn254_g2": 255,
         "window_sum4_bn254_g1": 4 * 8, "window_sum4_bn254_g2": 8,
-        "horner4_bn254_g1": 4 * 8, "horner4_bn254_g2": 8,
+        "horner4_bn254_g1": 4 * 8, "horner4_bn254_g2": 8, "mont_mul": H_MONT_MULS,
     }
     if counts != want:
         raise AssertionError(f"kernel launches {counts}, the Groth16 path needs {want}")
@@ -535,7 +636,8 @@ def groth16_path(dev) -> dict:
           "spread_ms": [min(batch_s) * 1e3, max(batch_s) * 1e3],
           "ms_per_equality_proof": batch_ms / G16_LANES})
 
-    # the split: host h, device query MSMs (with their host digit and
+    # the split: h (host sparse products, then the device NTTs with their
+    # encode and decode), device query MSMs (with their host digit and
     # decode glue), host finish; the rest is commitments, assignments and
     # proof bytes
     spent: dict = defaultdict(float)
@@ -550,7 +652,7 @@ def groth16_path(dev) -> dict:
     finally:
         for u in undo:
             u()
-    split = {"host_h_ms": spent["_h_many"] * 1e3, "device_query_msms_ms": spent["_accs_many"] * 1e3,
+    split = {"h_ms": spent["_h_many"] * 1e3, "device_query_msms_ms": spent["_accs_many"] * 1e3,
              "host_finish_ms": spent["_finish_proof"] * 1e3}
     split["host_assign_rest_ms"] = split_ms - sum(split.values())
     emit({"phase": "groth16_split", "batch_ms": split_ms, **split})
@@ -576,10 +678,12 @@ def groth16_path(dev) -> dict:
     busy = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
     busy_ms = sum(b[1] for b in busy) / 1e3
-    top = sorted(busy, key=lambda b: -b[1])[:6]
+    top = sorted(busy, key=lambda b: -b[1])[:8]
+    mont = [b for b in busy if "mont_mul_kernel" in b[0]]
     emit({"phase": "groth16_profile", "batch_ms_profiled": prof_ms, "device_busy_ms": busy_ms,
           "device_idle_share": 1 - busy_ms / prof_ms, "device_ops": sum(b[2] for b in busy),
-          "top": [{"name": b[0][:60], "device_ms": b[1] / 1e3, "calls": b[2]} for b in top]})
+          "top": [{"name": b[0][:60], "device_ms": b[1] / 1e3, "calls": b[2]} for b in top],
+          "mont_mul": {"device_ms": sum(b[1] for b in mont) / 1e3, "calls": sum(b[2] for b in mont)}})
 
     sample = list(range(0, G16_LANES, G16_LANES // G16_VERIFY))[:G16_VERIFY]
     t0 = time.perf_counter()
@@ -652,8 +756,9 @@ def groth16_grouped(dev) -> dict:
                 u()
             groth16._rand_fr, groth16.GROUP_MIN = saved
 
-    # the grouped route's launches on its first batch: the five query MSMs
-    # at 8 lanes (8 window groups each); the key's [delta_g1] and
+    # the grouped route's launches on its first batch: h of the 8
+    # statements; the five query MSMs at 8 lanes (8 window groups each);
+    # the key's [delta_g1] and
     # [delta_g2] tables, built once; per statement, its own
     # [P1, P2, delta_g1] table and three 32-lane MSMs
     kernels.reset_launches()
@@ -663,6 +768,7 @@ def groth16_grouped(dev) -> dict:
         "pair_add_bn254_g1": 255 + S * 255, "pair_add_bn254_g2": 255,
         "window_sum4_bn254_g1": 4 * 8 + S * 2 * 8, "window_sum4_bn254_g2": 8 + S * 8,
         "horner4_bn254_g1": 4 * 8 + S * 2 * 8, "horner4_bn254_g2": 8 + S * 8,
+        "mont_mul": H_MONT_MULS,
     }
     if counts != want:
         raise AssertionError(f"kernel launches {counts}, the grouped route needs {want}")
@@ -685,7 +791,7 @@ def groth16_grouped(dev) -> dict:
     emit({"phase": "groth16_grouped_vs_per_proof", "batch_ms": times,
           "ms_per_equality_proof": {k: v / G16_LANES for k, v in mean.items()},
           "per_proof_over_grouped": mean["per_proof"] / mean["grouped"],
-          "grouped_split": {"batch_ms": split_ms, "host_h_ms": spent["_h_many"],
+          "grouped_split": {"batch_ms": split_ms, "h_ms": spent["_h_many"],
                             "device_query_msms_ms": spent["_accs_many"],
                             "finish_group_ms": spent["_finish_proof_group"]}})
 
@@ -743,7 +849,7 @@ def sharded_msm(dev, mesh, tag: str) -> dict:
     values = rng.sample(range(1, 1 << 62), G16_LANES)
     z_list = [snark_backend._equality_assignment(v, v, int.from_bytes(commit_value_snark(v), "little"))
               for v in values]
-    h_list = groth16._h_many(pk, z_list, num_instance, csr)
+    h_list = groth16._h_many(pk, z_list, num_instance, csr, device=dev)
     msms = [("b_g2", "bn254_g2", z_list, pk.b_g2_query), ("a", "bn254_g1", z_list, pk.a_query),
             ("b_g1", "bn254_g1", z_list, pk.b_g1_query), ("h", "bn254_g1", h_list, pk.h_query),
             ("l", "bn254_g1", [z[num_instance:] for z in z_list], pk.l_query)]
@@ -827,6 +933,7 @@ def groth16_mesh(dev, mesh, g16: dict, tag: str) -> dict:
         k: v for k, v in mesh_launches(dp, shard).items() if "bn254" in k}
     want["pair_add_bn254_g1"] += 4 * 255  # the four G1 tables, built on the mesh's first device
     want["pair_add_bn254_g2"] += 255
+    want["mont_mul"] = H_MONT_MULS  # h runs on the entry device
     if counts != want:
         raise AssertionError(f"kernel launches {counts}, the mesh route needs {want}")
     for name, envs in (("cold", cold), ("warm", warm)):
@@ -838,9 +945,102 @@ def groth16_mesh(dev, mesh, g16: dict, tag: str) -> dict:
     return {"counts": counts}
 
 
+def groth16_h(dev) -> dict:
+    """Phase 9: the h crossover. For B in H_BATCHES distinct equality
+    statements, ``h_batch_device`` on the card (one call of 43 mont_mul
+    launches, encode and decode included) against the host NTTs
+    (``_h_from_evals``, one statement after another), on the same sparse
+    products; every h equal. The host time of B statements is the sum of
+    their per-statement times."""
+    from libzkp_tpu_torch.models import groth16, snark_backend
+    from libzkp_tpu_torch.ops import kernels
+    from libzkp_tpu_torch.ops.groth16_device import h_batch_device
+    from libzkp_tpu_torch.utils.commitment import commit_value_snark
+
+    num_instance, csr = snark_backend._equality_shape()
+    rng = random.Random(1020)
+    values = rng.sample(range(1, 1 << 62), max(H_BATCHES))
+    t0 = time.perf_counter()
+    abc = [groth16._abc_from_csr(H_N, num_instance, csr, snark_backend._equality_assignment(
+        v, v, int.from_bytes(commit_value_snark(v), "little"))) for v in values]
+    spmv_ms = (time.perf_counter() - t0) * 1e3 / len(values)
+    host, host_ms = [], []
+    for az, bz, cz in abc:
+        t0 = time.perf_counter()
+        host.append(groth16._h_from_evals(H_N, az, bz, cz))
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    rows = []
+    for B in H_BATCHES:
+        args = ([t[0] for t in abc[:B]], [t[1] for t in abc[:B]], [t[2] for t in abc[:B]])
+        h_batch_device(H_N, *args, groth16.COSET, device=dev)  # warm the shape
+        kernels.reset_launches()
+        times = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            got = h_batch_device(H_N, *args, groth16.COSET, device=dev)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        if kernels.launches()["mont_mul"] != 2 * H_MONT_MULS:
+            raise AssertionError(f"h_batch_device made {kernels.launches()['mont_mul']} mont_mul launches "
+                                 f"in 2 calls, not {2 * H_MONT_MULS}")
+        if got != host[:B]:
+            raise AssertionError(f"B = {B}: a device h differs from the host's")
+        counts = kernels.launches()
+        dev_ms = sum(times) / len(times)
+        rows.append({"B": B, "device_ms": dev_ms, "host_ms": sum(host_ms[:B]),
+                     "host_over_device": sum(host_ms[:B]) / dev_ms, "device_ms_runs": times})
+    emit({"phase": "groth16_h", "n": H_N, "spmv_ms_per_statement": spmv_ms,
+          "host_ms_per_statement": sum(host_ms) / len(host_ms), "rows": rows, "h_equal": True})
+    return {"counts": counts}  # the last batch size's two timed calls
+
+
+def mimc_batch(dev) -> dict:
+    """Phase 10: ``mimc_hash_batch`` of MIMC_VALUES values on the card, the
+    launch counters zeroed just before the cold batch and read just after
+    (332 mont_mul launches), then warm batches timed; every digest equal to
+    the host ``mimc_hash_native`` (timed too); once more on a one-card dp 2
+    mesh (two halves, both on this card), equal."""
+    import libzkp_tpu_torch as zkp
+    from libzkp_tpu_torch.ops import kernels
+    from libzkp_tpu_torch.ops.mimc import mimc_hash_native
+    from libzkp_tpu_torch.parallel import mesh as meshmod
+
+    rng = random.Random(1021)
+    values = [0, 1, (1 << 64) - 1] + [rng.randrange(1 << 64) for _ in range(MIMC_VALUES - 3)]
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    got = zkp.mimc_hash_batch(values, device=dev)
+    torch.cuda.synchronize()
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    counts = kernels.launches()
+    want = dict.fromkeys(kernels.INSTANCES, 0) | {"mont_mul": MIMC_MONT_MULS}
+    if counts != want:
+        raise AssertionError(f"kernel launches {counts}, the MiMC batch needs {want}")
+    warm = []
+    for _ in range(TIMED_BATCHES):
+        t0 = time.perf_counter()
+        zkp.mimc_hash_batch(values, device=dev)
+        torch.cuda.synchronize()
+        warm.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    host = [mimc_hash_native(v) for v in values]
+    host_ms = (time.perf_counter() - t0) * 1e3
+    if got != host:
+        raise AssertionError("a MiMC digest of the device batch differs from the host's")
+    mesh = meshmod.get_mesh(dp=2, devices=[dev] * 2)
+    if zkp.mimc_hash_batch(values, device=dev, mesh=mesh) != host:
+        raise AssertionError("a MiMC digest of the dp 2 mesh batch differs from the host's")
+    emit({"phase": "mimc_batch", "values": MIMC_VALUES, "cold_ms": cold_ms, "warm_ms": warm,
+          "ms_per_batch": sum(warm) / len(warm), "host_ms": host_ms,
+          "host_over_device": host_ms / (sum(warm) / len(warm)), "digests_equal": MIMC_VALUES,
+          "mesh": {"dp": 2, "equal": True}, "launches": {k: v for k, v in counts.items() if v}})
+    return {"counts": counts}
+
+
 def probes_phase(dev) -> dict:
-    """Phase 9: P2, P4 (both fields) and P5 through ``probes.run``, the
-    launch counters zeroed just before and read just after."""
+    """Phase 11: P2, P4 (both fields), P5, P6, P7, P1 and P3 through
+    ``probes.run``, the launch counters zeroed just before and read just
+    after."""
     from libzkp_tpu_torch import probes
     from libzkp_tpu_torch.ops import kernels
 
@@ -848,8 +1048,10 @@ def probes_phase(dev) -> dict:
     out = probes.run(dev)
     counts = kernels.launches()
     per = 3 + probes.ITERS  # the checked launch, 2 warm-up launches, the timed ones
-    want = dict.fromkeys(kernels.INSTANCES, 0) | {"padd_chain": per, "fe_mul": per,
-                                                  "fe_mul_bn254_g1": per, "pair_add": per}
+    want = dict.fromkeys(kernels.INSTANCES, 0) | {
+        name: per for name in ("padd_chain", "fe_mul", "fe_mul_bn254_g1", "pair_add", "mont_mul",
+                               "mont_padd", "padd_f32_chain")} | {
+        kernels.instance("fold_ablate", v): per for v in kernels.ABLATE_VARIANTS}
     if counts != want:
         raise AssertionError(f"kernel launches {counts}, the probes need {want}")
     emit({"phase": "probes", "probes": out, "launches": {k: v for k, v in counts.items() if v}})
@@ -948,9 +1150,12 @@ def main() -> int:
     sm_clock_mhz = float(smi("clocks.max.sm").split()[0])
     props = torch.cuda.get_device_properties(dev)
     int_rate = props.multi_processor_count * INT32_LANES_PER_SM * sm_clock_mhz * 1e6
+    fp32_rate = props.multi_processor_count * FP32_LANES_PER_SM * sm_clock_mhz * 1e6
+    # P3's plain version is float32 matrix products that must be exact: no TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
     emit({"phase": "card", "nvidia_smi": name_power, "torch_name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "sm_count": props.multi_processor_count,
-          "max_sm_clock_mhz": sm_clock_mhz, "int32_mac_per_s": int_rate,
+          "max_sm_clock_mhz": sm_clock_mhz, "int32_mac_per_s": int_rate, "fp32_fma_per_s": fp32_rate,
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
     t0 = time.perf_counter()
@@ -971,7 +1176,8 @@ def main() -> int:
     meshmod.set_mesh(meshmod.get_mesh(dp=1, devices=[dev]))
     tables: dict = {}
     checks = (check_kernels(dev, int_rate, tables) + check_bn254_kernels(dev, int_rate, tables)
-              + check_sharded_kernels(dev, int_rate, tables) + check_probe_kernels(dev, int_rate))
+              + check_sharded_kernels(dev, int_rate, tables)
+              + check_probe_kernels(dev, int_rate, fp32_rate) + check_mont_kernels(dev, int_rate))
     del tables
     paths = [main_path(dev)]
     g16 = groth16_path(dev)
@@ -983,7 +1189,7 @@ def main() -> int:
         meshes.append(("devices", meshmod.get_mesh(shard=2 if n_dev % 2 == 0 else 1)))
     for tag, mesh in meshes:
         paths += [sharded_msm(dev, mesh, tag), groth16_mesh(dev, mesh, g16, tag)]
-    paths.append(probes_phase(dev))
+    paths += [groth16_h(dev), mimc_batch(dev), probes_phase(dev)]
     # launches of each instance summed over the paths that run it
     launched = {name: sum(p["counts"][name] for p in paths) for name in kernels.INSTANCES}
     if sorted(r["name"] for r in checks) != sorted(kernels.INSTANCES):

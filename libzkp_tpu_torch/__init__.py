@@ -1,11 +1,12 @@
 """libzkp_tpu_torch — the PyTorch / CUDA port of libzkp_tpu for NVIDIA Hopper.
 
 A second package beside the JAX reference ``libzkp_tpu``, ported slice by
-slice. Two slices are ported: the main path, the batched 64-bit
-Bulletproofs range prover (:func:`prove_range_batch`), and the batched
-Groth16 equality prover (:func:`prove_equality_batch`), whose query MSMs over
-BN254 G1 and G2 run on the same family of hand-written CUDA kernels
-(``ops/kernels.py``, sources in ``csrc/``). The query MSMs also run
+slice. Ported: the main path, the batched 64-bit Bulletproofs range prover
+(:func:`prove_range_batch`); the batched Groth16 equality prover
+(:func:`prove_equality_batch`), whose query MSMs over BN254 G1 and G2 run on
+the same family of hand-written CUDA kernels (``ops/kernels.py``, sources in
+``csrc/``) and whose h polynomial runs on the device NTT over the Montgomery
+product kernel; and the MiMC batch (:func:`mimc_hash_batch`) on that kernel. The query MSMs also run
 sharded over a (dp, shard) device mesh (``parallel/``,
 ``ops.curve.msm_many_sharded``) when ``parallel.mesh.set_mesh`` names one or
 more than one CUDA device is visible. Proofs and envelopes are
@@ -28,8 +29,10 @@ from .models.schemes.range_proof import (  # noqa: F401
     prove_range_with_bits,
     verify_range,
 )
+from .ops.mimc import mimc_hash_batch  # noqa: F401
 
 __all__ = [
+    "mimc_hash_batch",
     "prove_equality",
     "prove_equality_batch",
     "prove_range",

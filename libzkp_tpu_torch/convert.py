@@ -2,8 +2,9 @@
 
 The system has no weights; its state is the Groth16 proving key (the
 counterpart of weights: both packages prove with one key), the consts blocks
-of the fold-field engines, the basis multiples tables, and the STROBE
-transcript snapshots the batched transcript resumes from. The JAX package
+of the fold-field engines, the basis multiples tables, the Montgomery limb
+tables of the NTT, the h pipeline and MiMC, and the STROBE transcript
+snapshots the batched transcript resumes from. The JAX package
 holds them as Python ints and tuples, numpy arrays (or arrays convertible
 with ``np.asarray``) and bytes; these functions turn them into the port's
 tensors and objects on a given device. Nothing here imports the JAX package:
@@ -54,6 +55,17 @@ def proving_key(pk) -> groth16.ProvingKey:
         h_query=[g(p) for p in pk.h_query],
         l_query=[g(p) for p in pk.l_query],
     )
+
+
+def limb_table(arr, *, device) -> torch.Tensor:
+    """A JAX ``(..., n)`` int32 table of 12-bit Montgomery limbs (the NTT's
+    ``_twiddle_table``, the h pipeline's ``_h_tables``, MiMC's
+    ``_mont_constants``) -> a tensor of the same limbs, the layout
+    :mod:`.ops.limb` computes on."""
+    a = np.asarray(arr)
+    if a.dtype != np.int32 or a.ndim < 1:
+        raise ValueError("limb tables are int32 arrays with the limbs last")
+    return torch.from_numpy(np.array(a)).to(device)
 
 
 def multiples_table(arr, K: int, *, device, curve: str = "ed25519") -> curve_ops.DeviceTable:

@@ -1,0 +1,110 @@
+// 12-bit Montgomery limb arithmetic, one field element per thread: the
+// device side of ops/limb.py LimbContext (and of the JAX package's
+// ops/limb.py), shared by the mont_mul kernel (mont.cu) and the Montgomery
+// point-addition probe (probes.cu).
+//
+// A field element is N relaxed signed 12-bit limbs in int32, least
+// significant first. The product a * b * R^-1 (R = 2^(12N)) is the schoolbook
+// columns T[0..2N), the REDC sweep in the JAX order
+//   for i = 0..N-1: m = ((T[i] & mask) * ninv) & mask;
+//                   T[i..i+N) += m * p;  T[i+1] += T[i] >> 12
+// and three wrap carries of T[N..2N), each folding the top carry back in as
+// R mod p. Every step is the plain version's integer operation on the same
+// operands, so the limbs equal it (ops/kernels.py mont_mul_plain) exactly.
+//
+// Consts block (rows of N int32, in __constant__ memory): p, R mod p, ninv in
+// word 0 of row 2, then the probe's curve constant (2d * R mod p for the
+// Edwards addition). The field enters only through this block, so one
+// instance serves BN254 Fr and 2^255 - 19.
+//
+// int32 headroom (signed overflow is undefined in C++, so it must not occur):
+// a column is a sum of at most N limb products, REDC adds at most
+// N * 4095 * 4095 ~= 2^28.5 and carries below 2^19. Interval arithmetic over
+// the h pipeline, the MiMC rounds and the probes, one interval per limb and
+// step (tests/test_torch_limb.py::test_int32_headroom, in Python ints),
+// bounds the limbs entering the product by 2^13.6 and every partial sum of a
+// column, an add or a carry pass by 2^30.1 < 2^31.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace mont {
+
+constexpr int N_MAX = 24;     // limbs of the widest instance
+constexpr int ROWS_MAX = 4;   // p, R mod p, ninv, one curve constant
+constexpr int LIMB_BITS = 12;
+constexpr int32_t MASK = (1 << LIMB_BITS) - 1;
+constexpr int ROW_P = 0;
+constexpr int ROW_ONE = 1;
+constexpr int ROW_NINV = 2;
+constexpr int ROW_CURVE = 3;
+
+}  // namespace mont
+
+__constant__ int32_t c_mont[mont::ROWS_MAX * mont::N_MAX];
+
+// Copy a (rows, n) int32 consts block, a device tensor, into constant
+// memory, ordered on the launch stream before the kernel that reads it.
+static inline cudaError_t mont_load_consts(const int32_t* consts, int rows, int n,
+                                           cudaStream_t stream) {
+  return cudaMemcpyToSymbolAsync(c_mont, consts, sizeof(int32_t) * rows * n, 0,
+                                 cudaMemcpyDeviceToDevice, stream);
+}
+
+// One wrap-carry pass: lo + (hi shifted up one limb) + hi_top * (R mod p).
+// >> on a negative int32 is arithmetic (floor), as in torch and jnp.
+template <int N>
+__device__ __forceinline__ void mont_carry(int32_t* x) {
+  using namespace mont;
+  const int32_t top = x[N - 1] >> LIMB_BITS;
+#pragma unroll
+  for (int i = N - 1; i > 0; --i) x[i] = (x[i] & MASK) + (x[i - 1] >> LIMB_BITS);
+  x[0] &= MASK;
+#pragma unroll
+  for (int i = 0; i < N; ++i) x[i] += top * c_mont[ROW_ONE * N + i];
+}
+
+template <int N>
+__device__ __forceinline__ void mont_add(int32_t* r, const int32_t* a, const int32_t* b) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) r[i] = a[i] + b[i];
+  mont_carry<N>(r);
+}
+
+template <int N>
+__device__ __forceinline__ void mont_sub(int32_t* r, const int32_t* a, const int32_t* b) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) r[i] = a[i] - b[i];
+  mont_carry<N>(r);
+}
+
+// r = a * b * R^-1. r may alias a or b: every read of a and b comes before
+// the first write of r. With constant indices throughout, the 2N columns
+// stay in registers.
+template <int N>
+__device__ __forceinline__ void mont_mul(int32_t* r, const int32_t* a, const int32_t* b) {
+  using namespace mont;
+  int32_t T[2 * N];
+#pragma unroll
+  for (int k = 0; k < 2 * N; ++k) T[k] = 0;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const int32_t bj = b[j];
+#pragma unroll
+    for (int i = 0; i < N; ++i) T[i + j] += a[i] * bj;
+  }
+  const int32_t ninv = c_mont[ROW_NINV * N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int32_t m = ((T[i] & MASK) * ninv) & MASK;
+#pragma unroll
+    for (int j = 0; j < N; ++j) T[i + j] += m * c_mont[ROW_P * N + j];
+    T[i + 1] += T[i] >> LIMB_BITS;
+  }
+  mont_carry<N>(T + N);
+  mont_carry<N>(T + N);
+  mont_carry<N>(T + N);
+#pragma unroll
+  for (int k = 0; k < N; ++k) r[k] = T[N + k];
+}

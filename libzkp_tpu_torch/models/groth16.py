@@ -7,12 +7,14 @@ the h query) and pairing-based verification, all on the pure-Python host
 tier, with no native hooks. The batched prover,
 :func:`prove_assigned_many`, runs its five query MSMs (four over G1, one
 over G2) on a device through ``bn254.g1_msm_fixed_many`` /
-``g2_msm_fixed_many`` and the MSM kernels; h and the finishing fold of each
-proof stay on the host:
+``g2_msm_fixed_many`` and the MSM kernels, and the NTTs of h there too; the
+sparse products and the finishing fold of each proof stay on the host:
 
 * h for a distinct statement is a pure-Python sparse product over the CSR
   rows of the constraint matrices (:func:`pack_csr`, built from the setup
-  circuit) followed by the host NTTs (:func:`_h_from_csr`);
+  circuit), then the NTTs of every distinct statement of the batch in one
+  ``h_batch_device`` program on the entry point's device (:func:`_h_many`;
+  the golden :func:`prove` keeps the host NTTs, :func:`_compute_h`);
 * statements repeated inside one batch are proved once up to the (r, s)
   blinding; a statement repeated 8 or more times folds its proofs as
   fixed-basis MSMs on the device (:func:`_finish_proof_group`).
@@ -30,6 +32,7 @@ from typing import List, Optional, Tuple
 from ..ops import bn254 as bn
 from ..ops import ntt as poly
 from ..ops.field import BN254_FR
+from ..ops.groth16_device import h_batch_device
 from .r1cs import ConstraintSystem
 
 R = BN254_FR.p
@@ -275,22 +278,34 @@ def _spmv(csr, z: List[int], n: int) -> List[int]:
     return out
 
 
-def _h_from_csr(n: int, num_instance: int, csr, z: List[int]) -> List[int]:
-    """h for assignment ``z`` from the circuit's CSR rows: the sparse
-    products give A, B, C over the domain, the instance-consistency rows add
-    z[i] to A, then the host NTTs (the JAX ``_h_unfused``)."""
+def _abc_from_csr(n: int, num_instance: int, csr, z: List[int]):
+    """A, B, C over the domain for assignment ``z``: the sparse products of
+    the circuit's CSR rows, the instance-consistency rows adding z[i] to A
+    (the JAX ``native.groth16_spmv``)."""
     n_constraints = len(csr[0][0]) - 1
     az = _spmv(csr[0], z, n)
     bz = _spmv(csr[1], z, n)
     cz = _spmv(csr[2], z, n)
     for i in range(num_instance):
         az[n_constraints + i] = z[i]
-    return _h_from_evals(n, az, bz, cz)
+    return az, bz, cz
 
 
-def _h_many(pk: ProvingKey, distinct: List[List[int]], num_instance: int, csr) -> List[List[int]]:
+def _h_from_csr(n: int, num_instance: int, csr, z: List[int]) -> List[int]:
+    """h for assignment ``z`` from the circuit's CSR rows, with the host
+    NTTs (the JAX ``_h_unfused``)."""
+    return _h_from_evals(n, *_abc_from_csr(n, num_instance, csr, z))
+
+
+def _h_many(pk: ProvingKey, distinct: List[List[int]], num_instance: int, csr, *,
+            device) -> List[List[int]]:
+    """h for every distinct assignment of a batch: the sparse products on
+    the host, then the seven NTTs of all of them in one
+    :func:`~..ops.groth16_device.h_batch_device` program on ``device``."""
     n = len(pk.h_query) + 1
-    return [_h_from_csr(n, num_instance, csr, z) for z in distinct]
+    abc = [_abc_from_csr(n, num_instance, csr, z) for z in distinct]
+    return h_batch_device(n, [t[0] for t in abc], [t[1] for t in abc], [t[2] for t in abc],
+                          COSET, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -376,7 +391,7 @@ def prove_assigned_many(
             slot = slot_of[zk] = len(distinct)
             distinct.append(z)
         assign.append(slot)
-    h_list = _h_many(pk, distinct, num_instance, csr)
+    h_list = _h_many(pk, distinct, num_instance, csr, device=device)
     accs = _accs_many(pk, distinct, num_instance, h_list, device=device)
 
     by_slot: dict = {}

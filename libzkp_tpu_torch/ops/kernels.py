@@ -1,11 +1,13 @@
 """The hand-written Hopper kernels, their build and their wrappers.
 
-Seven CUDA C++ sources under ``libzkp_tpu_torch/csrc/``, each compiled for
+Eight CUDA C++ sources under ``libzkp_tpu_torch/csrc/``, each compiled for
 ``sm_90a`` by ``nvcc`` into its own shared library with a plain C interface
 and bound with ``ctypes``; the field and curve code they share is
-``csrc/fold_curves.cuh``. Each kernel is instantiated for the curves its path
-runs, and each instance is a kernel of its own, named ``<kernel>`` for
-ed25519 and ``<kernel>_<curve>`` for BN254 (:data:`INSTANCES`):
+``csrc/fold_curves.cuh``, the Montgomery field code ``csrc/mont.cuh``. Each
+kernel is instantiated for the curves its path runs, and each instance is a
+kernel of its own, named ``<kernel>`` for ed25519 or a field-generic kernel
+and ``<kernel>_<curve>`` for BN254 or ``<kernel>_<variant>`` for a probe's
+variant (:data:`INSTANCES`):
 
 * ``window_sum`` (K1, ``csrc/window_sum.cu``, ed25519) replaces
   ``libzkp_tpu/ops/curve_jax.py:_window_fused_call``;
@@ -22,7 +24,17 @@ ed25519 and ``<kernel>_<curve>`` for BN254 (:data:`INSTANCES`):
 * ``padd_chain`` and ``fe_mul`` (``csrc/probes.cu``) replace the Pallas
   probes of ``scripts/bench_pallas_padd.py`` (``bench_current``) and
   ``scripts/bench_fold.py`` (``bench_field``); ``fe_mul`` runs in the field of
-  the curve it is named for (ed25519: p = 2^255 - 19; bn254_g1: BN254 Fq).
+  the curve it is named for (ed25519: p = 2^255 - 19; bn254_g1: BN254 Fq);
+* ``mont_mul`` (``csrc/mont.cu``, header ``csrc/mont.cuh``) is the 12-bit
+  Montgomery product of :mod:`.limb` (``scripts/bench_pallas_mul.py``
+  ``main.pallas_mul``): every product of the Groth16 h pipeline and of the
+  MiMC batch. It takes its field from its consts block, so it has one
+  instance;
+* ``mont_padd``, ``fold_ablate`` and ``padd_f32_chain`` (``csrc/probes.cu``)
+  replace the Pallas probes ``main.pallas_add`` of
+  ``scripts/bench_pallas_mul.py`` (P7), ``run`` of
+  ``scripts/bench_ablate.py`` (P1; one instance per variant) and
+  ``bench_mxu`` of ``scripts/bench_pallas_padd.py`` (P3).
 
 Each wrapper takes the kernel's plain PyTorch version (``*_plain``, in this
 module) for tensors on the CPU, and launches the kernel for tensors on a CUDA
@@ -38,21 +50,22 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
 from typing import Dict
 
 import torch
+import torch.nn.functional as F
 
 from .edwards import _tree_reduce
-from .limbfold import FieldOps
+from .limbfold import LIMB_BITS, LIMB_MASK, FieldOps
 from .weierstrass import CURVES, get_engine
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-HEADER = "fold_curves.cuh"
 SOURCES = {
     "window_sum": "window_sum.cu",
     "horner": "horner.cu",
@@ -62,7 +75,12 @@ SOURCES = {
     "tree_sum": "tree_sum.cu",
     "padd_chain": "probes.cu",
     "fe_mul": "probes.cu",
+    "mont_mul": "mont.cu",
+    "mont_padd": "probes.cu",
+    "fold_ablate": "probes.cu",
+    "padd_f32_chain": "probes.cu",
 }
+ABLATE_VARIANTS = ("conv", "conv8", "carry5", "fold", "mac")  # P1, scripts/bench_ablate.py
 KERNEL_CURVES = {
     "window_sum": ("ed25519",),
     "horner": CURVES,
@@ -72,6 +90,10 @@ KERNEL_CURVES = {
     "tree_sum": CURVES,
     "padd_chain": ("ed25519",),
     "fe_mul": ("ed25519", "bn254_g1"),
+    "mont_mul": (None,),  # None: one field-generic instance
+    "mont_padd": (None,),
+    "fold_ablate": ABLATE_VARIANTS,
+    "padd_f32_chain": (None,),
 }
 LIBRARIES = tuple(dict.fromkeys(Path(src).stem for src in SOURCES.values()))  # one per source
 WIN_GROUP = 4  # windows per window_sum4 / horner4 launch
@@ -82,6 +104,7 @@ NVCC_FLAGS = [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _ARGTYPES = {
     "window_sum": [_P, _P, _P, _P, _I, _I, _P],
     "horner": [_P, _P, _P, _P, _I, _P],
@@ -91,12 +114,17 @@ _ARGTYPES = {
     "tree_sum": [_P, _P, _P, _I, _I, _P],
     "padd_chain": [_P, _P, _P, _P, _I, _I, _P],
     "fe_mul": [_P, _P, _P, _P, _I, _P],
+    "mont_mul": [_P, _P, _P, _P, _I, _L, _L, _P],
+    "mont_padd": [_P, _P, _P, _P, _I, _P],
+    "fold_ablate": [_P, _P, _P, _P, _I, _I, _P],
+    "padd_f32_chain": [_P, _P, _P, _P, _I, _I, _P],
 }
 
 
-def instance(kernel: str, curve: str) -> str:
-    """Name of a kernel's instance for one curve."""
-    return kernel if curve == "ed25519" else f"{kernel}_{curve}"
+def instance(kernel: str, curve) -> str:
+    """Name of a kernel's instance for one curve (or variant; None for a
+    kernel with one instance)."""
+    return kernel if curve in ("ed25519", None) else f"{kernel}_{curve}"
 
 
 INSTANCES = tuple(instance(k, c) for k in SOURCES for c in KERNEL_CURVES[k])
@@ -120,11 +148,26 @@ def _nvcc() -> str:
     return str(Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc")
 
 
+def _sources(lib: str) -> list:
+    """``{lib}.cu`` and every header it includes from ``csrc/``, directly or
+    through another header, in include order."""
+    out, todo = [], [f"{lib}.cu"]
+    while todo:
+        name = todo.pop(0)
+        if name in out:
+            continue
+        out.append(name)
+        todo += re.findall(r'^\s*#\s*include\s+"([^"]+)"', (CSRC / name).read_text(), re.M)
+    return out
+
+
 def _library_path(lib: str) -> Path:
-    """Build output named by a digest of the source and flags, so an edited
-    source is rebuilt and never served a stale library."""
+    """Build output named by a digest of the source, the headers it includes
+    and the flags, so an edited source or header is rebuilt and never served
+    a stale library."""
     h = hashlib.sha256()
-    for part in (f"{lib}.cu", HEADER):
+    for part in _sources(lib):
+        h.update(part.encode())
         h.update((CSRC / part).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{lib}-{h.hexdigest()[:16]}.so"
@@ -167,15 +210,15 @@ def build() -> Dict[str, Path]:
 
 
 @functools.lru_cache(maxsize=None)
-def _launcher(name: str, curve: str):
+def _launcher(name: str, curve):
     lib = ctypes.CDLL(str(build()[Path(SOURCES[name]).stem]))
-    fn = getattr(lib, f"{name}_{curve}_launch")
+    fn = getattr(lib, f"{name}_{curve}_launch" if curve else f"{name}_launch")
     fn.argtypes = _ARGTYPES[name]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _run(name: str, curve: str, dev: torch.device, *args) -> None:
+def _run(name: str, curve, dev: torch.device, *args) -> None:
     with torch.cuda.device(dev):
         err = _launcher(name, curve)(*args, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
@@ -457,4 +500,292 @@ def fe_mul(consts: torch.Tensor, a: torch.Tensor, b: torch.Tensor, *, curve: str
             raise ValueError(f"{key} must be ({eng.n}, {E}) int32")
     out = torch.empty_like(a)
     _run("fe_mul", curve, dev, consts.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(), E)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# P6: the 12-bit Montgomery product (ops/limb.py), any field
+# ---------------------------------------------------------------------------
+
+MONT_N = 22  # limbs of the mont_mul instance (BN254 Fr, 2^255 - 19)
+
+
+def mont_carry(x: torch.Tensor, one_mont: torch.Tensor) -> torch.Tensor:
+    """One wrap-carry pass over (..., n) limbs: (x & mask) + (x >> 12)
+    shifted up one limb + (top carry) * (R mod p)."""
+    hi = x >> LIMB_BITS
+    return (x & LIMB_MASK) + F.pad(hi[..., :-1], (1, 0)) + hi[..., -1:] * one_mont
+
+
+def mont_mul_plain(consts: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``mont_mul``: the schoolbook columns, the REDC sweep
+    in the JAX order and three wrap carries (the limbs of the JAX
+    ``LimbContext.mont_mul``). ``consts``: (3+, n) int32, rows p, R mod p and
+    ninv in word 0."""
+    n = consts.shape[1]
+    p, one, ninv = consts[0], consts[1], int(consts[2, 0])
+    a, b = torch.broadcast_tensors(a, b)
+    T = torch.zeros(a.shape[:-1] + (2 * n,), dtype=torch.int32, device=a.device)
+    for j in range(n):
+        T[..., j : j + n] += a * b[..., j : j + 1]
+    for i in range(n):
+        m = ((T[..., i] & LIMB_MASK) * ninv) & LIMB_MASK
+        T[..., i : i + n] += m[..., None] * p
+        T[..., i + 1] += T[..., i] >> LIMB_BITS
+    x = T[..., n:]
+    for _ in range(3):
+        x = mont_carry(x, one)
+    return x
+
+
+def _check_mont(consts: torch.Tensor, rows: int, **tensors) -> torch.device:
+    """The Montgomery kernels take contiguous int32 tensors on one CUDA
+    device and a (rows, MONT_N) int32 consts block."""
+    dev = consts.device
+    if dev.type != "cuda":
+        raise ValueError(f"kernel wrappers take CUDA or CPU tensors, got {dev}")
+    if consts.dtype != torch.int32 or tuple(consts.shape) != (rows, MONT_N):
+        raise ValueError(f"consts must be the ({rows}, {MONT_N}) int32 Montgomery consts block")
+    for key, t in {"consts": consts, **tensors}.items():
+        if t.device != dev:
+            raise ValueError(f"{key} is on {t.device}, consts on {dev}")
+        if t.dtype != torch.int32:
+            raise ValueError(f"{key} must be int32")
+        if not t.is_contiguous():
+            raise ValueError(f"{key} must be contiguous")
+    return dev
+
+
+def mont_mul(consts: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a * b * R^-1 over (..., n) int32 limbs; ``b`` broadcasts over
+    ``a``'s leading axes (its shape, leading 1s aside, is ``a``'s trailing
+    shape)."""
+    if a.device.type == "cpu":
+        return mont_mul_plain(consts, a, b)
+    dev = _check_mont(consts, 3, a=a, b=b)
+    n = consts.shape[1]
+    bshape = list(b.shape)
+    while len(bshape) > 1 and bshape[0] == 1:
+        bshape.pop(0)
+    if a.shape[-1] != n or list(a.shape[a.dim() - len(bshape):]) != bshape:
+        raise ValueError(f"mont_mul takes (..., {n}) limbs with b's shape a suffix of a's, "
+                         f"got {tuple(a.shape)} and {tuple(b.shape)}")
+    out = torch.empty_like(a)
+    if a.numel():
+        _run("mont_mul", None, dev, consts.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(),
+             n, a.numel() // n, b.numel() // n)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# P7: Edwards addition in the Montgomery domain (2^255 - 19)
+# ---------------------------------------------------------------------------
+
+
+def mont_padd_plain(consts: torch.Tensor, p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``mont_padd``: ``point_add_val`` of
+    ``scripts/bench_pallas_mul.py`` over (4, n, E) limbs-major Montgomery
+    coordinates; ``consts`` (4, n): p, R mod p, ninv, 2d * R mod p."""
+    mc = consts[:3]
+    one = consts[1]
+
+    def mm(x, y):
+        return mont_mul_plain(mc, x, y)
+
+    def add(x, y):
+        return mont_carry(x + y, one)
+
+    def sub(x, y):
+        return mont_carry(x - y, one)
+
+    X1, Y1, Z1, T1 = p.transpose(1, 2)  # each (E, n)
+    X2, Y2, Z2, T2 = q.transpose(1, 2)
+    A = mm(sub(Y1, X1), sub(Y2, X2))
+    B = mm(add(Y1, X1), add(Y2, X2))
+    C = mm(mm(T1, T2), consts[3])
+    zz = mm(Z1, Z2)
+    D = add(zz, zz)
+    E, Fv, G, H = sub(B, A), sub(D, C), add(D, C), add(B, A)
+    return torch.stack([mm(E, Fv), mm(G, H), mm(Fv, G), mm(E, H)]).transpose(1, 2).contiguous()
+
+
+def mont_padd(consts: torch.Tensor, p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """p + q per lane over (4, n, E) int32 Montgomery limbs, limbs-major."""
+    if p.device.type == "cpu":
+        return mont_padd_plain(consts, p, q)
+    dev = _check_mont(consts, 4, p=p, q=q)
+    E = p.shape[-1]
+    for key, t in (("p", p), ("q", q)):
+        if tuple(t.shape) != (4, MONT_N, E):
+            raise ValueError(f"{key} must be (4, {MONT_N}, {E}) int32")
+    out = torch.empty_like(p)
+    _run("mont_padd", None, dev, consts.data_ptr(), p.data_ptr(), q.data_ptr(), out.data_ptr(), E)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# P1: the parts of the fold product alone (scripts/bench_ablate.py)
+# ---------------------------------------------------------------------------
+
+
+def _conv_shifted(a: torch.Tensor, b: torch.Tensor, nc: int) -> torch.Tensor:
+    """``conv_a``: the (nc, E) columns as a sum of shifted pads."""
+    n = a.shape[0]
+    return sum(F.pad(a * b[j : j + 1], (0, 0, j, nc - n - j)) for j in range(n))
+
+
+def _conv_aligned(a: torch.Tensor, b: torch.Tensor, nc: int) -> torch.Tensor:
+    """``conv_b``: the same columns grouped by j mod 8, aligned pads summed
+    first, then 8 residual shifts."""
+    n = a.shape[0]
+    out = None
+    for r in range(8):
+        u = None
+        for j in range(r, n, 8):
+            t = F.pad(a * b[j : j + 1], (0, 0, j - r, nc - n - (j - r)))
+            u = t if u is None else u + t
+        if u is None:
+            continue
+        su = F.pad(u[: nc - r], (0, 0, r, 0)) if r else u
+        out = su if out is None else out + su
+    return out
+
+
+def fold_ablate_plain(consts: torch.Tensor, a: torch.Tensor, b, *, variant: str) -> torch.Tensor:
+    """Plain version of ``fold_ablate``: the variant's function of
+    ``scripts/bench_ablate.py`` over limbs-major int32 lanes, at n limbs
+    (the fold consts block of ed25519 gives ONE and FOLD):
+
+    * ``conv``: conv_a(a, b)[:n] + conv_a(a, b)[n:2n] * 0;
+    * ``conv8``: the same with conv_b;
+    * ``carry5``: 5 wrap-carry passes of a;
+    * ``fold``: a[:n] + sum_i a[n + i] * FOLD[i] over the n + 2 high rows of
+      a (2n + 2, E);
+    * ``mac``: sum_j a * b[j], n plain multiply-adds with no shift."""
+    n = consts.shape[1]
+    nc = 2 * n + 2
+    if variant in ("conv", "conv8"):
+        T = (_conv_shifted if variant == "conv" else _conv_aligned)(a, b, nc)
+        return T[:n] + T[n : 2 * n] * 0
+    if variant == "carry5":
+        one = consts[0][:, None]
+        t = a
+        for _ in range(5):
+            hi = t >> LIMB_BITS
+            t = (t & LIMB_MASK) + F.pad(hi[:-1], (0, 0, 1, 0)) + hi[-1:] * one
+        return t
+    if variant == "fold":
+        acc = a[:n]
+        for i in range(n + 2):
+            acc = acc + a[n + i : n + i + 1] * consts[1 + i][:, None]
+        return acc
+    if variant == "mac":
+        acc = a * b[0:1]
+        for j in range(1, n):
+            acc = acc + a * b[j : j + 1]
+        return acc
+    raise ValueError(f"fold_ablate has no variant {variant!r}")
+
+
+def fold_ablate(consts: torch.Tensor, a: torch.Tensor, b, *, variant: str) -> torch.Tensor:
+    """One part of the fold product per lane (``fold_ablate_plain``): ``a``
+    (n, E) int32, or (2n + 2, E) for ``fold``; ``b`` (n, E) for ``conv``,
+    ``conv8`` and ``mac``, None otherwise. Returns (n, E) int32."""
+    if a.device.type == "cpu":
+        return fold_ablate_plain(consts, a, b, variant=variant)
+    if variant not in ABLATE_VARIANTS:
+        raise ValueError(f"fold_ablate has no variant {variant!r}")
+    eng = get_engine("ed25519")
+    n = eng.n
+    two = variant in ("conv", "conv8", "mac")
+    if two != (b is not None):
+        raise ValueError(f"fold_ablate {variant} takes {'two operands' if two else 'one operand'}")
+    dev = _check_cuda(eng, consts, a=a, **({"b": b} if two else {}))
+    E = a.shape[-1]
+    rows = 2 * n + 2 if variant == "fold" else n
+    if a.dtype != torch.int32 or tuple(a.shape) != (rows, E):
+        raise ValueError(f"a must be ({rows}, {E}) int32")
+    if two and (b.dtype != torch.int32 or tuple(b.shape) != (n, E)):
+        raise ValueError(f"b must be ({n}, {E}) int32")
+    out = torch.empty((n, E), dtype=torch.int32, device=a.device)
+    _run("fold_ablate", variant, dev, consts.data_ptr(), a.data_ptr(), b.data_ptr() if two else 0,
+         out.data_ptr(), E, 0)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# P3: chained Edwards additions on f32 balanced 9-bit limbs
+# ---------------------------------------------------------------------------
+
+F32_W = 9                   # bits per balanced limb
+F32_NF = 29                 # limbs (261 bits)
+F32_NC = 2 * F32_NF + 2     # convolution columns
+F32_RND = float(3 << (22 + F32_W))  # (x + RND) - RND rounds x to a multiple of 2^W
+F32_ITW = 1.0 / (1 << F32_W)
+
+
+def padd_f32_chain_plain(consts: torch.Tensor, p: torch.Tensor, q: torch.Tensor, R: int) -> torch.Tensor:
+    """Plain version of ``padd_f32_chain``: ``R`` times p <- p + q with the
+    padd of ``scripts/bench_pallas_padd.py`` ``bench_mxu``, the convolution
+    (a one-hot (NC, NF^2) matrix), the fold and the carry shift as float32
+    matrix products as the TPU ran them on its MXU. Exact: every partial sum
+    is an integer below 2^24 (float32 products must run in full float32, not
+    TF32). ``consts`` (NF + 4, NF) float32: ONE, FOLD[NF + 2], 2d."""
+    NF, NC = F32_NF, F32_NC
+    one, fold, twod = consts[0], consts[1 : NF + 3], consts[NF + 3][:, None]
+    dev = p.device
+    Cm = torch.zeros((NC, NF * NF), dtype=torch.float32, device=dev)
+    idx = torch.arange(NF, device=dev)
+    Cm[(idx[:, None] + idx[None, :]).reshape(-1), torch.arange(NF * NF, device=dev)] = 1.0
+    FT = fold.T.contiguous()
+    U = torch.zeros((NF, NF), dtype=torch.float32, device=dev)
+    U[idx[1:], idx[:-1]] = 1.0
+    U[:, NF - 1] = one
+
+    def carry(x):
+        hi = (x + F32_RND) - F32_RND
+        return (x - hi) + U @ (hi * F32_ITW)
+
+    def carry_nw(T):
+        hi = (T + F32_RND) - F32_RND
+        return (T - hi) + F.pad((hi * F32_ITW)[:-1], (0, 0, 1, 0))
+
+    def mul(a, b):
+        O = (a[:, None, :] * b[None, :, :]).reshape(NF * NF, -1)
+        T = carry_nw(carry_nw(Cm @ O))
+        return carry(carry(carry(T[:NF] + FT @ T[NF:])))
+
+    X2, Y2, Z2, T2 = q
+    for _ in range(R):
+        X1, Y1, Z1, T1 = p
+        A = mul(Y1 - X1, Y2 - X2)
+        B = mul(Y1 + X1, Y2 + X2)
+        C = mul(mul(T1, T2), twod)
+        zz = mul(Z1, Z2)
+        D = zz + zz
+        E, Fv, G, H = B - A, D - C, D + C, B + A
+        p = torch.stack([mul(E, Fv), mul(G, H), mul(Fv, G), mul(E, H)])
+    return p
+
+
+def padd_f32_chain(consts: torch.Tensor, p: torch.Tensor, q: torch.Tensor, R: int) -> torch.Tensor:
+    """p + R * q per lane by R chained additions over (4, NF, B) float32
+    balanced limbs."""
+    if p.device.type == "cpu":
+        return padd_f32_chain_plain(consts, p, q, R)
+    dev = consts.device
+    if dev.type != "cuda":
+        raise ValueError(f"kernel wrappers take CUDA or CPU tensors, got {dev}")
+    shape = (F32_NF + 4, F32_NF)
+    if consts.dtype != torch.float32 or tuple(consts.shape) != shape:
+        raise ValueError(f"consts must be the {shape} float32 consts block")
+    B = p.shape[-1]
+    for key, t in (("consts", consts), ("p", p), ("q", q)):
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{key} must be contiguous on {dev}")
+        if key != "consts" and (t.dtype != torch.float32 or tuple(t.shape) != (4, F32_NF, B)):
+            raise ValueError(f"{key} must be (4, {F32_NF}, {B}) float32")
+    out = torch.empty_like(p)
+    _run("padd_f32_chain", None, dev, consts.data_ptr(), p.data_ptr(), q.data_ptr(), out.data_ptr(),
+         R, B)
     return out

@@ -66,16 +66,7 @@ def _get_table(curve_name: str, points: Sequence, where):
     return table
 
 
-def _mesh_for(dev: torch.device):
-    """The mesh the seam shards over for entry device ``dev``, or None."""
-    mesh = meshmod.current_mesh()
-    if mesh is None and dev.type == "cuda" and meshmod.use_mesh():
-        mesh = meshmod.get_mesh()
-    if mesh is None or mesh.size <= 1:
-        return None
-    if mesh.device_type != dev.type:
-        raise ValueError(f"the mesh is on {mesh.device_type}, the entry device is {dev}")
-    return mesh
+_mesh_for = meshmod.mesh_for  # the mesh the seam shards over, or None
 
 
 def _dispatch(table: curve.DeviceTable, scalar_vecs: Sequence[Sequence[int]]) -> List:

@@ -1,16 +1,28 @@
-"""Radix-2 NTT over a prime field on Python ints (the host golden tier).
+"""Radix-2 NTT over a prime field: the host golden tier and the batched
+device tier.
 
-Copy of the host functions of the JAX package's ``libzkp_tpu/ops/ntt.py``
-(without its native hook): the in-order iterative NTT over the size-n
-root-of-unity domain, interpolation, and coset evaluation / interpolation for
-the Groth16 h polynomial. The device NTT is not ported yet.
+Port of the JAX package's ``libzkp_tpu/ops/ntt.py`` (without its native
+hook):
+
+* Host tier on Python ints: the in-order iterative NTT over the size-n
+  root-of-unity domain, interpolation, and coset evaluation / interpolation.
+* Device tier (:func:`ntt_device`): many transforms at once on Montgomery
+  limb tensors (:mod:`.limb`), the butterfly stages eager torch around the
+  ``mont_mul`` kernel, with the JAX schedule of reduces, so the limbs equal
+  the JAX ``ntt_batch``'s. The four-step NTT sharded over a mesh
+  (``ntt_sharded``) and the STARK's ``coset_lde_batch`` are not ported yet.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import List
 
+import numpy as np
+import torch
+
 from .field import PrimeField
+from .limb import LimbContext, get_context, ints_to_limb_rows
 
 
 def _bit_reverse_permute(a: List[int]) -> List[int]:
@@ -85,3 +97,81 @@ def interpolate_coset(F: PrimeField, evals: List[int], offset: int) -> List[int]
         out.append(c * power % p)
         power = power * inv_off % p
     return out
+
+
+# ---------------------------------------------------------------------------
+# Device tier: batched NTT over Montgomery limb tensors
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _twiddle_table(p: int, n: int, invert: bool) -> np.ndarray:
+    """Per-stage Montgomery twiddles, shape (log n, n//2, limbs), host
+    numpy: stage s holds w_len^k for k < half, tiled across the
+    butterflies."""
+    F = PrimeField(p, "tw")
+    ctx = get_context(p, "tw")
+    root = F.root_of_unity(n)
+    if invert:
+        root = F.inv(root)
+    vals = []
+    length = 2
+    while length <= n:
+        w_len = pow(root, n // length, p)
+        ws = []
+        w = 1
+        for _ in range(length // 2):
+            ws.append(w * ctx.R % p)
+            w = w * w_len % p
+        vals += ws * (n // length)
+        length *= 2
+    return ints_to_limb_rows(vals, ctx.n).reshape(-1, n // 2, ctx.n)
+
+
+def _bitrev_indices(n: int) -> np.ndarray:
+    bits = n.bit_length() - 1
+    idx = np.arange(n)
+    rev = np.zeros(n, dtype=np.int32)
+    for b in range(bits):
+        rev |= ((idx >> b) & 1) << (bits - 1 - b)
+    return rev
+
+
+@functools.lru_cache(maxsize=None)
+def _device_tables(p: int, n: int, invert: bool, device: torch.device):
+    """The twiddles and the bit-reversal permutation on ``device``."""
+    return (torch.from_numpy(_twiddle_table(p, n, invert)).to(device),
+            torch.from_numpy(_bitrev_indices(n).astype(np.int64)).to(device))
+
+
+def ntt_device(ctx: LimbContext, values_mont: torch.Tensor, invert: bool = False) -> torch.Tensor:
+    """Batched NTT on Montgomery-domain limb tensors.
+
+    ``values_mont``: (..., n_points, n_limbs); every leading axis is batch.
+    Each stage is one ``mont_mul`` of the odd halves by the stage's twiddles
+    and an add and a sub (one carry pass each); the values are reduced after
+    stage s when s % 4 == 3 and s is not the last, which keeps the butterfly
+    values inside the limbs' headroom (the JAX schedule: changing it changes
+    the limbs)."""
+    n = values_mont.shape[-2]
+    tw, rev = _device_tables(ctx.p, n, invert, values_mont.device)
+    a = values_mont.index_select(-2, rev)
+    log_n = n.bit_length() - 1
+    for s in range(log_n):
+        length = 2 << s
+        half = length >> 1
+        blk = a.reshape(a.shape[:-2] + (n // length, length, ctx.n))
+        u = blk[..., :half, :]
+        v = ctx.mont_mul(blk[..., half:, :], tw[s].reshape(n // length, half, ctx.n))
+        a = torch.cat([ctx.add(u, v), ctx.sub(u, v)], dim=-2).reshape(values_mont.shape)
+        if s % 4 == 3 and s != log_n - 1:
+            a = ctx.reduce(a)
+    if invert:
+        n_inv = pow(n, -1, ctx.p)
+        a = ctx.mont_mul(a, ctx.to_mont(ctx.encode_scalar(n_inv, device=a.device)))
+    return a
+
+
+def ntt_batch(ctx: LimbContext, values_mont: torch.Tensor, invert: bool = False) -> torch.Tensor:
+    """The JAX package's jitted entry; eager here, so :func:`ntt_device`."""
+    return ntt_device(ctx, values_mont, invert)

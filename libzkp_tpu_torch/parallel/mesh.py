@@ -13,9 +13,10 @@ the CPU) and a one-card run stand in for a pod, as the JAX package's tests use
 8 virtual CPU devices. Such a mesh checks the sharding, the per-block work and
 the cross-shard fold; it measures no interconnect.
 
-The seam (:mod:`libzkp_tpu_torch.ops.msm_device`) takes the mesh that
+The seam (:mod:`libzkp_tpu_torch.ops.msm_device`) and the MiMC batch
+(:func:`libzkp_tpu_torch.ops.mimc.mimc_hash_batch`) take the mesh that
 :func:`set_mesh` names, or else the default mesh over every CUDA device when
-:func:`use_mesh` holds. There is no environment knob.
+:func:`use_mesh` holds (:func:`mesh_for`). There is no environment knob.
 """
 
 from __future__ import annotations
@@ -74,6 +75,21 @@ def get_mesh(dp: Optional[int] = None, shard: int = 1,
 def num_dp(mesh: Optional[Mesh] = None) -> int:
     mesh = mesh or get_mesh()
     return mesh.shape["dp"]
+
+
+def mesh_for(dev: torch.device) -> Optional[Mesh]:
+    """The mesh a batch on entry device ``dev`` spreads over, or None: the
+    mesh :func:`set_mesh` named, else the default mesh when :func:`use_mesh`
+    holds and ``dev`` is a CUDA device; None for a mesh of one position.
+    Raises for a mesh on another device type than ``dev``."""
+    mesh = current_mesh()
+    if mesh is None and dev.type == "cuda" and use_mesh():
+        mesh = get_mesh()
+    if mesh is None or mesh.size <= 1:
+        return None
+    if mesh.device_type != dev.type:
+        raise ValueError(f"the mesh is on {mesh.device_type}, the entry device is {dev}")
+    return mesh
 
 
 def pad_to_multiple(n: int, m: int) -> int:

@@ -35,6 +35,7 @@ from libzkp_tpu_torch.parallel import collective, mesh
 from libzkp_tpu_torch.models import groth16, r1cs, snark_backend
 from libzkp_tpu_torch.models.schemes import equality_proof
 from libzkp_tpu_torch.ops import bn254, field, kernels, mimc, msm_device, ntt, ristretto, weierstrass
+from libzkp_tpu_torch.ops import groth16_device, limb
 from libzkp_tpu_torch.utils.commitment import commit_value_snark
 env = zkp.prove_range(7, 0, 10, device="cpu")
 ok = zkp.verify_range(env, 0, 10)
@@ -43,8 +44,13 @@ v = 7
 fr = int.from_bytes(commit_value_snark(v), "little")
 cs = snark_backend.build_equality_circuit(v, v, fr)
 num_instance, csr = snark_backend._equality_shape()
-h = groth16._h_from_csr(512, num_instance, csr, snark_backend._equality_assignment(v, v, fr))
+z = snark_backend._equality_assignment(v, v, fr)
+h = groth16._h_from_csr(512, num_instance, csr, z)
 ok = ok and cs.is_satisfied() and h == groth16._compute_h(cs, 512)
+# the device h and the MiMC batch on their plain versions
+abc = groth16._abc_from_csr(512, num_instance, csr, z)
+ok = ok and groth16_device.h_batch_device(512, *([t] for t in abc), device="cpu") == [h]
+ok = ok and zkp.mimc_hash_batch([v], device="cpu") == [mimc.mimc_hash_native(v)] == [fr]
 mods = [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "libzkp_tpu."))
         or m == "libzkp_tpu"]
 print(json.dumps({"ok": ok, "mods": mods}))
@@ -63,6 +69,7 @@ print(json.dumps({"ok": ok, "mods": mods}))
     "zkp.prove_equality_batch([(7, 7), (8, 8)])",
     "mesh.get_mesh()",
     "probes.run()",
+    "zkp.mimc_hash_batch([1, 2])",
 ])
 def test_entry_points_raise_without_cuda(call):
     code = f"""

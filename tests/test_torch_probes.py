@@ -1,12 +1,17 @@
 """The plain versions of the probe kernels (P2 ``padd_chain``, P4
-``fe_mul``) against the JAX package's point engine and field ops and the
-host's integer arithmetic, and ``libzkp_tpu_torch.probes`` end to end on the
-CPU at tiny sizes."""
+``fe_mul``) against the JAX package's point engine and field ops, those of
+P6 ``mont_mul``, P7 ``mont_padd``, P1 ``fold_ablate`` and P3
+``padd_f32_chain`` against the JAX formulas of the TPU probe scripts, all
+against the host's integer and point arithmetic, and
+``libzkp_tpu_torch.probes`` end to end on the CPU at tiny sizes."""
 
 from __future__ import annotations
 
+import importlib.util
 import random
+from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,7 +20,9 @@ import torch
 from libzkp_tpu.ops import curve_jax as cj
 from libzkp_tpu.ops import limbfold as jlimbfold
 from libzkp_tpu_torch import probes
+from libzkp_tpu_torch.ops import ed25519 as ed
 from libzkp_tpu_torch.ops import kernels
+from libzkp_tpu_torch.ops.limb import _limbs_to_int, get_context
 from libzkp_tpu_torch.ops.weierstrass import get_engine
 
 
@@ -66,14 +73,18 @@ def test_probes_run_end_to_end_on_cpu(capsys):
     reports no device time."""
     out = probes.run("cpu", chain_lanes=8, mul_lanes=64, add_lanes=80)
     assert [(r["probe"], r["name"]) for r in out] == [
-        ("P2", "padd_chain"), ("P4", "fe_mul"), ("P4", "fe_mul_bn254_g1"), ("P5", "pair_add")]
+        ("P2", "padd_chain"), ("P4", "fe_mul"), ("P4", "fe_mul_bn254_g1"), ("P5", "pair_add"),
+        ("P6", "mont_mul"), ("P7", "mont_padd"),
+        *(("P1", f"fold_ablate_{v}") for v in kernels.ABLATE_VARIANTS),
+        ("P3", "padd_f32_chain")]
     assert all(r["ms"] is None for r in out)
     assert out[0]["macs"] == 9 * probes.MUL_MACS * probes.CHAIN_R * 8
+    assert out[-1]["max_abs_limb"] <= probes.F32_HALF + 32
     assert not any(kernels.launches().values())
     assert probes.main(["--device", "cpu", "--chain-lanes", "4", "--mul-lanes", "8",
                         "--add-lanes", "8"]) == 0
     lines = capsys.readouterr().out.strip().splitlines()
-    assert len(lines) == 5 and '"device": "cpu"' in lines[0]
+    assert len(lines) == 1 + len(out) and '"device": "cpu"' in lines[0]
 
 
 def test_probe_wrappers_take_cpu_or_cuda_only():
@@ -95,3 +106,156 @@ def test_probe_inputs_tile_distinct_operands():
     assert vals == [av[i % probes.DISTINCT] for i in range(130)]
     rng = random.Random(0)
     assert probes._points(rng, 2) != probes._points(rng, 2)
+
+
+# ---------------------------------------------------------------------------
+# P6, P7, P1, P3: the plain versions against the TPU scripts' JAX formulas
+# ---------------------------------------------------------------------------
+
+
+def _script(name: str):
+    """A TPU probe script of ``scripts/`` as a module (its JAX formulas run
+    eagerly on the CPU; nothing here calls ``pallas_call``)."""
+    path = Path(__file__).resolve().parent.parent / "scripts" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"_probe_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_mont_mul_plain_matches_bench_pallas_mul():
+    """P6: the script's field ops (``make_field``, (n, lanes) limbs-major)
+    on its random limbs give the limbs of ``mont_mul_plain`` on the rows,
+    and a * b * R^-1 mod p."""
+    consts, a, b = probes.mont_mul_inputs("cpu", lanes=96)
+    ctx = get_context(ed.P)
+    mm, _, _, _ = _script("bench_pallas_mul").make_field(ctx.n, np.int32(ctx.ninv))(
+        jnp.asarray(consts.numpy()))
+    got = kernels.mont_mul(consts, a, b)
+    np.testing.assert_array_equal(got.numpy().T, np.asarray(mm(jnp.asarray(a.numpy().T),
+                                                              jnp.asarray(b.numpy().T))))
+    rinv = pow(ctx.R, -1, ctx.p)
+    assert ctx.decode(got[:5]) == [_limbs_to_int(x) * _limbs_to_int(y) * rinv % ctx.p
+                                   for x, y in zip(a[:5].numpy(), b[:5].numpy())]
+
+
+def test_mont_padd_plain_matches_point_add_val():
+    """P7: ``point_add_val`` of the script (written out here: it is local
+    to the script's ``main``) on the script's field ops gives the limbs of
+    ``mont_padd_plain``; decoded and times R^-1, the host's ``point_add``."""
+    consts, p, q, ps, qs = probes.mont_padd_inputs("cpu", lanes=70)
+    ctx = get_context(ed.P)
+    jc = jnp.asarray(consts.numpy())
+    mm, add, sub, _ = _script("bench_pallas_mul").make_field(ctx.n, np.int32(ctx.ninv))(jc[:3])
+    X1, Y1, Z1, T1 = jnp.asarray(p.numpy())
+    X2, Y2, Z2, T2 = jnp.asarray(q.numpy())
+    two_d = jc[3][:, None]
+    A = mm(sub(Y1, X1), sub(Y2, X2))
+    B = mm(add(Y1, X1), add(Y2, X2))
+    C = mm(mm(T1, T2), two_d)
+    zz = mm(Z1, Z2)
+    D = add(zz, zz)
+    E, F, G, H = sub(B, A), sub(D, C), add(D, C), add(B, A)
+    want = jnp.stack([mm(E, F), mm(G, H), mm(F, G), mm(E, H)])
+    got = kernels.mont_padd(consts, p, q)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    rinv = pow(ctx.R, -1, ctx.p)
+    vals = ctx.decode(got[..., :3].permute(2, 0, 1))
+    for i in range(3):
+        pt = tuple(v * rinv % ctx.p for v in vals[4 * i:4 * i + 4])
+        assert ed.point_equal(pt, ed.point_add(ps[i], qs[i]))
+
+
+@pytest.mark.parametrize("variant", kernels.ABLATE_VARIANTS)
+def test_fold_ablate_plain_matches_bench_ablate(variant, monkeypatch):
+    """P1 at the port's n = 24: the script's ``conv_a`` / ``conv_b`` (its N
+    set to 24) and its 5 wrap carries, fold and plain multiply-adds
+    (written out here: they are local to its ``main``)."""
+    ba = _script("bench_ablate")
+    n = 24
+    monkeypatch.setattr(ba, "N", n)
+    monkeypatch.setattr(ba, "NC", 2 * n + 2)
+    consts, a, b = probes.ablate_inputs("cpu", variant, lanes=64)
+    got = kernels.fold_ablate(consts, a, b, variant=variant)
+    c, ja = jnp.asarray(consts.numpy()), jnp.asarray(a.numpy())
+    jb = None if b is None else jnp.asarray(b.numpy())
+    if variant in ("conv", "conv8"):
+        conv = ba.conv_a if variant == "conv" else ba.conv_b
+        want = conv(ja, jb)[:n] + conv(ja, jb)[n:2 * n] * 0
+    elif variant == "carry5":
+        t = ja
+        for _ in range(5):
+            hi = t >> 12
+            t = (t & 4095) + jnp.pad(hi[:-1, :], [(1, 0), (0, 0)]) + hi[-1:, :] * c[0][:, None]
+        want = t
+    elif variant == "fold":
+        want = ja[:n]
+        for i in range(n + 2):
+            want = want + ja[n + i:n + i + 1, :] * c[1 + i][:, None]
+    else:
+        want = ja * jb[0:1, :]
+        for j in range(1, n):
+            want = want + ja * jb[j:j + 1, :]
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert tuple(got.shape) == (n, 64)
+
+
+def test_padd_f32_chain_plain_matches_bench_mxu_and_stays_exact():
+    """P3: the consts equal the script's ``build_consts``; 64 chained
+    additions of ``padd_f32_chain_plain`` give the values of ``bench_mxu``'s
+    padd (written out here with the script's HIGHEST-precision dots: it is
+    local to its function), and every partial sum of every dot (the sum of
+    its terms' magnitudes) stays below 2^24, so float32 is exact in any
+    summation order."""
+    bp = _script("bench_pallas_padd")
+    consts, p, q, _, _ = probes.f32_chain_inputs("cpu", lanes=8)
+    NF = kernels.F32_NF
+    Cm, FmT, Um, TWOD, _ = bp.build_consts()
+    np.testing.assert_array_equal(consts.numpy()[0], Um[:, NF - 1])
+    np.testing.assert_array_equal(consts.numpy()[1:NF + 3].T, FmT)
+    np.testing.assert_array_equal(consts.numpy()[NF + 3], TWOD)
+    np.testing.assert_array_equal(probes.to_balanced(12345 << 200), bp.to_balanced(12345 << 200, NF))
+
+    def dot(x, y):
+        return jax.lax.dot_general(x, y, (((1,), (0,)), ((), ())),
+                                   precision=jax.lax.Precision.HIGHEST,
+                                   preferred_element_type=jnp.float32)
+
+    worst = [0.0]
+    C, FT, U = jnp.asarray(Cm), jnp.asarray(FmT), jnp.asarray(Um)
+
+    def note(t):
+        worst[0] = max(worst[0], float(jnp.max(t)))
+
+    def carry(x):
+        hi = (x + bp.RND) - bp.RND
+        note(jnp.abs(x - hi) + dot(jnp.abs(U), jnp.abs(hi * bp.ITW)))
+        return (x - hi) + dot(U, hi * bp.ITW)
+
+    def carry_nw(T):
+        hi = (T + bp.RND) - bp.RND
+        return (T - hi) + jnp.pad((hi * bp.ITW)[:-1, :], ((1, 0), (0, 0)))
+
+    def mul(x, y):
+        O = (x[:, None, :] * y[None, :, :]).reshape(NF * NF, -1)
+        note(dot(C, jnp.abs(O)))
+        T = carry_nw(carry_nw(dot(C, O)))
+        note(jnp.abs(T[:NF]) + dot(jnp.abs(FT), jnp.abs(T[NF:])))
+        return carry(carry(carry(T[:NF] + dot(FT, T[NF:]))))
+
+    twod = jnp.asarray(TWOD)[:, None]
+    P_ = tuple(jnp.asarray(p.numpy()))
+    X2, Y2, Z2, T2 = jnp.asarray(q.numpy())
+    for _ in range(probes.CHAIN_R):
+        X1, Y1, Z1, T1 = P_
+        A = mul(Y1 - X1, Y2 - X2)
+        B = mul(Y1 + X1, Y2 + X2)
+        Cc = mul(mul(T1, T2), twod)
+        zz = mul(Z1, Z2)
+        D = zz + zz
+        E, F, G, H = B - A, D - Cc, D + Cc, B + A
+        P_ = (mul(E, F), mul(G, H), mul(F, G), mul(E, H))
+    got = kernels.padd_f32_chain(consts, p, q, probes.CHAIN_R)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jnp.stack(P_)))
+    assert worst[0] < 2**24, worst[0]
+    assert float(got.abs().max()) <= probes.F32_HALF + 32
