@@ -16,7 +16,10 @@ Phases, each printing one JSON line:
    kernels padd_chain and fe_mul, and pair_add at P5's shape; mont_padd,
    the five fold_ablate variants and padd_f32_chain at their probes'
    shapes; mont_mul at an NTT stage of a 256-statement h batch (twiddles
-   broadcast), with a one-row operand, and at P6's 2^20 rows;
+   broadcast), with a one-row operand, and at P6's 2^20 rows. The two G2
+   window sums (window_sum4, tree_sum) are held limb for limb, also at
+   ragged shapes (window_sum4: B in {1, 3}, Kp in {32, 33}; tree_sum: B in
+   {1, 127}, k in {1, 2, 3, 191}, and k = 96, 64 at 128 lanes);
 4. (phases 4 to 6 run with the seam pinned to the single-device route, a
    one-position mesh, on any number of cards) the main path: ``prove_range_batch`` of 256 range proofs (512 prover
    lanes; T1/T2 and the L/R MSMs at 1024 lanes) with the launch counters
@@ -294,11 +297,46 @@ def _weierstrass_point_err(curve: str, a, b) -> int:
     return err
 
 
+def _limbs_err(what: str, got, want) -> int:
+    """0 when ``got`` and ``want`` hold the same limbs; raises otherwise."""
+    err = int((got - want).abs().max())
+    if err != 0:
+        raise AssertionError(f"{what} limbs differ from its plain version (max {err})")
+    return err
+
+
+def g2_ragged_window_sum4(dev, consts, table) -> None:
+    """window_sum4 G2 at the ragged edges of its block's tree: B in {1, 3}
+    lanes over a table of Kp in {32, 33} basis points (the first Kp points of
+    the path's table), limb for limb and point for point against the plain
+    version; one kernel_check line each (not in the kernels line)."""
+    from libzkp_tpu_torch.ops import kernels
+
+    curve = "bn254_g2"
+    for Kp in (32, 33):
+        sub = table[:Kp * 256]
+        for B in (1, 3):
+            digits = torch.randint(0, 256, (kernels.WIN_GROUP, Kp, B), dtype=torch.int32,
+                                   generator=torch.Generator().manual_seed(10 * Kp + B)).to(dev)
+            got = kernels.window_sum4(consts, sub, digits, curve=curve)
+            want = kernels.window_sum4_plain(consts, sub, digits, curve=curve)
+            torch.cuda.synchronize()
+            err = _limbs_err(f"window_sum4 {curve} at Kp {Kp}, B {B}", got, want)
+            if _weierstrass_point_err(curve, got, want) != 0:
+                raise AssertionError(f"window_sum4 {curve} at Kp {Kp}, B {B} disagrees with its plain version")
+            emit({"phase": "kernel_check", "name": kernels.instance("window_sum4", curve), "ragged": True,
+                  "max_abs_err": float(err), "tolerance": "exact limbs and point equality",
+                  "shape": f"table ({Kp * 256},6,24) i16, digits (4,{Kp},{B}) i32"})
+
+
 def check_bn254_kernels(dev, int_rate: float, tables: dict) -> list:
     """Phase 3b: pair_add, window_sum4 and horner4 for BN254 G1 and G2
     against their plain versions at the Groth16 prover's shapes: 256
     statements, so 4 * 256 window-sum lanes; Kp = 512 (G1, the h query) and
-    352 (G2, the b_g2 query). Leaves each table in ``tables[curve]``."""
+    352 (G2, the b_g2 query). window_sum4 G2 sums in the plain tree's order,
+    so it is held limb for limb, here and at ragged shapes
+    (:func:`g2_ragged_window_sum4`); G1 by point equality. Leaves each table
+    in ``tables[curve]``."""
     import numpy as np
 
     from libzkp_tpu_torch.ops import kernels
@@ -344,6 +382,11 @@ def check_bn254_kernels(dev, int_rate: float, tables: dict) -> list:
         err = _weierstrass_point_err(curve, ws_k, ws_p)
         if err != 0:
             raise AssertionError(f"window_sum4 {curve} disagrees with its plain version (point err {err})")
+        tolerance = "projective equality (X, Y cross-products with Z, mod p) and the curve equation"
+        if curve == "bn254_g2":  # summed in the plain tree's order: limb for limb
+            err = _limbs_err(f"window_sum4 {curve}", ws_k, ws_p)
+            tolerance = "exact limbs, and projective equality and the curve equation"
+            g2_ragged_window_sum4(dev, consts, table)
         t_k = cuda_ms(lambda: kernels.window_sum4(consts, table, digits, curve=curve), 5)
         t_p = cuda_ms(plain4, 1)
         b_ms, b_by = bound((Kp - 1) * padd * WG * B,
@@ -351,8 +394,7 @@ def check_bn254_kernels(dev, int_rate: float, tables: dict) -> list:
         results.append(dict(name=kernels.instance("window_sum4", curve), route="cuda",
                             source="libzkp_tpu_torch/csrc/window_sum4.cu",
                             replaces="libzkp_tpu/ops/curve_jax.py:737",
-                            max_abs_err=float(err),
-                            tolerance="projective equality (X, Y cross-products with Z, mod p) and the curve equation",
+                            max_abs_err=float(err), tolerance=tolerance,
                             ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=None,
                             shape=f"table ({Kp * 256},{C},{n}) i16, digits ({WG},{Kp},{B}) i32"))
 
@@ -400,14 +442,43 @@ def _point_err(curve: str, a, b) -> int:
     return _edwards_point_err(a, b) if curve == "ed25519" else _weierstrass_point_err(curve, a, b)
 
 
+def g2_ragged_tree_sum(dev, consts, table, table_kp: int) -> None:
+    """tree_sum G2 at the ragged edges of its block's tree and at the mesh's
+    other block shapes: B in {1, 127} lanes by k in {1, 2, 3, 191} points,
+    and B = 128 at the b_g2 query's k_local for shard 4 and 8 (96, 64), on
+    rows gathered from the path's table, limb for limb and point for point
+    against the plain version; one kernel_check line each (not in the
+    kernels line)."""
+    from libzkp_tpu_torch.ops import kernels
+
+    curve = "bn254_g2"
+    shapes = [(B, k) for B in (1, 127) for k in (1, 2, 3, 191)] + [(SHARD_B_LOCAL, 96), (SHARD_B_LOCAL, 64)]
+    for B, k in shapes:
+        digits = torch.randint(0, 256, (B, k), dtype=torch.int32,
+                               generator=torch.Generator().manual_seed(1000 * B + k)).to(dev)
+        koff = (torch.arange(k, device=dev, dtype=torch.int64) % table_kp) * 256
+        pts = table[digits.to(torch.int64) + koff].contiguous()  # (B, k, C, n) int16
+        got = kernels.tree_sum(consts, pts, curve=curve)
+        want = kernels.tree_sum_plain(consts, pts, curve=curve)
+        torch.cuda.synchronize()
+        err = _limbs_err(f"tree_sum {curve} at B {B}, k {k}", got, want)
+        if _weierstrass_point_err(curve, got, want) != 0:
+            raise AssertionError(f"tree_sum {curve} at B {B}, k {k} disagrees with its plain version")
+        emit({"phase": "kernel_check", "name": kernels.instance("tree_sum", curve), "ragged": True,
+              "max_abs_err": float(err), "tolerance": "exact limbs and point equality",
+              "shape": f"pts ({B},{k},6,24) i16"})
+
+
 def check_sharded_kernels(dev, int_rate: float, tables: dict) -> list:
     """Phase 3c: the kernels of one block of the mesh-sharded Groth16 MSMs
     (dp = shard = 2: 128 lanes per block; 256 basis points per block for the
     h query, 192 for the 334- and 332-point queries, 96 for phase 7's
     ed25519 MSM over the range basis): tree_sum for every curve on rows
-    gathered from the tables of phases 3 and 3b, held by point equality (it
-    sums in another order than the plain tree); horner for BN254 G1 and G2,
-    limb for limb."""
+    gathered from the tables of phases 3 and 3b, held by point equality (the
+    ed25519 and G1 instances sum in another order than the plain tree) and
+    for G2, which sums in its order, limb for limb too, here and at ragged
+    shapes (:func:`g2_ragged_tree_sum`); horner for BN254 G1 and G2, limb
+    for limb."""
     from libzkp_tpu_torch.ops import kernels
     from libzkp_tpu_torch.ops.weierstrass import CURVES
 
@@ -426,6 +497,11 @@ def check_sharded_kernels(dev, int_rate: float, tables: dict) -> list:
         err = _point_err(curve, ts_k, ts_p)
         if err != 0:
             raise AssertionError(f"tree_sum {curve} disagrees with its plain version (point err {err})")
+        tolerance = "point equality (cross-products mod p; a lane of no point fails)"
+        if curve == "bn254_g2":  # summed in the plain tree's order: limb for limb
+            err = _limbs_err(f"tree_sum {curve}", ts_k, ts_p)
+            tolerance = "exact limbs, and point equality"
+            g2_ragged_tree_sum(dev, consts, table, table_kp)
         t_k = cuda_ms(lambda: kernels.tree_sum(consts, pts, curve=curve), 20)
         t_p = cuda_ms(lambda: kernels.tree_sum_plain(consts, pts, curve=curve), 2)
         padd = CURVE_PADD_MACS[curve]
@@ -434,8 +510,7 @@ def check_sharded_kernels(dev, int_rate: float, tables: dict) -> list:
         results.append(dict(name=kernels.instance("tree_sum", curve), route="cuda",
                             source="libzkp_tpu_torch/csrc/tree_sum.cu",
                             replaces="libzkp_tpu/ops/curve_jax.py:364",
-                            max_abs_err=float(err), tolerance="point equality (cross-products mod p; "
-                            "a lane of no point fails)",
+                            max_abs_err=float(err), tolerance=tolerance,
                             ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=None,
                             shape=f"pts ({SHARD_B_LOCAL},{k},{C},{n}) i16"))
         if curve == "ed25519":

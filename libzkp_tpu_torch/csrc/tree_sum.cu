@@ -17,22 +17,33 @@
 //
 // The TPU kernel carried each lane's sum over sequential grid steps of K
 // chunks, revisiting one output block. Hopper has no grid axis that carries a
-// sum, so the sum over all of Kp stays inside one warp.
+// sum, so the sum over all of Kp stays inside one block.
 //
 // Bound: integer multiply-adds, not bytes. A lane needs Kp - 1 padds: an
 // Edwards padd is 9 field products, a G1 padd (RCB) 12 products and 2 small
 // multiplies, a G2 padd 42 products, each N^2 + (N + 2) * N = 1200
-// multiply-adds, against COORDS * N * 2 bytes read per point.
+// multiply-adds ((Kp - 1) * 42 * 1200 per G2 lane), against COORDS * N * 2
+// bytes read per point.
 //
-// Design: one warp per lane (warp_point_sum in fold_curves.cuh): thread s adds
-// the points k = s, s + 32, ... (6 or 8 each at the sharded Groth16 shapes),
-// then a 5-level shuffle tree. One warp per block, so the 128 lanes of a block
-// of the sharded Groth16 batch spread over 128 SMs. The sum is taken in
-// another order than the plain version's tree, so the limbs differ while the
-// point is the same: the two are held to each other by point equality. G2
-// lanes live mostly in local memory (spills allowed in this first version).
+// ed25519, G1: one warp per lane (warp_point_sum in fold_curves.cuh): thread
+// s adds the points k = s, s + 32, ... (6 or 8 each at the sharded Groth16
+// shapes), then a 5-level shuffle tree; one warp per block, so the 128 lanes
+// of a block of the sharded Groth16 batch spread over 128 SMs. The sum is
+// taken in another order than the plain version's tree, so the limbs differ
+// while the point is the same.
+//
+// G2: one block per lane runs g2_tree_sum (g2_sum.cuh), the plain version's
+// halving tree, so the limbs equal the plain version's and JAX's. The first
+// version gave a G2 lane one warp: 128 lanes filled one warp of each SM, and
+// each thread ran a chain of 6 padds and 5 shuffle levels, 42 products each,
+// out of a 5408-byte local frame. Now six threads share a padd in shared
+// memory, each product on register arrays, and a lane's block has up to 12
+// warps (60 padds at once: the 96 first-level padds of k = 192 in two
+// rounds); the level store (ceil(Kp/2) int16 points, 27.6 KB at Kp = 192)
+// and the padd scratch are dynamic shared memory, the geometry the
+// wrapper's (ops/kernels.py g2_sum_geometry).
 
-#include "fold_curves.cuh"
+#include "g2_sum.cuh"
 
 namespace {
 
@@ -58,11 +69,19 @@ int launch(const int32_t* consts, const int16_t* pts, int32_t* out, int Kp, int 
   return static_cast<int>(cudaGetLastError());
 }
 
+// G2: block b sums lane b; dynamic shared memory g2::smem_bytes(Kp, blockDim.x / 32).
+__global__ void __launch_bounds__(g2::MAX_WARPS * 32)
+tree_sum_g2_kernel(const int16_t* __restrict__ pts, int32_t* __restrict__ out, int Kp, int B) {
+  const int16_t* lane = pts + (size_t)blockIdx.x * Kp * g2::POINT;
+  g2_tree_sum([=](int k) { return lane + (size_t)k * g2::POINT; }, Kp, out, blockIdx.x, B);
+}
+
 }  // namespace
 
 // consts: the curve's (NCONST, N) int32 block; pts: (B, Kp, COORDS, N)
-// int16; out: (COORDS, N, B) int32. Each returns the CUDA error of the launch
-// (0 on success).
+// int16; out: (COORDS, N, B) int32; G2 only: warps per block and dynamic
+// shared bytes (at least g2::smem_bytes(Kp, warps)). Each returns the CUDA
+// error of the launch (0 on success).
 extern "C" int tree_sum_ed25519_launch(const int32_t* consts, const int16_t* pts, int32_t* out,
                                        int Kp, int B, void* stream) {
   return launch<Ed25519>(consts, pts, out, Kp, B, stream);
@@ -74,6 +93,12 @@ extern "C" int tree_sum_bn254_g1_launch(const int32_t* consts, const int16_t* pt
 }
 
 extern "C" int tree_sum_bn254_g2_launch(const int32_t* consts, const int16_t* pts, int32_t* out,
-                                        int Kp, int B, void* stream) {
-  return launch<Bn254G2>(consts, pts, out, Kp, B, stream);
+                                        int Kp, int B, int warps, int smem, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = g2_prepare(tree_sum_g2_kernel, Kp, warps, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = fold_load_consts(consts, Bn254G2::NCONST, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  tree_sum_g2_kernel<<<B, warps * 32, smem, st>>>(pts, out, Kp, B);
+  return static_cast<int>(cudaGetLastError());
 }

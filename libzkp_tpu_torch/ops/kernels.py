@@ -3,7 +3,8 @@
 Eight CUDA C++ sources under ``libzkp_tpu_torch/csrc/``, each compiled for
 ``sm_90a`` by ``nvcc`` into its own shared library with a plain C interface
 and bound with ``ctypes``; the field and curve code they share is
-``csrc/fold_curves.cuh``, the Montgomery field code ``csrc/mont.cuh``. Each
+``csrc/fold_curves.cuh``, the Montgomery field code ``csrc/mont.cuh``, the
+cooperative G2 point sum of the two G2 window sums ``csrc/g2_sum.cuh``. Each
 kernel is instantiated for the curves its path runs, and each instance is a
 kernel of its own, named ``<kernel>`` for ed25519 or a field-generic kernel
 and ``<kernel>_<curve>`` for BN254 or ``<kernel>_<variant>`` for a probe's
@@ -118,7 +119,44 @@ _ARGTYPES = {
     "mont_padd": [_P, _P, _P, _P, _I, _P],
     "fold_ablate": [_P, _P, _P, _P, _I, _I, _P],
     "padd_f32_chain": [_P, _P, _P, _P, _I, _I, _P],
+    # the G2 window sums also take their geometry: warps per block, shared bytes
+    "window_sum4_bn254_g2": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "tree_sum_bn254_g2": [_P, _P, _P, _I, _I, _I, _I, _P],
 }
+
+# Geometry of the G2 window sums (csrc/g2_sum.cuh): one block per output
+# lane; each warp runs five cooperative padds at once, each with 32 int32
+# rows of scratch; the level store holds ceil(K/2) int16 points.
+G2_PADDS_PER_WARP = 5
+G2_SCRATCH_BYTES = 32 * 24 * 4
+G2_POINT_BYTES = 6 * 24 * 2
+G2_MAX_WARPS = 12          # 384 threads a block (the kernels' launch bounds)
+SMEM_BLOCK_MAX = 232_448   # dynamic shared memory one block may use (H100)
+SMEM_SM = 233_472          # shared memory of an SM; each resident block also holds 1 KiB
+
+
+def g2_sum_geometry(K: int, lanes: int, sms: int) -> tuple:
+    """(warps per block, dynamic shared bytes) of a G2 window sum over ``K``
+    points for ``lanes`` output lanes on a card of ``sms`` SMs: enough warps
+    for level 1's K // 2 padds at once, up to what shared memory holds; when
+    the lanes outnumber twice the SMs, few enough that two blocks share an
+    SM. Raises where the level store and one warp's scratch exceed a
+    block's shared memory."""
+    if K < 1:
+        raise ValueError(f"a G2 window sum needs at least one point, got {K}")
+    store = (K + 1) // 2 * G2_POINT_BYTES
+    per_warp = G2_PADDS_PER_WARP * G2_SCRATCH_BYTES
+    if store + per_warp > SMEM_BLOCK_MAX:
+        raise ValueError(f"a G2 window sum over {K} points needs {store + per_warp} bytes of "
+                         f"shared memory a block, above the {SMEM_BLOCK_MAX} the card allows")
+    limit = SMEM_BLOCK_MAX if lanes < 2 * sms else SMEM_SM // 2 - 1024
+    warps = min(G2_MAX_WARPS, -(-(K // 2) // G2_PADDS_PER_WARP), (limit - store) // per_warp)
+    warps = max(1, warps)
+    return warps, store + warps * per_warp
+
+
+def _g2_geometry(dev: torch.device, K: int, lanes: int) -> tuple:
+    return g2_sum_geometry(K, lanes, torch.cuda.get_device_properties(dev).multi_processor_count)
 
 
 def instance(kernel: str, curve) -> str:
@@ -213,7 +251,7 @@ def build() -> Dict[str, Path]:
 def _launcher(name: str, curve):
     lib = ctypes.CDLL(str(build()[Path(SOURCES[name]).stem]))
     fn = getattr(lib, f"{name}_{curve}_launch" if curve else f"{name}_launch")
-    fn.argtypes = _ARGTYPES[name]
+    fn.argtypes = _ARGTYPES.get(instance(name, curve), _ARGTYPES[name])
     fn.restype = ctypes.c_int
     return fn
 
@@ -384,8 +422,9 @@ def window_sum4(consts: torch.Tensor, table: torch.Tensor, digits: torch.Tensor,
         raise ValueError(f"digits must hold {WIN_GROUP} windows, got {WG}")
     _check_table(eng, table, digits, Kp)
     out = torch.empty((eng.coords, eng.n, WG * B), dtype=torch.int32, device=table.device)
+    geometry = _g2_geometry(dev, Kp, WG * B) if curve == "bn254_g2" else ()
     _run("window_sum4", curve, dev, consts.data_ptr(), table.data_ptr(), digits.data_ptr(),
-         out.data_ptr(), Kp, B)
+         out.data_ptr(), Kp, B, *geometry)
     return out
 
 
@@ -448,7 +487,8 @@ def tree_sum(consts: torch.Tensor, pts: torch.Tensor, *, curve: str) -> torch.Te
         raise ValueError(f"pts must be (B, Kp, {eng.coords}, {eng.n}) int16")
     B, Kp = pts.shape[:2]
     out = torch.empty((eng.coords, eng.n, B), dtype=torch.int32, device=pts.device)
-    _run("tree_sum", curve, dev, consts.data_ptr(), pts.data_ptr(), out.data_ptr(), Kp, B)
+    geometry = _g2_geometry(dev, Kp, B) if curve == "bn254_g2" else ()
+    _run("tree_sum", curve, dev, consts.data_ptr(), pts.data_ptr(), out.data_ptr(), Kp, B, *geometry)
     return out
 
 

@@ -1,0 +1,199 @@
+"""The BN254 G2 window sums' design (``csrc/g2_sum.cuh``) on the CPU.
+
+The CUDA kernels run only on the card; what they compute is held here at
+small sizes against the plain versions:
+
+* the cooperative padd's schedule (round 1, the Karatsuba rows, the rows
+  rewritten in place, round 2, round 3, the output rows, with the kernel's
+  row tables) gives the limbs of the plain ``WeierstrassEngine.padd``;
+* the halving tree with every level narrowed to int16, as the kernel's
+  level store holds it, gives ``tree_sum_plain``'s limbs (and so the JAX
+  ``_window_sum_call``'s, tests/test_torch_sharded_msm.py), on rows of a
+  real multiples table;
+* the wrapper's launch geometry fits a block's shared memory at every shape
+  the paths use, and a shape that cannot fit raises.
+"""
+
+from __future__ import annotations
+
+import random
+
+import numpy as np
+import pytest
+import torch
+
+from libzkp_tpu_torch.ops import bn254 as bn
+from libzkp_tpu_torch.ops import curve as tc
+from libzkp_tpu_torch.ops import kernels
+from libzkp_tpu_torch.ops.limbfold import FieldOps
+from libzkp_tpu_torch.ops.weierstrass import get_engine
+
+CURVE = "bn254_g2"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs in several worker processes at
+    once, and OpenMP pools oversubscribing the cores stall each other."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+@pytest.fixture(scope="module")
+def g2_table():
+    """Consts and the (Kp * 256, 6, n) int16 multiples table of 6 random G2
+    points (Kp = 8), built by the plain table-add chain."""
+    eng = get_engine(CURVE)
+    g = bn.g2_from_affine((bn.G2_GEN_X, bn.G2_GEN_Y))
+    rng = random.Random(5)
+    pts = [bn.g2_scalar_mul(rng.randrange(1, bn.R), g) for _ in range(6)]
+    table = tc.DeviceTable(eng.encode_points(pts), device="cpu", curve=CURVE)
+    return torch.from_numpy(eng.consts_np), table.table, table.Kp
+
+
+def _gathered(table, kp: int, K: int, lanes: int, seed: int) -> torch.Tensor:
+    """(lanes, K, 6, n) int16 rows of the table at random digits, basis
+    point k % kp for position k, as the mesh's gather lays them out."""
+    digits = np.random.default_rng(seed).integers(0, 256, (lanes, K))
+    rows = (np.arange(K) % kp) * 256 + digits
+    return table[torch.from_numpy(rows)]
+
+
+# ---------------------------------------------------------------------------
+# the cooperative padd's schedule (csrc/g2_sum.cuh g2_padd_coop)
+# ---------------------------------------------------------------------------
+
+
+def _coop_padd(f: FieldOps, P: torch.Tensor, Q: torch.Tensor) -> torch.Tensor:
+    """g2_padd_coop row by row: P, Q (6, n, L) int32 -> P + Q (6, n, L)."""
+
+    def r1_row(pt, j, k):
+        r = pt[2 * (j if j < 3 else (1 if j == 4 else 0)) + k]
+        if j >= 3:
+            r = f.carry(r + pt[2 * (1 if j == 3 else 2) + k])
+        return r
+
+    def r1_operand(pt, j, s):
+        return r1_row(pt, j, s) if s < 2 else f.carry(r1_row(pt, j, 0) + r1_row(pt, j, 1))
+
+    def operand(rows, at, s):
+        return rows[at + s] if s < 2 else f.carry(rows[at] + rows[at + 1])
+
+    def kara(M, j, k):
+        r = f.carry(M[3 * j + (2 if k else 0)] - M[3 * j + (0 if k else 1)])
+        return f.carry(r - M[3 * j + 1]) if k else r
+
+    M = [f.mul(r1_operand(P, g, s), r1_operand(Q, g, s)) for g in range(6) for s in range(3)]
+    T = [kara(M, g, k) for g in range(6) for k in range(2)]  # t0, t1, t2, t3, t4, X3
+    X = []
+    for g in range(6):  # in place: t3 -= t0 + t1, t4 -= t1 + t2, Y3 = X3 - (t0 + t2)
+        v, k = 3 + (g >> 1), g & 1
+        u = f.carry(T[2 * (1 if v == 4 else 0) + k] + T[2 * (1 if v == 3 else 2) + k])
+        T[2 * v + k] = f.carry(T[2 * v + k] - u)
+        if g < 2:
+            X.append(f.carry(T[g] + T[g] + T[g]))
+    b3 = [f.extra_const(0), f.extra_const(1)]
+    M = [f.mul(operand(T, 4 if g < 3 else 10, g % 3), operand(b3, 0, g % 3)) for g in range(6)]
+    for g in range(6):  # t1 - b3 t2 -> t0's rows, b3 Y3 -> Y3's, t1 + b3 t2 -> t2's
+        k, kind = g & 1, g >> 1
+        r = kara(M, 1 if kind == 1 else 0, k)
+        if kind != 1:
+            r = f.carry(T[2 + k] - r if kind == 0 else T[2 + k] + r)
+        T[2 * (0 if kind == 0 else (5 if kind == 1 else 2)) + k] = r
+    rows = T + X
+    M = [f.mul(operand(rows, 2 * ((0x625043 >> (4 * g)) & 15), s),
+               operand(rows, 2 * ((0x346250 >> (4 * g)) & 15), s))
+         for g in range(6) for s in range(3)]
+    out = []
+    for g in range(6):
+        c, k = g >> 1, g & 1
+        a, b = kara(M, 2 * c, k), kara(M, 2 * c + 1, k)
+        out.append(f.carry(a - b if c == 0 else a + b))
+    return torch.stack(out)
+
+
+def test_cooperative_padd_schedule_gives_padd_limbs(g2_table):
+    """Distinct points, a doubling, the identity on either side, and padd
+    outputs as inputs: every limb equals the plain padd's."""
+    consts, table, _ = g2_table
+    eng = get_engine(CURVE)
+    f = FieldOps(eng.n, consts)
+    pts = _gathered(table, 8, 2, 16, seed=1).to(torch.int32)  # (16, 2, 6, n)
+    P = pts[:, 0].permute(1, 2, 0).contiguous()
+    Q = pts[:, 1].permute(1, 2, 0).contiguous()
+    Q[..., 0] = P[..., 0]
+    Q[..., 1] = eng.identity(1, "cpu")[..., 0]
+    P[..., 2] = eng.identity(1, "cpu")[..., 0]
+    for _ in range(2):
+        want = eng.padd(consts, P, Q)
+        assert torch.equal(_coop_padd(f, P, Q), want)
+        P, Q = want, P
+
+
+# ---------------------------------------------------------------------------
+# the narrowed halving tree (g2_tree_sum's level store)
+# ---------------------------------------------------------------------------
+
+
+def _narrowed_tree_sum(consts: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """g2_tree_sum's order and storage: level 1 from the int16 rows, every
+    level's outputs (and the carried odd point) narrowed to int16 in the
+    level store, the last one widened. (B, K, 6, n) int16 -> (6, n, B)."""
+    eng = get_engine(CURVE)
+    v = pts.permute(1, 2, 3, 0)  # (K, 6, n, B) int16
+    while v.shape[0] > 1:
+        K, half = v.shape[0], v.shape[0] // 2
+        s = eng.padd(consts, v[:half].to(torch.int32), v[half : 2 * half].to(torch.int32))
+        narrowed = s.to(torch.int16)
+        assert torch.equal(narrowed.to(torch.int32), s), "a level's limbs left int16"
+        v = torch.cat([narrowed, v[-1:]]) if K % 2 else narrowed
+    return v[0].to(torch.int32)
+
+
+@pytest.mark.parametrize("K", [1, 2, 3, 33, 192, 352])
+def test_narrowed_tree_gives_tree_sum_plain_limbs(g2_table, K):
+    consts, table, kp = g2_table
+    pts = _gathered(table, kp, K, 3, seed=K)
+    got = _narrowed_tree_sum(consts, pts)
+    assert got.shape == (6, get_engine(CURVE).n, 3)
+    assert torch.equal(got, kernels.tree_sum_plain(consts, pts, curve=CURVE))
+
+
+# ---------------------------------------------------------------------------
+# launch geometry
+# ---------------------------------------------------------------------------
+
+H100_SMS = 132
+G2_KP = 352  # the b_g2 query's padded basis
+# k_local of the b_g2 query on a mesh of shard 1, 2, 4, 8 (curve.ShardedTable)
+G2_K_LOCAL = {s: ((G2_KP + s - 1) // s + 31) // 32 * 32 for s in (1, 2, 4, 8)}
+
+
+@pytest.mark.parametrize("kernel", ["window_sum4", "tree_sum"])
+@pytest.mark.parametrize("B", [1, 128, 256])
+def test_g2_geometry_fits_every_path_shape(kernel, B):
+    assert G2_K_LOCAL == {1: 352, 2: 192, 4: 96, 8: 64}
+    shapes = ([(G2_KP, kernels.WIN_GROUP * B)] if kernel == "window_sum4"
+              else [(k, B) for k in G2_K_LOCAL.values()])
+    for K, lanes in shapes:
+        warps, smem = kernels.g2_sum_geometry(K, lanes, H100_SMS)
+        assert 1 <= warps <= kernels.G2_MAX_WARPS
+        store = (K + 1) // 2 * kernels.G2_POINT_BYTES
+        assert smem == store + warps * kernels.G2_PADDS_PER_WARP * kernels.G2_SCRATCH_BYTES
+        assert smem <= kernels.SMEM_BLOCK_MAX
+        # no more warps than level 1 has padds for
+        assert warps <= max(1, -(-(K // 2) // kernels.G2_PADDS_PER_WARP))
+        if lanes >= 2 * H100_SMS:  # two blocks share an SM
+            assert 2 * (smem + 1024) <= kernels.SMEM_SM
+
+
+def test_g2_geometry_raises_above_a_blocks_shared_memory():
+    per_warp = kernels.G2_PADDS_PER_WARP * kernels.G2_SCRATCH_BYTES
+    k_max = (kernels.SMEM_BLOCK_MAX - per_warp) // kernels.G2_POINT_BYTES * 2
+    assert kernels.g2_sum_geometry(k_max, 1, H100_SMS)[1] <= kernels.SMEM_BLOCK_MAX
+    with pytest.raises(ValueError, match="shared memory"):
+        kernels.g2_sum_geometry(k_max + 1, 1, H100_SMS)
+    with pytest.raises(ValueError, match="at least one point"):
+        kernels.g2_sum_geometry(0, 1, H100_SMS)
