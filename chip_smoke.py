@@ -16,10 +16,13 @@ Phases, each printing one JSON line:
    kernels padd_chain and fe_mul, and pair_add at P5's shape; mont_padd,
    the five fold_ablate variants and padd_f32_chain at their probes'
    shapes; mont_mul at an NTT stage of a 256-statement h batch (twiddles
-   broadcast), with a one-row operand, and at P6's 2^20 rows. The two G2
-   window sums (window_sum4, tree_sum) are held limb for limb, also at
-   ragged shapes (window_sum4: B in {1, 3}, Kp in {32, 33}; tree_sum: B in
-   {1, 127}, k in {1, 2, 3, 191}, and k = 96, 64 at 128 lanes);
+   broadcast), with a one-row operand, and at P6's 2^20 rows. The
+   cooperative BN254 kernels (window_sum4 G2, tree_sum G1 and G2, horner4
+   G2) are held limb for limb, also at ragged shapes (window_sum4 G2: B in
+   {1, 3}, Kp in {32, 33}; tree_sum G2: B in {1, 127}, k in {1, 2, 3, 191},
+   and k = 96, 64 at 128 lanes; tree_sum G1: B in {1, 127}, k in {1, 2, 3,
+   255}, and k = 192, 128, 96, 64 at 128 lanes; horner4 G2: B in {1, 5, 6,
+   257}, B = 1 timed as 36 chained padds);
 4. (phases 4 to 6 run with the seam pinned to the single-device route, a
    one-position mesh, on any number of cards) the main path: ``prove_range_batch`` of 256 range proofs (512 prover
    lanes; T1/T2 and the L/R MSMs at 1024 lanes) with the launch counters
@@ -329,14 +332,47 @@ def g2_ragged_window_sum4(dev, consts, table) -> None:
                   "shape": f"table ({Kp * 256},6,24) i16, digits (4,{Kp},{B}) i32"})
 
 
+def g2_ragged_horner4(dev, consts, sums) -> None:
+    """horner4 G2 at ragged lane counts B in {1, 5, 6, 257} (a warp's five
+    groups, one group past them, a last warp of two groups), the accumulator
+    and window sums taken from the lanes of ``sums`` (window_sum4 G2 outputs,
+    reused in turn) with lane 0's accumulator the identity, limb for limb
+    against the plain version; one kernel_check line each (not in the
+    kernels line). B = 1 is one lane's chain of 36 dependent cooperative G2
+    padds alone on the card, so its time over 36 is a padd's latency."""
+    from libzkp_tpu_torch.ops import kernels
+    from libzkp_tpu_torch.ops.weierstrass import get_engine
+
+    curve = "bn254_g2"
+    eng = get_engine(curve)
+    L = sums.shape[-1]
+    for B in (1, 5, 6, 257):
+        acc = sums[..., torch.arange(B, device=dev) % L].contiguous()
+        acc[..., 0] = eng.identity(1, dev)[..., 0]
+        wsums = sums[..., (torch.arange(kernels.WIN_GROUP * B, device=dev) + B) % L].contiguous()
+        got = kernels.horner4(consts, acc, wsums, curve=curve)
+        want = kernels.horner4_plain(consts, acc, wsums, curve=curve)
+        torch.cuda.synchronize()
+        err = _limbs_err(f"horner4 {curve} at B {B}", got, want)
+        row = {"phase": "kernel_check", "name": kernels.instance("horner4", curve), "ragged": True,
+               "max_abs_err": float(err), "tolerance": "exact limbs",
+               "shape": f"acc (6,24,{B}), wsums (6,24,{kernels.WIN_GROUP * B}) i32"}
+        if B == 1:
+            ms = cuda_ms(lambda: kernels.horner4(consts, acc, wsums, curve=curve), 20)
+            row |= {"ms": ms, "chained_padds": kernels.WIN_GROUP * 9,
+                    "padd_latency_us": ms * 1e3 / (kernels.WIN_GROUP * 9)}
+        emit(row)
+
+
 def check_bn254_kernels(dev, int_rate: float, tables: dict) -> list:
     """Phase 3b: pair_add, window_sum4 and horner4 for BN254 G1 and G2
     against their plain versions at the Groth16 prover's shapes: 256
     statements, so 4 * 256 window-sum lanes; Kp = 512 (G1, the h query) and
     352 (G2, the b_g2 query). window_sum4 G2 sums in the plain tree's order,
     so it is held limb for limb, here and at ragged shapes
-    (:func:`g2_ragged_window_sum4`); G1 by point equality. Leaves each table
-    in ``tables[curve]``."""
+    (:func:`g2_ragged_window_sum4`); G1 by point equality. horner4 is held
+    limb for limb, G2 also at ragged lane counts (:func:`g2_ragged_horner4`).
+    Leaves each table in ``tables[curve]``."""
     import numpy as np
 
     from libzkp_tpu_torch.ops import kernels
@@ -406,6 +442,8 @@ def check_bn254_kernels(dev, int_rate: float, tables: dict) -> list:
         err = int((h_k - h_p).abs().max())
         if err != 0:
             raise AssertionError(f"horner4 {curve} limbs differ from its plain version (max {err})")
+        if curve == "bn254_g2":
+            g2_ragged_horner4(dev, consts, ws_p)
         t_k = cuda_ms(lambda: kernels.horner4(consts, acc_in, wsums, curve=curve), 5)
         t_p = cuda_ms(lambda: kernels.horner4_plain(consts, acc_in, wsums, curve=curve), 2)
         b_ms, b_by = bound(WG * 9 * padd * B, (2 + WG) * C * n * B * 4, int_rate)
@@ -442,18 +480,25 @@ def _point_err(curve: str, a, b) -> int:
     return _edwards_point_err(a, b) if curve == "ed25519" else _weierstrass_point_err(curve, a, b)
 
 
-def g2_ragged_tree_sum(dev, consts, table, table_kp: int) -> None:
-    """tree_sum G2 at the ragged edges of its block's tree and at the mesh's
-    other block shapes: B in {1, 127} lanes by k in {1, 2, 3, 191} points,
-    and B = 128 at the b_g2 query's k_local for shard 4 and 8 (96, 64), on
-    rows gathered from the path's table, limb for limb and point for point
-    against the plain version; one kernel_check line each (not in the
-    kernels line)."""
+# ragged_tree_sum's shapes (B lanes, k points): the ragged edges of a
+# block's tree, then B = 128 at the mesh's other block shapes (G2: the b_g2
+# query's k_local at shard 4 and 8; G1: the a, b_g1, l queries' at shard 2,
+# the h query's at shard 4, the a, b_g1, l queries' at shard 4, both at 8)
+RAGGED_TREE_SHAPES = {
+    "bn254_g2": [(B, k) for B in (1, 127) for k in (1, 2, 3, 191)] + [(SHARD_B_LOCAL, 96), (SHARD_B_LOCAL, 64)],
+    "bn254_g1": [(B, k) for B in (1, 127) for k in (1, 2, 3, 255)]
+                + [(SHARD_B_LOCAL, k) for k in (192, 128, 96, 64)],
+}
+
+
+def ragged_tree_sum(dev, curve: str, consts, table, table_kp: int) -> None:
+    """tree_sum G1 or G2 at RAGGED_TREE_SHAPES[curve], on rows gathered from
+    the path's table, limb for limb and point for point against the plain
+    version; one kernel_check line each (not in the kernels line)."""
     from libzkp_tpu_torch.ops import kernels
 
-    curve = "bn254_g2"
-    shapes = [(B, k) for B in (1, 127) for k in (1, 2, 3, 191)] + [(SHARD_B_LOCAL, 96), (SHARD_B_LOCAL, 64)]
-    for B, k in shapes:
+    C, n = table.shape[1:]
+    for B, k in RAGGED_TREE_SHAPES[curve]:
         digits = torch.randint(0, 256, (B, k), dtype=torch.int32,
                                generator=torch.Generator().manual_seed(1000 * B + k)).to(dev)
         koff = (torch.arange(k, device=dev, dtype=torch.int64) % table_kp) * 256
@@ -466,7 +511,7 @@ def g2_ragged_tree_sum(dev, consts, table, table_kp: int) -> None:
             raise AssertionError(f"tree_sum {curve} at B {B}, k {k} disagrees with its plain version")
         emit({"phase": "kernel_check", "name": kernels.instance("tree_sum", curve), "ragged": True,
               "max_abs_err": float(err), "tolerance": "exact limbs and point equality",
-              "shape": f"pts ({B},{k},6,24) i16"})
+              "shape": f"pts ({B},{k},{C},{n}) i16"})
 
 
 def check_sharded_kernels(dev, int_rate: float, tables: dict) -> list:
@@ -475,10 +520,10 @@ def check_sharded_kernels(dev, int_rate: float, tables: dict) -> list:
     h query, 192 for the 334- and 332-point queries, 96 for phase 7's
     ed25519 MSM over the range basis): tree_sum for every curve on rows
     gathered from the tables of phases 3 and 3b, held by point equality (the
-    ed25519 and G1 instances sum in another order than the plain tree) and
-    for G2, which sums in its order, limb for limb too, here and at ragged
-    shapes (:func:`g2_ragged_tree_sum`); horner for BN254 G1 and G2, limb
-    for limb."""
+    ed25519 instance sums in another order than the plain tree) and for G1
+    and G2, which sum in its order, limb for limb too, here and at ragged
+    shapes (:func:`ragged_tree_sum`); horner for BN254 G1 and G2, limb for
+    limb."""
     from libzkp_tpu_torch.ops import kernels
     from libzkp_tpu_torch.ops.weierstrass import CURVES
 
@@ -498,10 +543,10 @@ def check_sharded_kernels(dev, int_rate: float, tables: dict) -> list:
         if err != 0:
             raise AssertionError(f"tree_sum {curve} disagrees with its plain version (point err {err})")
         tolerance = "point equality (cross-products mod p; a lane of no point fails)"
-        if curve == "bn254_g2":  # summed in the plain tree's order: limb for limb
+        if curve != "ed25519":  # summed in the plain tree's order: limb for limb
             err = _limbs_err(f"tree_sum {curve}", ts_k, ts_p)
             tolerance = "exact limbs, and point equality"
-            g2_ragged_tree_sum(dev, consts, table, table_kp)
+            ragged_tree_sum(dev, curve, consts, table, table_kp)
         t_k = cuda_ms(lambda: kernels.tree_sum(consts, pts, curve=curve), 20)
         t_p = cuda_ms(lambda: kernels.tree_sum_plain(consts, pts, curve=curve), 2)
         padd = CURVE_PADD_MACS[curve]

@@ -1,0 +1,465 @@
+// Cooperative BN254 point additions: a G1 or G2 padd shared by six threads
+// of a warp on int16 operands in shared memory, and the plain version's
+// halving tree over one lane's K points built on them (tree_sum G1 and G2,
+// window_sum4 G2; horner4 G2 chains the G2 padd, horner4.cu).
+//
+// Both padds are RCB'15 algorithm 7 as rcb_padd (fold_curves.cuh) and the
+// plain WeierstrassEngine.padd order it: round 1, the six independent
+// products t0, t1, t2, t3, t4, X3; the rows between (the subtractions, the
+// two b3 products, Z3 and t1 - b3 t2); round 3, the six output products; the
+// output rows. Each row is the same integer operation on the same operands
+// as in rcb_padd, so the limbs equal the plain version's and JAX's, and the
+// int32 headroom argument of fold_curves.cuh holds unchanged. The stages
+// meet at __syncwarp: a group never leaves its warp. Five groups fill a warp
+// (lanes 30 and 31 idle); a group with no padd passes act = false and still
+// meets every __syncwarp. out may be P or Q: P and Q are read in round 1
+// only, out written last.
+//
+// G2 (g2_padd_coop). The coordinates are Fq2 elements and each product of
+// the formula a Karatsuba Fq2 product of three Fq products: 18 in round 1,
+// 6 for the two b3 products, 18 in round 3. Thread g takes Karatsuba pair g
+// of rounds 1 and 3 (its m0, m1 and t products, one after the other) and one
+// product of round 2. Each product is fe_mul_inline on register arrays: the
+// thread builds both operands in registers (loads, adds and the Karatsuba
+// sums with their carries), multiplies, and stores the 24 limbs to the
+// group's scratch. Between the rounds the adds, subs and carries (the 12
+// Karatsuba rows of round 1, then 8, 6 and 6 rows) are spread over the six
+// threads the same way, one row at a time, each value computed once.
+// Scratch, 32 int32 rows (3072 bytes): M, rows 0..17, the products of a
+// round (Karatsuba pair j's m0, m1, t at rows 3j .. 3j + 2); T, rows 18..29,
+// six Fq2 values (c0, c1): t0, t1, t2, t3, t4, X3 of round 1, then in place
+// t3 -= t0 + t1, t4 -= t1 + t2, Y3 = X3 - (t0 + t2), then after round 2
+// t1 - b3 t2 in t0's rows, t1 + b3 t2 (Z3) in t2's, b3 Y3 in Y3's; X, rows
+// 30..31, X3 = 3 t0.
+//
+// G1 (g1_padd_coop). The coordinates are Fq elements and b3 = 9 a small
+// multiply, so thread g computes one product of round 1 and one of round 3:
+// a padd's latency is two products, against twelve in one thread. The rows
+// between are six independent values, one a thread, in one stage: X3 =
+// 3 t0; t1 - b3 t2 and Z3 = t1 + b3 t2 (b3 t2 computed by both threads, the
+// same integers); t3 -= t0 + t1, t4 -= t1 + t2, Y3 = X3 - (t0 + t2) then
+// b3 Y3. Scratch, 15 int32 rows (1440 bytes): T, rows 0..8, t0, t1, t2, t3,
+// t4, X3 of round 1 (t3, t4 and X3 rewritten in place into t3, t4, b3 Y3),
+// then 3 t0, t1 - b3 t2, Z3; M, rows 9..14, the six products of round 3.
+//
+// Tree (coop_tree_sum). Level by level in the order of ops/edwards.py
+// _tree_reduce: point i plus point i + half for i < half, the odd last point
+// carried to slot half. Level 1 reads its pairs from the caller's rows
+// (global memory), later levels from the level store: ceil(K/2) int16
+// points in shared memory, written in place (padd i writes slot i, which no
+// other padd of its level reads). A padd output's limbs lie in [-7643, 11737]
+// (fold_curves.cuh), so int16 holds them exactly.
+#pragma once
+
+#include "fold_curves.cuh"
+
+namespace coop {
+
+constexpr int GROUP = 6;             // threads of one padd
+constexpr int PADDS_PER_WARP = 5;    // 32 / GROUP
+constexpr int MAX_WARPS = 12;        // 384 threads: at most 168 registers a thread
+
+}  // namespace coop
+
+// -- rows: 24 limbs, as int16 (48 bytes) or int32 (96 bytes), 16-byte aligned
+
+__device__ __forceinline__ void row_ld16(int32_t* r, const int16_t* p) {
+  const int4* src = reinterpret_cast<const int4*>(p);
+#pragma unroll
+  for (int w = 0; w < 3; ++w) {
+    const int4 v = src[w];
+    const int32_t words[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      r[w * 8 + 2 * h] = (int32_t)(int16_t)(words[h] & 0xFFFF);
+      r[w * 8 + 2 * h + 1] = words[h] >> 16;
+    }
+  }
+}
+
+__device__ __forceinline__ void row_st16(int16_t* p, const int32_t* r) {
+  int4* dst = reinterpret_cast<int4*>(p);
+#pragma unroll
+  for (int w = 0; w < 3; ++w) {
+    int32_t words[4];
+#pragma unroll
+    for (int h = 0; h < 4; ++h)
+      words[h] = (int32_t)(((uint32_t)r[w * 8 + 2 * h] & 0xFFFFu) | ((uint32_t)r[w * 8 + 2 * h + 1] << 16));
+    dst[w] = make_int4(words[0], words[1], words[2], words[3]);
+  }
+}
+
+__device__ __forceinline__ void row_ld32(int32_t* r, const int32_t* p) {
+  const int4* src = reinterpret_cast<const int4*>(p);
+#pragma unroll
+  for (int w = 0; w < 6; ++w) {
+    const int4 v = src[w];
+    r[4 * w] = v.x;
+    r[4 * w + 1] = v.y;
+    r[4 * w + 2] = v.z;
+    r[4 * w + 3] = v.w;
+  }
+}
+
+__device__ __forceinline__ void row_st32(int32_t* p, const int32_t* r) {
+  int4* dst = reinterpret_cast<int4*>(p);
+#pragma unroll
+  for (int w = 0; w < 6; ++w) dst[w] = make_int4(r[4 * w], r[4 * w + 1], r[4 * w + 2], r[4 * w + 3]);
+}
+
+// r = carry(r + sign * x), sign = +1 or -1
+__device__ __forceinline__ void row_add_carry(int32_t* r, const int32_t* x, int32_t sign) {
+#pragma unroll
+  for (int i = 0; i < fold::N; ++i) r[i] += sign * x[i];
+  fe_carry(r);
+}
+
+// ---------------------------------------------------------------------------
+// G2
+// ---------------------------------------------------------------------------
+
+namespace g2 {
+
+constexpr int ROW_T = 18;            // scratch rows, as above
+constexpr int ROW_X = 30;
+
+}  // namespace g2
+
+// Component k of Karatsuba pair j from its products m0, m1, t (rows 3j ..
+// 3j + 2 of M): c0 = carry(m0 - m1), c1 = carry(carry(t - m0) - m1).
+__device__ __forceinline__ void g2_kara(int32_t* r, const int32_t* M, int j, int k) {
+  using fold::N;
+  int32_t x[N];
+  row_ld32(r, M + (3 * j + (k ? 2 : 0)) * N);
+  row_ld32(x, M + (3 * j + (k ? 0 : 1)) * N);
+  row_add_carry(r, x, -1);
+  if (k) {
+    row_ld32(x, M + (3 * j + 1) * N);
+    row_add_carry(r, x, -1);
+  }
+}
+
+// Row k of round 1's operand j of the int16 point pt: coordinate j (j < 3,
+// X, Y, Z) or the carried sum X+Y, Y+Z, X+Z (j = 3, 4, 5).
+__device__ __forceinline__ void g2_r1_row(int32_t* r, const int16_t* pt, int j, int k) {
+  using fold::N;
+  row_ld16(r, pt + (2 * (j < 3 ? j : (j == 4 ? 1 : 0)) + k) * N);
+  if (j >= 3) {
+    int32_t x[N];
+    row_ld16(x, pt + (2 * (j == 3 ? 1 : 2) + k) * N);
+    row_add_carry(r, x, 1);
+  }
+}
+
+// Karatsuba operand of product s (0: c0, 1: c1, 2: carry(c0 + c1)) of
+// round 1's operand j.
+__device__ __forceinline__ void g2_r1_operand(int32_t* r, const int16_t* pt, int j, int s) {
+  if (s < 2) {
+    g2_r1_row(r, pt, j, s);
+  } else {
+    int32_t x[fold::N];
+    g2_r1_row(r, pt, j, 0);
+    g2_r1_row(x, pt, j, 1);
+    row_add_carry(r, x, 1);
+  }
+}
+
+// Karatsuba operand of product s of the Fq2 element at rows c0 (p) and c1
+// (p + N) of the scratch.
+__device__ __forceinline__ void g2_operand(int32_t* r, const int32_t* p, int s) {
+  if (s < 2) {
+    row_ld32(r, p + s * fold::N);
+  } else {
+    int32_t x[fold::N];
+    row_ld32(r, p);
+    row_ld32(x, p + fold::N);
+    row_add_carry(r, x, 1);
+  }
+}
+
+// out = P + Q (int16 G2 points), by the six threads g = 0..5 of one group
+// with scratch scr.
+__device__ __forceinline__ void g2_padd_coop(int16_t* out, const int16_t* P, const int16_t* Q,
+                                            int32_t* scr, int g, bool act) {
+  using fold::N;
+  int32_t* M = scr;
+  int32_t* T = scr + g2::ROW_T * N;
+  int32_t* X = scr + g2::ROW_X * N;
+  // round 1: pair g = (X1, X2), (Y1, Y2), (Z1, Z2), (X1+Y1, X2+Y2), ...
+  if (act) {
+#pragma unroll 1
+    for (int s = 0; s < 3; ++s) {
+      int32_t a[N], b[N];
+      g2_r1_operand(a, P, g, s);
+      g2_r1_operand(b, Q, g, s);
+      fe_mul_inline(a, a, b);
+      row_st32(M + (3 * g + s) * N, a);
+    }
+  }
+  __syncwarp();
+  // T: t0, t1, t2, t3, t4, X3 from the Karatsuba pairs, pair g
+  if (act) {
+#pragma unroll 1
+    for (int k = 0; k < 2; ++k) {
+      int32_t r[N];
+      g2_kara(r, M, g, k);
+      row_st32(T + (2 * g + k) * N, r);
+    }
+  }
+  __syncwarp();
+  // t3 = carry(t3 - carry(t0 + t1)), t4 = carry(t4 - carry(t1 + t2)),
+  // Y3 = carry(X3 - carry(t0 + t2)) in place (v = 3, 4, 5; component g & 1),
+  // then X3 = carry(t0 + t0 + t0)
+  if (act) {
+    const int v = 3 + (g >> 1), k = g & 1;
+    int32_t r[N], x[N];
+    row_ld32(r, T + (2 * (v == 4 ? 1 : 0) + k) * N);
+    row_ld32(x, T + (2 * (v == 3 ? 1 : 2) + k) * N);
+    row_add_carry(r, x, 1);
+    row_ld32(x, T + (2 * v + k) * N);
+#pragma unroll
+    for (int i = 0; i < N; ++i) r[i] = x[i] - r[i];
+    fe_carry(r);
+    row_st32(T + (2 * v + k) * N, r);
+    if (g < 2) {
+      row_ld32(r, T + g * N);
+#pragma unroll
+      for (int i = 0; i < N; ++i) r[i] = r[i] + r[i] + r[i];
+      fe_carry(r);
+      row_st32(X + g * N, r);
+    }
+  }
+  __syncwarp();
+  // round 2: b3 * t2 (pair 0) and b3 * Y3 (pair 1), product s = g % 3
+  if (act) {
+    const int s = g % 3;
+    int32_t a[N], b[N];
+    g2_operand(a, T + (g < 3 ? 4 : 10) * N, s);
+    if (s < 2) {
+#pragma unroll
+      for (int i = 0; i < N; ++i) b[i] = c_consts[(fold::ROW_CURVE + s) * N + i];
+    } else {
+#pragma unroll
+      for (int i = 0; i < N; ++i) b[i] = c_consts[fold::ROW_CURVE * N + i] + c_consts[(fold::ROW_CURVE + 1) * N + i];
+      fe_carry(b);
+    }
+    fe_mul_inline(a, a, b);
+    row_st32(M + g * N, a);
+  }
+  __syncwarp();
+  // t1 - b3 t2 into t0's rows, b3 Y3 into Y3's, t1 + b3 t2 (Z3) into t2's
+  // (component g & 1)
+  if (act) {
+    const int k = g & 1, kind = g >> 1;
+    int32_t r[N], x[N];
+    g2_kara(r, M, kind == 1 ? 1 : 0, k);
+    if (kind != 1) {
+      row_ld32(x, T + (2 + k) * N);
+#pragma unroll
+      for (int i = 0; i < N; ++i) r[i] = kind == 0 ? x[i] - r[i] : x[i] + r[i];
+      fe_carry(r);
+    }
+    row_st32(T + (2 * (kind == 0 ? 0 : (kind == 1 ? 5 : 2)) + k) * N, r);
+  }
+  __syncwarp();
+  // round 3: (t3, t1), (t4, Y3), (t1, Z3), (Y3, X3), (Z3, t4), (X3, t3), the
+  // operands' rows after T's first in units of two: A = 3, 4, 0, 5, 2, 6;
+  // B = 0, 5, 2, 6, 4, 3
+  if (act) {
+    const int32_t* A = T + 2 * ((0x625043 >> (4 * g)) & 15) * N;
+    const int32_t* B = T + 2 * ((0x346250 >> (4 * g)) & 15) * N;
+#pragma unroll 1
+    for (int s = 0; s < 3; ++s) {
+      int32_t a[N], b[N];
+      g2_operand(a, A, s);
+      g2_operand(b, B, s);
+      fe_mul_inline(a, a, b);
+      row_st32(M + (3 * g + s) * N, a);
+    }
+  }
+  __syncwarp();
+  // out row g: X = p1 - p2, Y = p3 + p4, Z = p5 + p6 (component g & 1)
+  if (act) {
+    const int c = g >> 1, k = g & 1;
+    int32_t r[N], x[N];
+    g2_kara(r, M, 2 * c, k);
+    g2_kara(x, M, 2 * c + 1, k);
+    row_add_carry(r, x, c == 0 ? -1 : 1);
+    row_st16(out + g * N, r);
+  }
+  __syncwarp();
+}
+
+// ---------------------------------------------------------------------------
+// G1
+// ---------------------------------------------------------------------------
+
+// Round 1's operand j of the int16 G1 point pt: coordinate j (j < 3, X, Y,
+// Z) or the carried sum X+Y, Y+Z, X+Z (j = 3, 4, 5).
+__device__ __forceinline__ void g1_r1_operand(int32_t* r, const int16_t* pt, int j) {
+  using fold::N;
+  row_ld16(r, pt + (j < 3 ? j : (j == 4 ? 1 : 0)) * N);
+  if (j >= 3) {
+    int32_t x[N];
+    row_ld16(x, pt + (j == 3 ? 1 : 2) * N);
+    row_add_carry(r, x, 1);
+  }
+}
+
+// out = P + Q (int16 G1 points), by the six threads g = 0..5 of one group
+// with scratch scr.
+__device__ __forceinline__ void g1_padd_coop(int16_t* out, const int16_t* P, const int16_t* Q,
+                                            int32_t* scr, int g, bool act) {
+  using fold::N;
+  int32_t* T = scr;
+  int32_t* M = scr + 9 * N;  // after T's 9 rows
+  // round 1: product g, (X1, X2), (Y1, Y2), (Z1, Z2), (X1+Y1, X2+Y2),
+  // (Y1+Z1, Y2+Z2), (X1+Z1, X2+Z2): t0, t1, t2, t3, t4, X3 in T's rows 0..5
+  if (act) {
+    int32_t a[N], b[N];
+    g1_r1_operand(a, P, g);
+    g1_r1_operand(b, Q, g);
+    fe_mul_inline(a, a, b);
+    row_st32(T + g * N, a);
+  }
+  __syncwarp();
+  // one value a thread: g = 0, X3 = carry(t0 + t0 + t0) into row 6; g = 1,
+  // 2, b3 t2 = smul(t2, 9) (Bn254G1::mul_b3), then t1 - b3 t2 into row 7 and
+  // Z3 = t1 + b3 t2 into row 8; g = 3, 4, 5 in place, t3 = carry(t3 -
+  // carry(t0 + t1)), t4 = carry(t4 - carry(t1 + t2)), Y3 = carry(X3 -
+  // carry(t0 + t2)), then b3 Y3 = smul(Y3, 9)
+  if (act) {
+    int32_t r[N], x[N];
+    if (g == 0) {
+      row_ld32(r, T);
+#pragma unroll
+      for (int i = 0; i < N; ++i) r[i] = r[i] + r[i] + r[i];
+      fe_carry(r);
+      row_st32(T + 6 * N, r);
+    } else if (g < 3) {
+      row_ld32(x, T + 2 * N);
+      fe_smul(x, x, 9);
+      row_ld32(r, T + N);
+      row_add_carry(r, x, g == 1 ? -1 : 1);
+      row_st32(T + (6 + g) * N, r);
+    } else {
+      row_ld32(r, T + (g == 4 ? 1 : 0) * N);
+      row_ld32(x, T + (g == 3 ? 1 : 2) * N);
+      row_add_carry(r, x, 1);
+      row_ld32(x, T + g * N);
+#pragma unroll
+      for (int i = 0; i < N; ++i) r[i] = x[i] - r[i];
+      fe_carry(r);
+      if (g == 5) fe_smul(r, r, 9);
+      row_st32(T + g * N, r);
+    }
+  }
+  __syncwarp();
+  // round 3: (t3, t1), (t4, Y3), (t1, Z3), (Y3, X3), (Z3, t4), (X3, t3), the
+  // operands' rows: A = 3, 4, 7, 5, 8, 6; B = 7, 5, 8, 6, 4, 3
+  if (act) {
+    int32_t a[N], b[N];
+    row_ld32(a, T + ((0x685743 >> (4 * g)) & 15) * N);
+    row_ld32(b, T + ((0x346857 >> (4 * g)) & 15) * N);
+    fe_mul_inline(a, a, b);
+    row_st32(M + g * N, a);
+  }
+  __syncwarp();
+  // out row g < 3: X = p1 - p2, Y = p3 + p4, Z = p5 + p6
+  if (act && g < 3) {
+    int32_t r[N], x[N];
+    row_ld32(r, M + 2 * g * N);
+    row_ld32(x, M + (2 * g + 1) * N);
+    row_add_carry(r, x, g == 0 ? -1 : 1);
+    row_st16(out + g * N, r);
+  }
+  __syncwarp();
+}
+
+// ---------------------------------------------------------------------------
+// The curves' cooperative padds and the tree
+// ---------------------------------------------------------------------------
+
+struct G1Coop {
+  static constexpr int POINT = 3 * fold::N;     // int16 limbs of a point
+  static constexpr int SCRATCH = 15 * fold::N;  // int32 of one padd's scratch
+  static __device__ __forceinline__ void padd(int16_t* out, const int16_t* P, const int16_t* Q,
+                                              int32_t* scr, int g, bool act) {
+    g1_padd_coop(out, P, Q, scr, g, act);
+  }
+};
+
+struct G2Coop {
+  static constexpr int POINT = 6 * fold::N;
+  static constexpr int SCRATCH = 32 * fold::N;
+  static __device__ __forceinline__ void padd(int16_t* out, const int16_t* P, const int16_t* Q,
+                                              int32_t* scr, int g, bool act) {
+    g2_padd_coop(out, P, Q, scr, g, act);
+  }
+};
+
+// Dynamic shared memory a tree-sum block of `warps` warps needs for K
+// points: the level store, then one scratch per padd.
+template <class Cp>
+__host__ __device__ constexpr size_t coop_smem_bytes(int K, int warps) {
+  return (size_t)((K + 1) / 2) * Cp::POINT * sizeof(int16_t) +
+         (size_t)warps * coop::PADDS_PER_WARP * Cp::SCRATCH * sizeof(int32_t);
+}
+
+// Dynamic shared memory of the cooperative kernels.
+__device__ __forceinline__ int4* coop_smem() {
+  extern __shared__ int4 coop_smem_words[];
+  return coop_smem_words;
+}
+
+// Sum of the K int16 points row(0), ..., row(K - 1) of one lane in the
+// plain version's tree order, by the whole block (blockDim.x = 32 * warps);
+// the sum, widened, goes to lane `lane` of out, (COORDS, N, lanes) int32.
+// Shared memory: coop_smem_bytes<Cp>(K, warps). row(k) is called for k < K
+// only.
+template <class Cp, class Row>
+__device__ __forceinline__ void coop_tree_sum(Row row, int K, int32_t* __restrict__ out, int lane,
+                                              int lanes) {
+  using namespace coop;
+  constexpr int POINT = Cp::POINT;
+  const int warps = blockDim.x >> 5;
+  const int w = threadIdx.x >> 5;
+  const int grp = (threadIdx.x & 31) / GROUP;
+  const int g = (threadIdx.x & 31) - grp * GROUP;
+  int16_t* store = reinterpret_cast<int16_t*>(coop_smem());
+  int32_t* scr = reinterpret_cast<int32_t*>(store + (size_t)((K + 1) / 2) * POINT) +
+                 (w * PADDS_PER_WARP + (grp < PADDS_PER_WARP ? grp : 0)) * Cp::SCRATCH;
+  bool first = true;  // level 1 reads row(), later levels the store
+  for (int n = K; n > 1; n = n / 2 + (n & 1)) {
+    const int half = n / 2;
+    // warp-uniform loop: every thread of a warp meets the padd's __syncwarp
+    for (int base = w * PADDS_PER_WARP; base < half; base += warps * PADDS_PER_WARP) {
+      const bool act = grp < PADDS_PER_WARP && base + grp < half;
+      const int i = act ? base + grp : 0;
+      const int16_t* P = first ? row(i) : store + (size_t)i * POINT;
+      const int16_t* Q = first ? row(i + half) : store + (size_t)(i + half) * POINT;
+      Cp::padd(store + (size_t)i * POINT, P, Q, scr, g, act);
+    }
+    if (n & 1) {
+      __syncthreads();  // padd 0 has read slot `half`
+      const int4* last = reinterpret_cast<const int4*>(first ? row(n - 1) : store + (size_t)(n - 1) * POINT);
+      int4* dst = reinterpret_cast<int4*>(store + (size_t)half * POINT);
+      for (int t = threadIdx.x; t < POINT / 8; t += blockDim.x) dst[t] = last[t];
+    }
+    __syncthreads();
+    first = false;
+  }
+  const int16_t* sum = K == 1 ? row(0) : store;
+  for (int t = threadIdx.x; t < POINT; t += blockDim.x) out[(size_t)t * lanes + lane] = sum[t];
+}
+
+// Host side of a launch: the geometry's checks (the block's warps and its
+// dynamic shared memory, at least `need` bytes) and the dynamic shared
+// memory attribute (set on the current device for every launch, since the
+// mesh may run the kernel on several cards). Returns the CUDA error.
+template <class Kernel>
+inline cudaError_t coop_prepare(Kernel kernel, size_t need, int warps, int smem) {
+  if (warps < 1 || warps > coop::MAX_WARPS || smem < 0 || (size_t)smem < need)
+    return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}

@@ -98,7 +98,7 @@ __device__ __forceinline__ void fe_smul(int32_t* r, const int32_t* a, int32_t k)
 
 // r = a * b. r may alias a or b: every read of a and b comes before the
 // first write of r. Inlined where the operands are register arrays
-// (csrc/g2_sum.cuh); fe_mul below is the same code out of line.
+// (csrc/coop_sum.cuh); fe_mul below is the same code out of line.
 __device__ __forceinline__ void fe_mul_inline(int32_t* r, const int32_t* a, const int32_t* b) {
   using namespace fold;
   int32_t t[NCOL];

@@ -25,25 +25,28 @@
 // multiply-adds ((Kp - 1) * 42 * 1200 per G2 lane), against COORDS * N * 2
 // bytes read per point.
 //
-// ed25519, G1: one warp per lane (warp_point_sum in fold_curves.cuh): thread
-// s adds the points k = s, s + 32, ... (6 or 8 each at the sharded Groth16
-// shapes), then a 5-level shuffle tree; one warp per block, so the 128 lanes
-// of a block of the sharded Groth16 batch spread over 128 SMs. The sum is
-// taken in another order than the plain version's tree, so the limbs differ
-// while the point is the same.
+// ed25519: one warp per lane (warp_point_sum in fold_curves.cuh): thread s
+// adds the points k = s, s + 32, ... (3 each at the range basis's k = 96),
+// then a 5-level shuffle tree; one warp per block, so the 128 lanes of a
+// block spread over 128 SMs. The sum is taken in another order than the
+// plain version's tree, so the limbs differ while the point is the same.
 //
-// G2: one block per lane runs g2_tree_sum (g2_sum.cuh), the plain version's
-// halving tree, so the limbs equal the plain version's and JAX's. The first
-// version gave a G2 lane one warp: 128 lanes filled one warp of each SM, and
-// each thread ran a chain of 6 padds and 5 shuffle levels, 42 products each,
-// out of a 5408-byte local frame. Now six threads share a padd in shared
-// memory, each product on register arrays, and a lane's block has up to 12
-// warps (60 padds at once: the 96 first-level padds of k = 192 in two
-// rounds); the level store (ceil(Kp/2) int16 points, 27.6 KB at Kp = 192)
-// and the padd scratch are dynamic shared memory, the geometry the
-// wrapper's (ops/kernels.py g2_sum_geometry).
+// BN254 G1 and G2: one block per lane runs coop_tree_sum (coop_sum.cuh), the
+// plain version's halving tree, so the limbs equal the plain version's and
+// JAX's. Six threads share a padd in shared memory, each product on register
+// arrays, and a lane's block has up to 12 warps (60 padds at once); the
+// level store (ceil(Kp/2) int16 points: 18.4 KB for G1 at Kp = 256, 27.6 KB
+// for G2 at Kp = 192) and the padd scratch (1440 bytes a G1 padd, 3072 a G2
+// padd) are dynamic shared memory, the geometry the wrapper's
+// (ops/kernels.py coop_sum_geometry). The first version gave a lane one
+// warp: 128 lanes filled one warp of each SM, and each thread ran a chain of
+// padds then 5 shuffle levels (G1 at Kp = 256: 12 dependent padds of 12
+// products; G2 at Kp = 192: 11 of 42, out of a 5408-byte local frame). Now
+// a G1 padd's latency is two products (one of round 1, one of round 3, in
+// each of six threads) and a G2 padd's seven, and a level's padds run side
+// by side: Kp = 256 is 8 levels, 11 passes of at most 60 padds.
 
-#include "g2_sum.cuh"
+#include "coop_sum.cuh"
 
 namespace {
 
@@ -69,18 +72,33 @@ int launch(const int32_t* consts, const int16_t* pts, int32_t* out, int Kp, int 
   return static_cast<int>(cudaGetLastError());
 }
 
-// G2: block b sums lane b; dynamic shared memory g2::smem_bytes(Kp, blockDim.x / 32).
-__global__ void __launch_bounds__(g2::MAX_WARPS * 32)
-tree_sum_g2_kernel(const int16_t* __restrict__ pts, int32_t* __restrict__ out, int Kp, int B) {
-  const int16_t* lane = pts + (size_t)blockIdx.x * Kp * g2::POINT;
-  g2_tree_sum([=](int k) { return lane + (size_t)k * g2::POINT; }, Kp, out, blockIdx.x, B);
+// BN254 G1, G2: block b sums lane b; dynamic shared memory
+// coop_smem_bytes<Cp>(Kp, blockDim.x / 32).
+template <class Cp>
+__global__ void __launch_bounds__(coop::MAX_WARPS * 32)
+tree_sum_coop_kernel(const int16_t* __restrict__ pts, int32_t* __restrict__ out, int Kp, int B) {
+  const int16_t* lane = pts + (size_t)blockIdx.x * Kp * Cp::POINT;
+  coop_tree_sum<Cp>([=](int k) { return lane + (size_t)k * Cp::POINT; }, Kp, out, blockIdx.x, B);
+}
+
+template <class Cv, class Cp>
+int launch_coop(const int32_t* consts, const int16_t* pts, int32_t* out, int Kp, int B, int warps,
+                int smem, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (Kp < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = coop_prepare(tree_sum_coop_kernel<Cp>, coop_smem_bytes<Cp>(Kp, warps), warps, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = fold_load_consts(consts, Cv::NCONST, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  tree_sum_coop_kernel<Cp><<<B, warps * 32, smem, st>>>(pts, out, Kp, B);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // consts: the curve's (NCONST, N) int32 block; pts: (B, Kp, COORDS, N)
-// int16; out: (COORDS, N, B) int32; G2 only: warps per block and dynamic
-// shared bytes (at least g2::smem_bytes(Kp, warps)). Each returns the CUDA
+// int16; out: (COORDS, N, B) int32; BN254 only: warps per block and dynamic
+// shared bytes (at least coop_smem_bytes(Kp, warps)). Each returns the CUDA
 // error of the launch (0 on success).
 extern "C" int tree_sum_ed25519_launch(const int32_t* consts, const int16_t* pts, int32_t* out,
                                        int Kp, int B, void* stream) {
@@ -88,17 +106,11 @@ extern "C" int tree_sum_ed25519_launch(const int32_t* consts, const int16_t* pts
 }
 
 extern "C" int tree_sum_bn254_g1_launch(const int32_t* consts, const int16_t* pts, int32_t* out,
-                                        int Kp, int B, void* stream) {
-  return launch<Bn254G1>(consts, pts, out, Kp, B, stream);
+                                        int Kp, int B, int warps, int smem, void* stream) {
+  return launch_coop<Bn254G1, G1Coop>(consts, pts, out, Kp, B, warps, smem, stream);
 }
 
 extern "C" int tree_sum_bn254_g2_launch(const int32_t* consts, const int16_t* pts, int32_t* out,
                                         int Kp, int B, int warps, int smem, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = g2_prepare(tree_sum_g2_kernel, Kp, warps, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = fold_load_consts(consts, Bn254G2::NCONST, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  tree_sum_g2_kernel<<<B, warps * 32, smem, st>>>(pts, out, Kp, B);
-  return static_cast<int>(cudaGetLastError());
+  return launch_coop<Bn254G2, G2Coop>(consts, pts, out, Kp, B, warps, smem, stream);
 }

@@ -24,7 +24,7 @@
 // shuffle tree. The sum is taken in another order than the plain version's
 // tree, so limbs differ while the point is the same.
 //
-// G2: one block per output lane runs g2_tree_sum (g2_sum.cuh): the plain
+// G2: one block per output lane runs coop_tree_sum (coop_sum.cuh): the plain
 // version's halving tree, so the limbs equal the plain version's and JAX's.
 // A G2 point is 144 int32 and a padd's temporaries another 480, far above
 // 255 registers, so one thread no longer carries a padd (the first version's
@@ -32,11 +32,11 @@
 // threads share one padd in shared memory and each product runs on register
 // arrays. The level store (ceil(Kp/2) int16 points, 50.7 KB at Kp = 352) and
 // the padd scratch (3072 bytes a padd, five padds a warp) are dynamic shared
-// memory; the wrapper (ops/kernels.py g2_sum_geometry) picks the warps per
+// memory; the wrapper (ops/kernels.py coop_sum_geometry) picks the warps per
 // block so that two blocks share an SM when the lanes outnumber twice the
 // SMs (4 warps at Kp = 352: measured faster than one block of 11 warps).
 
-#include "g2_sum.cuh"
+#include "coop_sum.cuh"
 
 namespace {
 
@@ -70,15 +70,15 @@ int launch(const int32_t* consts, const int16_t* table, const int32_t* digits, i
 }
 
 // G2: block j sums output lane j = w * B + b; dynamic shared memory
-// g2::smem_bytes(Kp, blockDim.x / 32).
-__global__ void __launch_bounds__(g2::MAX_WARPS * 32)
+// coop_smem_bytes<G2Coop>(Kp, blockDim.x / 32).
+__global__ void __launch_bounds__(coop::MAX_WARPS * 32)
 window_sum4_g2_kernel(const int16_t* __restrict__ table, const int32_t* __restrict__ digits,
                       int32_t* __restrict__ out, int Kp, int B) {
   const int j = blockIdx.x;
   const int w = j / B;
   const int32_t* digit = digits + (size_t)w * Kp * B + (j - w * B);
-  g2_tree_sum([=](int k) {
-    return table + (size_t)(k * 256 + (digit[(size_t)k * B] & 0xFF)) * g2::POINT;
+  coop_tree_sum<G2Coop>([=](int k) {
+    return table + (size_t)(k * 256 + (digit[(size_t)k * B] & 0xFF)) * G2Coop::POINT;
   }, Kp, out, j, WG * B);
 }
 
@@ -87,7 +87,7 @@ window_sum4_g2_kernel(const int16_t* __restrict__ table, const int32_t* __restri
 // consts: the curve's (NCONST, N) int32 block; table: (Kp * 256, COORDS, N)
 // int16; digits: (4, Kp, B) int32 in [0, 256), window 0 the highest of the
 // group; out: (COORDS, N, 4B) int32; G2 only: warps per block and dynamic
-// shared bytes (at least g2::smem_bytes(Kp, warps)). Each returns the CUDA
+// shared bytes (at least coop_smem_bytes<G2Coop>(Kp, warps)). Each returns the CUDA
 // error of the launch (0 on success).
 extern "C" int window_sum4_bn254_g1_launch(const int32_t* consts, const int16_t* table,
                                            const int32_t* digits, int32_t* out, int Kp, int B,
@@ -99,7 +99,8 @@ extern "C" int window_sum4_bn254_g2_launch(const int32_t* consts, const int16_t*
                                            const int32_t* digits, int32_t* out, int Kp, int B,
                                            int warps, int smem, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = g2_prepare(window_sum4_g2_kernel, Kp, warps, smem);
+  if (Kp < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = coop_prepare(window_sum4_g2_kernel, coop_smem_bytes<G2Coop>(Kp, warps), warps, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = fold_load_consts(consts, Bn254G2::NCONST, st);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -4,11 +4,11 @@ Eight CUDA C++ sources under ``libzkp_tpu_torch/csrc/``, each compiled for
 ``sm_90a`` by ``nvcc`` into its own shared library with a plain C interface
 and bound with ``ctypes``; the field and curve code they share is
 ``csrc/fold_curves.cuh``, the Montgomery field code ``csrc/mont.cuh``, the
-cooperative G2 point sum of the two G2 window sums ``csrc/g2_sum.cuh``. Each
-kernel is instantiated for the curves its path runs, and each instance is a
-kernel of its own, named ``<kernel>`` for ed25519 or a field-generic kernel
-and ``<kernel>_<curve>`` for BN254 or ``<kernel>_<variant>`` for a probe's
-variant (:data:`INSTANCES`):
+cooperative BN254 padds and tree sum ``csrc/coop_sum.cuh`` (window_sum4 G2,
+tree_sum G1 and G2, horner4 G2). Each kernel is instantiated for the curves
+its path runs, and each instance is a kernel of its own, named ``<kernel>``
+for ed25519 or a field-generic kernel and ``<kernel>_<curve>`` for BN254 or
+``<kernel>_<variant>`` for a probe's variant (:data:`INSTANCES`):
 
 * ``window_sum`` (K1, ``csrc/window_sum.cu``, ed25519) replaces
   ``libzkp_tpu/ops/curve_jax.py:_window_fused_call``;
@@ -119,44 +119,62 @@ _ARGTYPES = {
     "mont_padd": [_P, _P, _P, _P, _I, _P],
     "fold_ablate": [_P, _P, _P, _P, _I, _I, _P],
     "padd_f32_chain": [_P, _P, _P, _P, _I, _I, _P],
-    # the G2 window sums also take their geometry: warps per block, shared bytes
+    # the cooperative BN254 kernels also take their geometry: (blocks,)
+    # warps per block, shared bytes
     "window_sum4_bn254_g2": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "tree_sum_bn254_g1": [_P, _P, _P, _I, _I, _I, _I, _P],
     "tree_sum_bn254_g2": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "horner4_bn254_g2": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
-# Geometry of the G2 window sums (csrc/g2_sum.cuh): one block per output
-# lane; each warp runs five cooperative padds at once, each with 32 int32
-# rows of scratch; the level store holds ceil(K/2) int16 points.
-G2_PADDS_PER_WARP = 5
-G2_SCRATCH_BYTES = 32 * 24 * 4
-G2_POINT_BYTES = 6 * 24 * 2
-G2_MAX_WARPS = 12          # 384 threads a block (the kernels' launch bounds)
+# Geometry of the cooperative BN254 kernels (csrc/coop_sum.cuh): six threads
+# share a padd, five padds a warp, each with its int32 scratch rows; the
+# tree sums (window_sum4 G2, tree_sum G1 and G2) run one block per output
+# lane with a level store of ceil(K/2) int16 points; horner4 G2 holds each
+# lane's accumulator and WIN_GROUP window sums as int16 points.
+COOP_PADDS_PER_WARP = 5
+COOP_MAX_WARPS = 12        # 384 threads a block (the kernels' launch bounds)
+POINT_BYTES = {"bn254_g1": 3 * 24 * 2, "bn254_g2": 6 * 24 * 2}
+COOP_SCRATCH_BYTES = {"bn254_g1": 15 * 24 * 4, "bn254_g2": 32 * 24 * 4}
+HORNER4_G2_WARPS = 1       # horner4 G2: one warp a block, 256 lanes over 52 SMs
 SMEM_BLOCK_MAX = 232_448   # dynamic shared memory one block may use (H100)
 SMEM_SM = 233_472          # shared memory of an SM; each resident block also holds 1 KiB
 
 
-def g2_sum_geometry(K: int, lanes: int, sms: int) -> tuple:
-    """(warps per block, dynamic shared bytes) of a G2 window sum over ``K``
-    points for ``lanes`` output lanes on a card of ``sms`` SMs: enough warps
-    for level 1's K // 2 padds at once, up to what shared memory holds; when
-    the lanes outnumber twice the SMs, few enough that two blocks share an
-    SM. Raises where the level store and one warp's scratch exceed a
-    block's shared memory."""
+def coop_sum_geometry(curve: str, K: int, lanes: int, sms: int) -> tuple:
+    """(warps per block, dynamic shared bytes) of a cooperative tree sum
+    over ``K`` points of ``curve`` for ``lanes`` output lanes on a card of
+    ``sms`` SMs: enough warps for level 1's K // 2 padds at once, up to what
+    shared memory holds; when the lanes outnumber twice the SMs, few enough
+    that two blocks share an SM. Raises where the level store and one
+    warp's scratch exceed a block's shared memory."""
     if K < 1:
-        raise ValueError(f"a G2 window sum needs at least one point, got {K}")
-    store = (K + 1) // 2 * G2_POINT_BYTES
-    per_warp = G2_PADDS_PER_WARP * G2_SCRATCH_BYTES
+        raise ValueError(f"a {curve} tree sum needs at least one point, got {K}")
+    store = (K + 1) // 2 * POINT_BYTES[curve]
+    per_warp = COOP_PADDS_PER_WARP * COOP_SCRATCH_BYTES[curve]
     if store + per_warp > SMEM_BLOCK_MAX:
-        raise ValueError(f"a G2 window sum over {K} points needs {store + per_warp} bytes of "
+        raise ValueError(f"a {curve} tree sum over {K} points needs {store + per_warp} bytes of "
                          f"shared memory a block, above the {SMEM_BLOCK_MAX} the card allows")
     limit = SMEM_BLOCK_MAX if lanes < 2 * sms else SMEM_SM // 2 - 1024
-    warps = min(G2_MAX_WARPS, -(-(K // 2) // G2_PADDS_PER_WARP), (limit - store) // per_warp)
+    warps = min(COOP_MAX_WARPS, -(-(K // 2) // COOP_PADDS_PER_WARP), (limit - store) // per_warp)
     warps = max(1, warps)
     return warps, store + warps * per_warp
 
 
-def _g2_geometry(dev: torch.device, K: int, lanes: int) -> tuple:
-    return g2_sum_geometry(K, lanes, torch.cuda.get_device_properties(dev).multi_processor_count)
+def coop_horner_geometry(lanes: int) -> tuple:
+    """(blocks, warps per block, dynamic shared bytes) of horner4 G2 over
+    ``lanes`` lanes, five lanes a warp: each lane's group holds its
+    accumulator, its WIN_GROUP window sums and its padd scratch."""
+    if lanes < 1:
+        raise ValueError(f"horner4 bn254_g2 needs at least one lane, got {lanes}")
+    per_block = HORNER4_G2_WARPS * COOP_PADDS_PER_WARP
+    smem = per_block * ((1 + WIN_GROUP) * POINT_BYTES["bn254_g2"] + COOP_SCRATCH_BYTES["bn254_g2"])
+    return -(-lanes // per_block), HORNER4_G2_WARPS, smem
+
+
+def _coop_geometry(dev: torch.device, curve: str, K: int, lanes: int) -> tuple:
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return coop_sum_geometry(curve, K, lanes, sms)
 
 
 def instance(kernel: str, curve) -> str:
@@ -422,7 +440,7 @@ def window_sum4(consts: torch.Tensor, table: torch.Tensor, digits: torch.Tensor,
         raise ValueError(f"digits must hold {WIN_GROUP} windows, got {WG}")
     _check_table(eng, table, digits, Kp)
     out = torch.empty((eng.coords, eng.n, WG * B), dtype=torch.int32, device=table.device)
-    geometry = _g2_geometry(dev, Kp, WG * B) if curve == "bn254_g2" else ()
+    geometry = _coop_geometry(dev, curve, Kp, WG * B) if curve == "bn254_g2" else ()
     _run("window_sum4", curve, dev, consts.data_ptr(), table.data_ptr(), digits.data_ptr(),
          out.data_ptr(), Kp, B, *geometry)
     return out
@@ -455,8 +473,9 @@ def horner4(consts: torch.Tensor, acc: torch.Tensor, wsums: torch.Tensor, *,
     _check_points(eng, "acc", acc, B)
     _check_points(eng, "wsums", wsums, WIN_GROUP * B)
     out = torch.empty_like(acc)
+    geometry = coop_horner_geometry(B) if curve == "bn254_g2" else ()
     _run("horner4", curve, dev, consts.data_ptr(), acc.data_ptr(), wsums.data_ptr(),
-         out.data_ptr(), B)
+         out.data_ptr(), B, *geometry)
     return out
 
 
@@ -487,7 +506,7 @@ def tree_sum(consts: torch.Tensor, pts: torch.Tensor, *, curve: str) -> torch.Te
         raise ValueError(f"pts must be (B, Kp, {eng.coords}, {eng.n}) int16")
     B, Kp = pts.shape[:2]
     out = torch.empty((eng.coords, eng.n, B), dtype=torch.int32, device=pts.device)
-    geometry = _g2_geometry(dev, Kp, B) if curve == "bn254_g2" else ()
+    geometry = _coop_geometry(dev, curve, Kp, B) if curve != "ed25519" else ()
     _run("tree_sum", curve, dev, consts.data_ptr(), pts.data_ptr(), out.data_ptr(), Kp, B, *geometry)
     return out
 

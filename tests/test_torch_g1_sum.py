@@ -1,0 +1,175 @@
+"""The BN254 G1 tree sum's design (``csrc/coop_sum.cuh``) on the CPU.
+
+The CUDA kernel runs only on the card; what it computes is held here at
+small sizes against the plain versions:
+
+* the cooperative G1 padd's schedule (round 1, the one stage of rows, round
+  3, the output rows, with the kernel's row tables) gives the limbs of the
+  plain ``WeierstrassEngine.padd``;
+* the halving tree on that schedule, with every level narrowed to int16 as
+  the kernel's level store holds it, gives ``tree_sum_plain``'s limbs (and
+  so the JAX ``_window_sum_call``'s, tests/test_torch_sharded_msm.py), on
+  rows of a real multiples table;
+* the wrapper's launch geometry fits a block's shared memory at every shape
+  the mesh gives ``tree_sum`` G1, and a shape that cannot fit raises.
+"""
+
+from __future__ import annotations
+
+import random
+
+import numpy as np
+import pytest
+import torch
+
+from libzkp_tpu_torch.ops import bn254 as bn
+from libzkp_tpu_torch.ops import curve as tc
+from libzkp_tpu_torch.ops import kernels
+from libzkp_tpu_torch.ops.limbfold import FieldOps
+from libzkp_tpu_torch.ops.weierstrass import get_engine
+
+CURVE = "bn254_g1"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs in several worker processes at
+    once, and OpenMP pools oversubscribing the cores stall each other."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+@pytest.fixture(scope="module")
+def g1_table():
+    """Consts and the (Kp * 256, 3, n) int16 multiples table of 6 random G1
+    points (Kp = 8), built by the plain table-add chain."""
+    eng = get_engine(CURVE)
+    rng = random.Random(6)
+    g = bn.g1_from_affine(bn.G1_GEN)
+    pts = [bn.g1_scalar_mul(rng.randrange(1, bn.R), g) for _ in range(6)]
+    table = tc.DeviceTable(eng.encode_points(pts), device="cpu", curve=CURVE)
+    return torch.from_numpy(eng.consts_np), table.table, table.Kp
+
+
+def _gathered(table, kp: int, K: int, lanes: int, seed: int) -> torch.Tensor:
+    """(lanes, K, 3, n) int16 rows of the table at random digits, basis
+    point k % kp for position k, as the mesh's gather lays them out."""
+    digits = np.random.default_rng(seed).integers(0, 256, (lanes, K))
+    rows = (np.arange(K) % kp) * 256 + digits
+    return table[torch.from_numpy(rows)]
+
+
+# ---------------------------------------------------------------------------
+# the cooperative padd's schedule (csrc/coop_sum.cuh g1_padd_coop)
+# ---------------------------------------------------------------------------
+
+
+def _coop_padd(f: FieldOps, P: torch.Tensor, Q: torch.Tensor) -> torch.Tensor:
+    """g1_padd_coop row by row: P, Q (3, n, L) int32 -> P + Q (3, n, L)."""
+
+    def r1_operand(pt, j):
+        r = pt[j if j < 3 else (1 if j == 4 else 0)]
+        return f.carry(r + pt[1 if j == 3 else 2]) if j >= 3 else r
+
+    T = [f.mul(r1_operand(P, g), r1_operand(Q, g)) for g in range(6)]  # t0, t1, t2, t3, t4, X3
+    rows = list(T) + [None] * 3
+    for g in range(6):  # one value a thread, from round 1's rows only
+        if g == 0:
+            rows[6] = f.carry(T[0] + T[0] + T[0])
+        elif g < 3:
+            b3t2 = f.smul(T[2], 9)
+            rows[6 + g] = f.carry(T[1] - b3t2 if g == 1 else T[1] + b3t2)
+        else:
+            u = f.carry(T[1 if g == 4 else 0] + T[1 if g == 3 else 2])
+            r = f.carry(T[g] - u)
+            rows[g] = f.smul(r, 9) if g == 5 else r
+    M = [f.mul(rows[(0x685743 >> (4 * g)) & 15], rows[(0x346857 >> (4 * g)) & 15]) for g in range(6)]
+    return torch.stack([f.carry(M[0] - M[1]), f.carry(M[2] + M[3]), f.carry(M[4] + M[5])])
+
+
+def test_cooperative_g1_padd_schedule_gives_padd_limbs(g1_table):
+    """Distinct points, a doubling, the identity on either side, and padd
+    outputs as inputs: every limb equals the plain padd's."""
+    consts, table, _ = g1_table
+    eng = get_engine(CURVE)
+    f = FieldOps(eng.n, consts)
+    pts = _gathered(table, 8, 2, 16, seed=1).to(torch.int32)  # (16, 2, 3, n)
+    P = pts[:, 0].permute(1, 2, 0).contiguous()
+    Q = pts[:, 1].permute(1, 2, 0).contiguous()
+    Q[..., 0] = P[..., 0]
+    Q[..., 1] = eng.identity(1, "cpu")[..., 0]
+    P[..., 2] = eng.identity(1, "cpu")[..., 0]
+    for _ in range(3):
+        want = eng.padd(consts, P, Q)
+        assert torch.equal(_coop_padd(f, P, Q), want)
+        P, Q = want, P
+
+
+# ---------------------------------------------------------------------------
+# the narrowed halving tree (coop_tree_sum's level store) on the schedule
+# ---------------------------------------------------------------------------
+
+
+def _narrowed_tree_sum(f: FieldOps, pts: torch.Tensor) -> torch.Tensor:
+    """coop_tree_sum's order and storage with g1_padd_coop's schedule: level
+    1 from the int16 rows, every level's outputs (and the carried odd point)
+    narrowed to int16 in the level store, the last one widened.
+    (B, K, 3, n) int16 -> (3, n, B)."""
+    B, n = pts.shape[0], pts.shape[-1]
+    v = pts.permute(1, 2, 3, 0)  # (K, 3, n, B) int16
+    while v.shape[0] > 1:
+        K, half = v.shape[0], v.shape[0] // 2
+
+        def lanes(x):  # (half, 3, n, B) -> (3, n, half * B)
+            return x.to(torch.int32).permute(1, 2, 0, 3).reshape(3, n, half * B)
+
+        s = _coop_padd(f, lanes(v[:half]), lanes(v[half : 2 * half]))
+        s = s.reshape(3, n, half, B).permute(2, 0, 1, 3)
+        narrowed = s.to(torch.int16)
+        assert torch.equal(narrowed.to(torch.int32), s), "a level's limbs left int16"
+        v = torch.cat([narrowed, v[-1:]]) if K % 2 else narrowed
+    return v[0].to(torch.int32)
+
+
+@pytest.mark.parametrize("K", [1, 2, 3, 33, 192, 256])
+def test_narrowed_g1_tree_gives_tree_sum_plain_limbs(g1_table, K):
+    consts, table, kp = g1_table
+    pts = _gathered(table, kp, K, 3, seed=K)
+    got = _narrowed_tree_sum(FieldOps(get_engine(CURVE).n, consts), pts)
+    assert got.shape == (3, get_engine(CURVE).n, 3)
+    assert torch.equal(got, kernels.tree_sum_plain(consts, pts, curve=CURVE))
+
+
+# ---------------------------------------------------------------------------
+# launch geometry
+# ---------------------------------------------------------------------------
+
+H100_SMS = 132
+# k_local of the G1 queries on a mesh of shard 1, 2, 4, 8 (curve.ShardedTable):
+# the h query (Kp 512) and the a, b_g1 and l queries (Kp 352)
+G1_K_LOCAL = {kp: {s: ((kp + s - 1) // s + 31) // 32 * 32 for s in (1, 2, 4, 8)} for kp in (512, 352)}
+
+
+@pytest.mark.parametrize("B", [1, 128, 256])
+def test_g1_geometry_fits_every_path_shape(B):
+    assert G1_K_LOCAL == {512: {1: 512, 2: 256, 4: 128, 8: 64}, 352: {1: 352, 2: 192, 4: 96, 8: 64}}
+    for K in sorted({k for ks in G1_K_LOCAL.values() for k in ks.values()}):
+        warps, smem = kernels.coop_sum_geometry(CURVE, K, B, H100_SMS)
+        assert 1 <= warps <= kernels.COOP_MAX_WARPS
+        store = (K + 1) // 2 * kernels.POINT_BYTES[CURVE]
+        assert smem == store + warps * kernels.COOP_PADDS_PER_WARP * kernels.COOP_SCRATCH_BYTES[CURVE]
+        assert smem <= kernels.SMEM_BLOCK_MAX
+        # no more warps than level 1 has padds for, and every warp it can use
+        assert warps == min(kernels.COOP_MAX_WARPS, -(-(K // 2) // kernels.COOP_PADDS_PER_WARP))
+
+
+def test_g1_geometry_raises_above_a_blocks_shared_memory():
+    per_warp = kernels.COOP_PADDS_PER_WARP * kernels.COOP_SCRATCH_BYTES[CURVE]
+    k_max = (kernels.SMEM_BLOCK_MAX - per_warp) // kernels.POINT_BYTES[CURVE] * 2
+    assert kernels.coop_sum_geometry(CURVE, k_max, 1, H100_SMS)[1] <= kernels.SMEM_BLOCK_MAX
+    with pytest.raises(ValueError, match="shared memory"):
+        kernels.coop_sum_geometry(CURVE, k_max + 1, 1, H100_SMS)
+    with pytest.raises(ValueError, match="at least one point"):
+        kernels.coop_sum_geometry(CURVE, 0, 1, H100_SMS)

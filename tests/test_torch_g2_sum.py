@@ -1,4 +1,5 @@
-"""The BN254 G2 window sums' design (``csrc/g2_sum.cuh``) on the CPU.
+"""The BN254 G2 window sums' and Horner chain's design (``csrc/coop_sum.cuh``,
+``csrc/horner4.cu``) on the CPU.
 
 The CUDA kernels run only on the card; what they compute is held here at
 small sizes against the plain versions:
@@ -10,7 +11,11 @@ small sizes against the plain versions:
   level store holds it, gives ``tree_sum_plain``'s limbs (and so the JAX
   ``_window_sum_call``'s, tests/test_torch_sharded_msm.py), on rows of a
   real multiples table;
-* the wrapper's launch geometry fits a block's shared memory at every shape
+* horner4's chain on that schedule, with its accumulator narrowed to int16
+  after every padd as the kernel's shared memory holds it, gives
+  ``horner4_plain``'s limbs (and so the JAX ``_horner4_call``'s,
+  tests/test_torch_weierstrass.py);
+* the wrappers' launch geometry fits a block's shared memory at every shape
   the paths use, and a shape that cannot fit raises.
 """
 
@@ -62,7 +67,7 @@ def _gathered(table, kp: int, K: int, lanes: int, seed: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# the cooperative padd's schedule (csrc/g2_sum.cuh g2_padd_coop)
+# the cooperative padd's schedule (csrc/coop_sum.cuh g2_padd_coop)
 # ---------------------------------------------------------------------------
 
 
@@ -133,12 +138,12 @@ def test_cooperative_padd_schedule_gives_padd_limbs(g2_table):
 
 
 # ---------------------------------------------------------------------------
-# the narrowed halving tree (g2_tree_sum's level store)
+# the narrowed halving tree (coop_tree_sum's level store)
 # ---------------------------------------------------------------------------
 
 
 def _narrowed_tree_sum(consts: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
-    """g2_tree_sum's order and storage: level 1 from the int16 rows, every
+    """coop_tree_sum's order and storage: level 1 from the int16 rows, every
     level's outputs (and the carried odd point) narrowed to int16 in the
     level store, the last one widened. (B, K, 6, n) int16 -> (6, n, B)."""
     eng = get_engine(CURVE)
@@ -162,6 +167,40 @@ def test_narrowed_tree_gives_tree_sum_plain_limbs(g2_table, K):
 
 
 # ---------------------------------------------------------------------------
+# the narrowed Horner chain (horner4_g2_kernel)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("B", [1, 5, 6])
+def test_narrowed_horner_chain_gives_horner4_plain_limbs(g2_table, B):
+    """horner4_g2_kernel's chain: the accumulator and the window sums
+    narrowed to int16 once, then 4 x (8 doublings + 1 addition) on the
+    cooperative schedule, the accumulator narrowed after every padd. Lane 0
+    starts from the identity (the MSM's first group), the others from window
+    sums; every intermediate fits int16 and the limbs equal horner4_plain's."""
+    consts, table, kp = g2_table
+    eng = get_engine(CURVE)
+    f = FieldOps(eng.n, consts)
+    WG = kernels.WIN_GROUP
+    sums = kernels.tree_sum_plain(consts, _gathered(table, kp, 3, (1 + WG) * B, seed=40 + B), curve=CURVE)
+    acc0 = sums[..., :B].clone()
+    acc0[..., 0] = eng.identity(1, "cpu")[..., 0]
+    wsums = sums[..., B:].contiguous()
+
+    def narrowed(x):
+        n16 = x.to(torch.int16)
+        assert torch.equal(n16.to(torch.int32), x), "a limb left int16"
+        return n16.to(torch.int32)
+
+    acc = narrowed(acc0)
+    for w in range(WG):
+        win = narrowed(wsums[..., w * B : (w + 1) * B])
+        for r in range(9):
+            acc = narrowed(_coop_padd(f, acc, acc if r < 8 else win))
+    assert torch.equal(acc, kernels.horner4_plain(consts, acc0, wsums, curve=CURVE))
+
+
+# ---------------------------------------------------------------------------
 # launch geometry
 # ---------------------------------------------------------------------------
 
@@ -178,22 +217,38 @@ def test_g2_geometry_fits_every_path_shape(kernel, B):
     shapes = ([(G2_KP, kernels.WIN_GROUP * B)] if kernel == "window_sum4"
               else [(k, B) for k in G2_K_LOCAL.values()])
     for K, lanes in shapes:
-        warps, smem = kernels.g2_sum_geometry(K, lanes, H100_SMS)
-        assert 1 <= warps <= kernels.G2_MAX_WARPS
-        store = (K + 1) // 2 * kernels.G2_POINT_BYTES
-        assert smem == store + warps * kernels.G2_PADDS_PER_WARP * kernels.G2_SCRATCH_BYTES
+        warps, smem = kernels.coop_sum_geometry(CURVE, K, lanes, H100_SMS)
+        assert 1 <= warps <= kernels.COOP_MAX_WARPS
+        store = (K + 1) // 2 * kernels.POINT_BYTES[CURVE]
+        assert smem == store + warps * kernels.COOP_PADDS_PER_WARP * kernels.COOP_SCRATCH_BYTES[CURVE]
         assert smem <= kernels.SMEM_BLOCK_MAX
         # no more warps than level 1 has padds for
-        assert warps <= max(1, -(-(K // 2) // kernels.G2_PADDS_PER_WARP))
+        assert warps <= max(1, -(-(K // 2) // kernels.COOP_PADDS_PER_WARP))
         if lanes >= 2 * H100_SMS:  # two blocks share an SM
             assert 2 * (smem + 1024) <= kernels.SMEM_SM
 
 
 def test_g2_geometry_raises_above_a_blocks_shared_memory():
-    per_warp = kernels.G2_PADDS_PER_WARP * kernels.G2_SCRATCH_BYTES
-    k_max = (kernels.SMEM_BLOCK_MAX - per_warp) // kernels.G2_POINT_BYTES * 2
-    assert kernels.g2_sum_geometry(k_max, 1, H100_SMS)[1] <= kernels.SMEM_BLOCK_MAX
+    per_warp = kernels.COOP_PADDS_PER_WARP * kernels.COOP_SCRATCH_BYTES[CURVE]
+    k_max = (kernels.SMEM_BLOCK_MAX - per_warp) // kernels.POINT_BYTES[CURVE] * 2
+    assert kernels.coop_sum_geometry(CURVE, k_max, 1, H100_SMS)[1] <= kernels.SMEM_BLOCK_MAX
     with pytest.raises(ValueError, match="shared memory"):
-        kernels.g2_sum_geometry(k_max + 1, 1, H100_SMS)
+        kernels.coop_sum_geometry(CURVE, k_max + 1, 1, H100_SMS)
     with pytest.raises(ValueError, match="at least one point"):
-        kernels.g2_sum_geometry(0, 1, H100_SMS)
+        kernels.coop_sum_geometry(CURVE, 0, 1, H100_SMS)
+
+
+@pytest.mark.parametrize("B", [1, 5, 6, 256, 1024])
+def test_horner4_g2_geometry_fits_every_lane_count(B):
+    blocks, warps, smem = kernels.coop_horner_geometry(B)
+    assert warps == kernels.HORNER4_G2_WARPS
+    lanes = warps * kernels.COOP_PADDS_PER_WARP
+    assert (blocks - 1) * lanes < B <= blocks * lanes  # every lane has a group, no block is idle
+    assert smem == lanes * ((1 + kernels.WIN_GROUP) * kernels.POINT_BYTES[CURVE]
+                            + kernels.COOP_SCRATCH_BYTES[CURVE])
+    assert smem <= kernels.SMEM_BLOCK_MAX
+
+
+def test_horner4_g2_geometry_raises_without_lanes():
+    with pytest.raises(ValueError, match="at least one lane"):
+        kernels.coop_horner_geometry(0)
