@@ -1,6 +1,7 @@
 """Drive the PyTorch / CUDA port on one NVIDIA card and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # every phase
+    python3 chip_smoke.py --kernels    # phases 1 to 3 only, no last line
 
 Phases, each printing one JSON line:
 
@@ -17,12 +18,13 @@ Phases, each printing one JSON line:
    the five fold_ablate variants and padd_f32_chain at their probes'
    shapes; mont_mul at an NTT stage of a 256-statement h batch (twiddles
    broadcast), with a one-row operand, and at P6's 2^20 rows. The
-   cooperative BN254 kernels (window_sum4 G2, tree_sum G1 and G2, horner4
-   G2) are held limb for limb, also at ragged shapes (window_sum4 G2: B in
-   {1, 3}, Kp in {32, 33}; tree_sum G2: B in {1, 127}, k in {1, 2, 3, 191},
-   and k = 96, 64 at 128 lanes; tree_sum G1: B in {1, 127}, k in {1, 2, 3,
-   255}, and k = 192, 128, 96, 64 at 128 lanes; horner4 G2: B in {1, 5, 6,
-   257}, B = 1 timed as 36 chained padds);
+   cooperative BN254 kernels (window_sum4 G2, tree_sum G1 and G2, horner G1
+   and G2, horner4 G2) are held limb for limb, also at ragged shapes
+   (window_sum4 G2: B in {1, 3}, Kp in {32, 33}; tree_sum G2: B in {1, 127},
+   k in {1, 2, 3, 191}, and k = 96, 64 at 128 lanes; tree_sum G1: B in {1,
+   127}, k in {1, 2, 3, 255}, and k = 192, 128, 96, 64 at 128 lanes; horner
+   G1 and G2: B in {1, 5, 6, 127, 129}, B = 1 timed as 9 chained padds;
+   horner4 G2: B in {1, 5, 6, 257}, B = 1 timed as 36 chained padds);
 4. (phases 4 to 6 run with the seam pinned to the single-device route, a
    one-position mesh, on any number of cards) the main path: ``prove_range_batch`` of 256 range proofs (512 prover
    lanes; T1/T2 and the L/R MSMs at 1024 lanes) with the launch counters
@@ -514,6 +516,37 @@ def ragged_tree_sum(dev, curve: str, consts, table, table_kp: int) -> None:
               "shape": f"pts ({B},{k},{C},{n}) i16"})
 
 
+def ragged_horner(dev, curve: str, consts, sums) -> None:
+    """horner G1 or G2 at ragged lane counts B in {1, 5, 6, 127, 129} (G1: a
+    warp's five six-thread groups, one group past them, a partial last
+    block; G2, one 18-thread group a warp: as many one-warp blocks; both:
+    one lane past the mesh block's 128), the accumulator and window sum taken from the
+    lanes of ``sums`` (tree_sum outputs, reused in turn) with lane 0's
+    accumulator the identity, limb for limb against the plain version; one
+    kernel_check line each (not in the kernels line). B = 1 is one lane's
+    chain of 9 dependent cooperative padds alone on the card, so its time
+    over 9 is a padd's latency."""
+    from libzkp_tpu_torch.ops import kernels
+    from libzkp_tpu_torch.ops.weierstrass import get_engine
+
+    eng = get_engine(curve)
+    C, n, L = sums.shape
+    for B in (1, 5, 6, 127, 129):
+        acc = sums[..., torch.arange(B, device=dev) % L].contiguous()
+        acc[..., 0] = eng.identity(1, dev)[..., 0]
+        wsum = sums[..., (torch.arange(B, device=dev) + B) % L].contiguous()
+        got = kernels.horner(consts, acc, wsum, curve=curve)
+        want = kernels.horner_plain(consts, acc, wsum, curve=curve)
+        torch.cuda.synchronize()
+        err = _limbs_err(f"horner {curve} at B {B}", got, want)
+        row = {"phase": "kernel_check", "name": kernels.instance("horner", curve), "ragged": True,
+               "max_abs_err": float(err), "tolerance": "exact limbs", "shape": f"acc, wsum ({C},{n},{B}) i32"}
+        if B == 1:
+            ms = cuda_ms(lambda: kernels.horner(consts, acc, wsum, curve=curve), 50)
+            row |= {"ms": ms, "chained_padds": 9, "padd_latency_us": ms * 1e3 / 9}
+        emit(row)
+
+
 def check_sharded_kernels(dev, int_rate: float, tables: dict) -> list:
     """Phase 3c: the kernels of one block of the mesh-sharded Groth16 MSMs
     (dp = shard = 2: 128 lanes per block; 256 basis points per block for the
@@ -523,7 +556,7 @@ def check_sharded_kernels(dev, int_rate: float, tables: dict) -> list:
     ed25519 instance sums in another order than the plain tree) and for G1
     and G2, which sum in its order, limb for limb too, here and at ragged
     shapes (:func:`ragged_tree_sum`); horner for BN254 G1 and G2, limb for
-    limb."""
+    limb, here and at ragged lane counts (:func:`ragged_horner`)."""
     from libzkp_tpu_torch.ops import kernels
     from libzkp_tpu_torch.ops.weierstrass import CURVES
 
@@ -567,6 +600,7 @@ def check_sharded_kernels(dev, int_rate: float, tables: dict) -> list:
         err = int((h_k - h_p).abs().max())
         if err != 0:
             raise AssertionError(f"horner {curve} limbs differ from its plain version (max {err})")
+        ragged_horner(dev, curve, consts, ts_p)
         t_k = cuda_ms(lambda: kernels.horner(consts, acc_in, wsum, curve=curve), 20)
         t_p = cuda_ms(lambda: kernels.horner_plain(consts, acc_in, wsum, curve=curve), 3)
         b_ms, b_by = bound(9 * padd * SHARD_B_LOCAL, 3 * C * n * SHARD_B_LOCAL * 4, int_rate)
@@ -1259,7 +1293,10 @@ def main_path(dev) -> dict:
     return {"counts": counts, "ms_per_batch": ms_batch}
 
 
-def main() -> int:
+def main(argv: list) -> int:
+    if argv not in ([], ["--kernels"]):
+        print(f"usage: python3 chip_smoke.py [--kernels], got {argv}", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
@@ -1299,6 +1336,8 @@ def main() -> int:
               + check_sharded_kernels(dev, int_rate, tables)
               + check_probe_kernels(dev, int_rate, fp32_rate) + check_mont_kernels(dev, int_rate))
     del tables
+    if argv == ["--kernels"]:  # the kernel checks alone, to time two checkouts in turns
+        return 0
     paths = [main_path(dev)]
     g16 = groth16_path(dev)
     paths += [g16, groth16_grouped(dev)]
@@ -1330,4 +1369,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

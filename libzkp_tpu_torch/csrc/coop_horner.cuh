@@ -1,0 +1,110 @@
+// Cooperative BN254 Horner steps: WG steps acc <- 2^8 * acc + wsums[window v]
+// per lane, each lane's chain of WG x 9 padds (a Weierstrass pdouble is
+// padd(p, p)) run by one group of Cp::GROUP threads on the curve's
+// cooperative padd (coop_sum.cuh). Instances: horner G1 = <G1Coop, 1> and
+// horner G2 = <G2Coop18, 1> (horner.cu), horner4 G2 = <G2Coop, 4>
+// (horner4.cu).
+//
+// A padd's latency is the products of one thread (G1Coop: 2, against 12 in
+// one thread; G2Coop: 7 and G2Coop18: 3, against 42) plus its rows and
+// __syncwarp stages. The chain is a latency chain: the padds of a lane
+// depend on each other, and the paths give 128 (horner, a mesh block) or
+// 256 (horner4) lanes, too few to fill the card with independent work. A
+// warp holds Cp::PER_WARP groups (six-thread groups: five, lanes 30 and 31
+// idle; 18-thread groups: one, lanes 18 to 31 idle); blocks of one warp (the
+// wrapper's choice, ops/kernels.py coop_horner_geometry) spread the lanes'
+// warps over the SMs.
+//
+// Narrowing precondition: every limb of the accumulator and of the window
+// sums lies in int16. They are narrowed once into shared memory as int16
+// points: the accumulator is the identity (the MSM's start) or an earlier
+// Horner output, each window sum a tree sum's or window sum's output (a padd
+// output, or one int16 table row), and every padd output limb lies in
+// [-7643, 11737] (fold_curves.cuh), so the narrowing is exact and every padd
+// of the chain writes an int16 point exactly. The doublings run in place,
+// padd(acc, acc, acc), which every cooperative padd allows: P and Q are read
+// in round 1 only, out written in the last stage.
+//
+// Each padd's rows are the plain version's integer operations, so the limbs
+// are identical to it.
+#pragma once
+
+#include "coop_sum.cuh"
+
+// Dynamic shared memory of a block of `warps` warps: per group, the
+// accumulator and its WG window sums as int16 points; then per group its
+// padd scratch.
+template <class Cp, int WG>
+constexpr size_t coop_horner_smem_bytes(int warps) {
+  return (size_t)warps * Cp::PER_WARP *
+         ((1 + WG) * Cp::POINT * sizeof(int16_t) + Cp::SCRATCH * sizeof(int32_t));
+}
+
+// acc_in, out: (COORDS, N, B) int32; wsums: (COORDS, N, WG * B) int32,
+// window v of lane b in lane v * B + b. Group `slot` of block blockIdx.x
+// runs lane b = blockIdx.x * slots + slot; groups past B (and a warp's lanes
+// past its last group) pass act = false and meet every __syncwarp of the
+// chain.
+template <class Cp, int WG>
+__global__ void __launch_bounds__(coop::MAX_WARPS * 32)
+coop_horner_kernel(const int32_t* __restrict__ acc_in, const int32_t* __restrict__ wsums,
+                   int32_t* __restrict__ out, int B) {
+  using fold::N;
+  constexpr int POINT = Cp::POINT, GROUP = Cp::GROUP, PER_WARP = Cp::PER_WARP;
+  const int slots = (blockDim.x >> 5) * PER_WARP;
+  const int grp = (threadIdx.x & 31) / GROUP;
+  const int g = (threadIdx.x & 31) - grp * GROUP;
+  const int slot = (threadIdx.x >> 5) * PER_WARP + (grp < PER_WARP ? grp : 0);
+  const int b = blockIdx.x * slots + slot;
+  const bool act = grp < PER_WARP && b < B;
+  int16_t* pts = reinterpret_cast<int16_t*>(coop_smem());
+  int16_t* acc = pts + (size_t)slot * (1 + WG) * POINT;
+  int16_t* wins = acc + POINT;
+  int32_t* scr = reinterpret_cast<int32_t*>(pts + (size_t)slots * (1 + WG) * POINT) + slot * Cp::SCRATCH;
+  if (act) {  // thread g narrows rows g, g + GROUP, ... of the accumulator and of each window sum
+#pragma unroll 1
+    for (int c = g; c < Cp::COORDS; c += GROUP) {
+#pragma unroll 1
+      for (int i = 0; i < N; ++i) {
+        const size_t r = (size_t)c * N + i;
+        acc[r] = (int16_t)acc_in[r * B + b];
+#pragma unroll
+        for (int v = 0; v < WG; ++v) wins[v * POINT + r] = (int16_t)wsums[r * WG * B + (size_t)v * B + b];
+      }
+    }
+  }
+  __syncwarp();
+#pragma unroll 1
+  for (int v = 0; v < WG; ++v) {
+#pragma unroll 1
+    for (int r = 0; r < 9; ++r)  // 8 doublings, then + window v
+      Cp::padd(acc, acc, r < 8 ? acc : wins + v * POINT, scr, g, act);
+  }
+  if (act) {  // the padd's last __syncwarp has passed: acc is whole
+#pragma unroll 1
+    for (int c = g; c < Cp::COORDS; c += GROUP) {
+#pragma unroll 1
+      for (int i = 0; i < N; ++i) out[((size_t)c * N + i) * B + b] = acc[c * N + i];
+    }
+  }
+}
+
+// Host side: checks the geometry (blocks * warps * Cp::PER_WARP >= B, the
+// block's warps, at least coop_horner_smem_bytes(warps) of dynamic shared
+// memory), sets the shared memory attribute, loads the curve Cv's consts and
+// launches. Returns the CUDA error (cudaErrorInvalidValue for a bad
+// geometry).
+template <class Cv, class Cp, int WG>
+int coop_horner_launch(const int32_t* consts, const int32_t* acc, const int32_t* wsums, int32_t* out,
+                       int B, int blocks, int warps, int smem, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (B < 1 || blocks < 1 || (long long)blocks * warps * Cp::PER_WARP < B)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = coop_prepare(coop_horner_kernel<Cp, WG>, coop_horner_smem_bytes<Cp, WG>(warps), warps,
+                                 smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = fold_load_consts(consts, Cv::NCONST, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  coop_horner_kernel<Cp, WG><<<blocks, warps * 32, smem, st>>>(acc, wsums, out, B);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,7 +1,8 @@
 // Cooperative BN254 point additions: a G1 or G2 padd shared by six threads
-// of a warp on int16 operands in shared memory, and the plain version's
-// halving tree over one lane's K points built on them (tree_sum G1 and G2,
-// window_sum4 G2; horner4 G2 chains the G2 padd, horner4.cu).
+// (or a G2 padd by 18) of a warp on int16 operands in shared memory, and the
+// plain version's halving tree over one lane's K points built on them
+// (tree_sum G1 and G2, window_sum4 G2; the Horner steps chain them,
+// coop_horner.cuh).
 //
 // Both padds are RCB'15 algorithm 7 as rcb_padd (fold_curves.cuh) and the
 // plain WeierstrassEngine.padd order it: round 1, the six independent
@@ -11,9 +12,9 @@
 // as in rcb_padd, so the limbs equal the plain version's and JAX's, and the
 // int32 headroom argument of fold_curves.cuh holds unchanged. The stages
 // meet at __syncwarp: a group never leaves its warp. Five groups fill a warp
-// (lanes 30 and 31 idle); a group with no padd passes act = false and still
-// meets every __syncwarp. out may be P or Q: P and Q are read in round 1
-// only, out written last.
+// (lanes 30 and 31 idle; an 18-thread group leaves lanes 18 to 31 idle); a
+// group with no padd passes act = false and still meets every __syncwarp.
+// out may be P or Q: P and Q are read in round 1 only, out written last.
 //
 // G2 (g2_padd_coop). The coordinates are Fq2 elements and each product of
 // the formula a Karatsuba Fq2 product of three Fq products: 18 in round 1,
@@ -25,6 +26,12 @@
 // group's scratch. Between the rounds the adds, subs and carries (the 12
 // Karatsuba rows of round 1, then 8, 6 and 6 rows) are spread over the six
 // threads the same way, one row at a time, each value computed once.
+// g2_padd_coop18 (horner G2) runs the same stages and rows on 18 threads:
+// one Fq product a thread in rounds 1 and 3 (product g % 3 of pair g / 3, at
+// M's row g), one Karatsuba row a thread after round 1 and X3 = 3 t0 on
+// threads 6 and 7, so a padd's latency is 3 products against 7. It is a
+// function of its own: folding both into one template over the group cost
+// the six-thread kernels about 3 % (registers and time, paired on the card).
 // Scratch, 32 int32 rows (3072 bytes): M, rows 0..17, the products of a
 // round (Karatsuba pair j's m0, m1, t at rows 3j .. 3j + 2); T, rows 18..29,
 // six Fq2 values (c0, c1): t0, t1, t2, t3, t4, X3 of round 1, then in place
@@ -290,6 +297,102 @@ __device__ __forceinline__ void g2_padd_coop(int16_t* out, const int16_t* P, con
   __syncwarp();
 }
 
+// out = P + Q (int16 G2 points), by the 18 threads g = 0..17 of one group
+// with scratch scr: g2_padd_coop's stages and rows, one product a thread in
+// rounds 1 and 3 (above).
+__device__ __forceinline__ void g2_padd_coop18(int16_t* out, const int16_t* P, const int16_t* Q,
+                                              int32_t* scr, int g, bool act) {
+  using fold::N;
+  int32_t* M = scr;
+  int32_t* T = scr + g2::ROW_T * N;
+  int32_t* X = scr + g2::ROW_X * N;
+  if (act) {  // round 1: product s of pair j
+    const int j = g / 3, s = g - 3 * (g / 3);
+    int32_t a[N], b[N];
+    g2_r1_operand(a, P, j, s);
+    g2_r1_operand(b, Q, j, s);
+    fe_mul_inline(a, a, b);
+    row_st32(M + g * N, a);
+  }
+  __syncwarp();
+  if (act && g < 12) {  // T row g: component g & 1 of pair g >> 1
+    int32_t r[N];
+    g2_kara(r, M, g >> 1, g & 1);
+    row_st32(T + g * N, r);
+  }
+  __syncwarp();
+  if (act && g < 8) {  // t3, t4, Y3 in place (g < 6), X3 = 3 t0 (g = 6, 7)
+    int32_t r[N], x[N];
+    if (g < 6) {
+      const int v = 3 + (g >> 1), k = g & 1;
+      row_ld32(r, T + (2 * (v == 4 ? 1 : 0) + k) * N);
+      row_ld32(x, T + (2 * (v == 3 ? 1 : 2) + k) * N);
+      row_add_carry(r, x, 1);
+      row_ld32(x, T + (2 * v + k) * N);
+#pragma unroll
+      for (int i = 0; i < N; ++i) r[i] = x[i] - r[i];
+      fe_carry(r);
+      row_st32(T + (2 * v + k) * N, r);
+    } else {
+      row_ld32(r, T + (g - 6) * N);
+#pragma unroll
+      for (int i = 0; i < N; ++i) r[i] = r[i] + r[i] + r[i];
+      fe_carry(r);
+      row_st32(X + (g - 6) * N, r);
+    }
+  }
+  __syncwarp();
+  if (act && g < 6) {  // round 2
+    const int s = g % 3;
+    int32_t a[N], b[N];
+    g2_operand(a, T + (g < 3 ? 4 : 10) * N, s);
+    if (s < 2) {
+#pragma unroll
+      for (int i = 0; i < N; ++i) b[i] = c_consts[(fold::ROW_CURVE + s) * N + i];
+    } else {
+#pragma unroll
+      for (int i = 0; i < N; ++i) b[i] = c_consts[fold::ROW_CURVE * N + i] + c_consts[(fold::ROW_CURVE + 1) * N + i];
+      fe_carry(b);
+    }
+    fe_mul_inline(a, a, b);
+    row_st32(M + g * N, a);
+  }
+  __syncwarp();
+  if (act && g < 6) {  // t1 - b3 t2, b3 Y3, Z3
+    const int k = g & 1, kind = g >> 1;
+    int32_t r[N], x[N];
+    g2_kara(r, M, kind == 1 ? 1 : 0, k);
+    if (kind != 1) {
+      row_ld32(x, T + (2 + k) * N);
+#pragma unroll
+      for (int i = 0; i < N; ++i) r[i] = kind == 0 ? x[i] - r[i] : x[i] + r[i];
+      fe_carry(r);
+    }
+    row_st32(T + (2 * (kind == 0 ? 0 : (kind == 1 ? 5 : 2)) + k) * N, r);
+  }
+  __syncwarp();
+  if (act) {  // round 3: product s of pair j
+    const int j = g / 3, s = g - 3 * (g / 3);
+    const int32_t* A = T + 2 * ((0x625043 >> (4 * j)) & 15) * N;
+    const int32_t* B = T + 2 * ((0x346250 >> (4 * j)) & 15) * N;
+    int32_t a[N], b[N];
+    g2_operand(a, A, s);
+    g2_operand(b, B, s);
+    fe_mul_inline(a, a, b);
+    row_st32(M + g * N, a);
+  }
+  __syncwarp();
+  if (act && g < 6) {  // out row g
+    const int c = g >> 1, k = g & 1;
+    int32_t r[N], x[N];
+    g2_kara(r, M, 2 * c, k);
+    g2_kara(x, M, 2 * c + 1, k);
+    row_add_carry(r, x, c == 0 ? -1 : 1);
+    row_st16(out + g * N, r);
+  }
+  __syncwarp();
+}
+
 // ---------------------------------------------------------------------------
 // G1
 // ---------------------------------------------------------------------------
@@ -381,8 +484,11 @@ __device__ __forceinline__ void g1_padd_coop(int16_t* out, const int16_t* P, con
 // ---------------------------------------------------------------------------
 
 struct G1Coop {
-  static constexpr int POINT = 3 * fold::N;     // int16 limbs of a point
-  static constexpr int SCRATCH = 15 * fold::N;  // int32 of one padd's scratch
+  static constexpr int GROUP = coop::GROUP;              // threads of a padd
+  static constexpr int PER_WARP = coop::PADDS_PER_WARP;  // padds a warp
+  static constexpr int COORDS = 3;                       // coordinate rows of a point
+  static constexpr int POINT = COORDS * fold::N;         // int16 limbs of a point
+  static constexpr int SCRATCH = 15 * fold::N;           // int32 of one padd's scratch
   static __device__ __forceinline__ void padd(int16_t* out, const int16_t* P, const int16_t* Q,
                                               int32_t* scr, int g, bool act) {
     g1_padd_coop(out, P, Q, scr, g, act);
@@ -390,11 +496,26 @@ struct G1Coop {
 };
 
 struct G2Coop {
-  static constexpr int POINT = 6 * fold::N;
+  static constexpr int GROUP = coop::GROUP;
+  static constexpr int PER_WARP = coop::PADDS_PER_WARP;
+  static constexpr int COORDS = 6;
+  static constexpr int POINT = COORDS * fold::N;
   static constexpr int SCRATCH = 32 * fold::N;
   static __device__ __forceinline__ void padd(int16_t* out, const int16_t* P, const int16_t* Q,
                                               int32_t* scr, int g, bool act) {
     g2_padd_coop(out, P, Q, scr, g, act);
+  }
+};
+
+struct G2Coop18 {  // horner G2: one 18-thread padd a warp
+  static constexpr int GROUP = 18;
+  static constexpr int PER_WARP = 1;
+  static constexpr int COORDS = 6;
+  static constexpr int POINT = COORDS * fold::N;
+  static constexpr int SCRATCH = 32 * fold::N;
+  static __device__ __forceinline__ void padd(int16_t* out, const int16_t* P, const int16_t* Q,
+                                              int32_t* scr, int g, bool act) {
+    g2_padd_coop18(out, P, Q, scr, g, act);
   }
 };
 

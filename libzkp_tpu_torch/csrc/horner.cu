@@ -12,13 +12,25 @@
 // (G2). Each product is N^2 + (N + 2) * N = 1200 multiply-adds, against
 // 3 * COORDS * N * 4 bytes moved per lane.
 //
-// Design: one thread per lane, the lanes of a warp on neighbouring words of
-// each (COORDS, N, B) row, so loads and stores coalesce. The BN254 instances
-// take blocks of one warp, as horner4 does, so the 128 lanes of a block of the
-// sharded Groth16 batch spread over 4 SMs instead of 1. The formula is the
-// plain version's, step for step, so the limbs are identical to it.
+// ed25519: one thread per lane, the lanes of a warp on neighbouring words of
+// each (COORDS, N, B) row, so loads and stores coalesce, in blocks of 128.
+//
+// BN254 G1 and G2: one group of threads per lane runs the 9 padds on the
+// curve's cooperative padd (coop_horner_kernel<Cp, 1>, coop_horner.cuh): G1
+// six threads a lane (G1Coop), five lanes a warp, a padd's latency 2
+// products of one thread where one thread per lane ran all 12; G2 18 threads
+// a lane (G2Coop18), one lane a warp, a padd's latency 3 products where one
+// thread ran 42 (7 on G2Coop's six threads). At the mesh block's 128 lanes
+// that is 26 (G1) or 128 (G2) one-warp blocks, each alone on its SM. The
+// accumulator and the window sum are narrowed once to int16 in shared
+// memory; this is exact on the mesh path, where the accumulator is the
+// identity or an earlier horner output and the window sum a tree_sum output,
+// and every padd output limb lies in [-7643, 11737] (fold_curves.cuh).
+//
+// Every formula is the plain version's, step for step, so the limbs are
+// identical to it.
 
-#include "fold_curves.cuh"
+#include "coop_horner.cuh"
 
 namespace {
 
@@ -52,18 +64,22 @@ int launch(const int32_t* consts, const int32_t* acc, const int32_t* wsum, int32
 }  // namespace
 
 // consts: the curve's (NCONST, N) int32 block; acc, wsum, out: (COORDS, N, B)
-// int32. Each returns the CUDA error of the launch (0 on success).
+// int32; BN254 only: blocks, warps per block (blocks * warps * 5 >= B) and
+// dynamic shared bytes (at least coop_horner_smem_bytes<Cp, 1>(warps)). Each
+// returns the CUDA error of the launch (0 on success).
 extern "C" int horner_ed25519_launch(const int32_t* consts, const int32_t* acc,
                                      const int32_t* wsum, int32_t* out, int B, void* stream) {
   return launch<Ed25519, 128>(consts, acc, wsum, out, B, stream);
 }
 
 extern "C" int horner_bn254_g1_launch(const int32_t* consts, const int32_t* acc,
-                                      const int32_t* wsum, int32_t* out, int B, void* stream) {
-  return launch<Bn254G1, 32>(consts, acc, wsum, out, B, stream);
+                                      const int32_t* wsum, int32_t* out, int B, int blocks,
+                                      int warps, int smem, void* stream) {
+  return coop_horner_launch<Bn254G1, G1Coop, 1>(consts, acc, wsum, out, B, blocks, warps, smem, stream);
 }
 
 extern "C" int horner_bn254_g2_launch(const int32_t* consts, const int32_t* acc,
-                                      const int32_t* wsum, int32_t* out, int B, void* stream) {
-  return launch<Bn254G2, 32>(consts, acc, wsum, out, B, stream);
+                                      const int32_t* wsum, int32_t* out, int B, int blocks,
+                                      int warps, int smem, void* stream) {
+  return coop_horner_launch<Bn254G2, G2Coop18, 1>(consts, acc, wsum, out, B, blocks, warps, smem, stream);
 }

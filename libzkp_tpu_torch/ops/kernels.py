@@ -5,7 +5,8 @@ Eight CUDA C++ sources under ``libzkp_tpu_torch/csrc/``, each compiled for
 and bound with ``ctypes``; the field and curve code they share is
 ``csrc/fold_curves.cuh``, the Montgomery field code ``csrc/mont.cuh``, the
 cooperative BN254 padds and tree sum ``csrc/coop_sum.cuh`` (window_sum4 G2,
-tree_sum G1 and G2, horner4 G2). Each kernel is instantiated for the curves
+tree_sum G1 and G2) and the Horner chain on them ``csrc/coop_horner.cuh``
+(horner G1 and G2, horner4 G2). Each kernel is instantiated for the curves
 its path runs, and each instance is a kernel of its own, named ``<kernel>``
 for ed25519 or a field-generic kernel and ``<kernel>_<curve>`` for BN254 or
 ``<kernel>_<variant>`` for a probe's variant (:data:`INSTANCES`):
@@ -124,19 +125,24 @@ _ARGTYPES = {
     "window_sum4_bn254_g2": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "tree_sum_bn254_g1": [_P, _P, _P, _I, _I, _I, _I, _P],
     "tree_sum_bn254_g2": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "horner_bn254_g1": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "horner_bn254_g2": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "horner4_bn254_g2": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 # Geometry of the cooperative BN254 kernels (csrc/coop_sum.cuh): six threads
-# share a padd, five padds a warp, each with its int32 scratch rows; the
-# tree sums (window_sum4 G2, tree_sum G1 and G2) run one block per output
-# lane with a level store of ceil(K/2) int16 points; horner4 G2 holds each
-# lane's accumulator and WIN_GROUP window sums as int16 points.
+# share a padd, five padds a warp, each with its int32 scratch rows (horner
+# G2's padd: 18 threads, one a warp); the tree sums (window_sum4 G2,
+# tree_sum G1 and G2) run one block per output lane with a level store of
+# ceil(K/2) int16 points; the Horner steps (horner G1 and G2, horner4 G2)
+# one group per lane, holding its accumulator and its window sums as int16
+# points.
 COOP_PADDS_PER_WARP = 5
 COOP_MAX_WARPS = 12        # 384 threads a block (the kernels' launch bounds)
 POINT_BYTES = {"bn254_g1": 3 * 24 * 2, "bn254_g2": 6 * 24 * 2}
 COOP_SCRATCH_BYTES = {"bn254_g1": 15 * 24 * 4, "bn254_g2": 32 * 24 * 4}
-HORNER4_G2_WARPS = 1       # horner4 G2: one warp a block, 256 lanes over 52 SMs
+COOP_HORNER_WARPS = 1      # one warp a block, each alone on its SM at the paths' lane counts
+G2_HORNER_PER_WARP = 1     # horner G2: one 18-thread group a warp
 SMEM_BLOCK_MAX = 232_448   # dynamic shared memory one block may use (H100)
 SMEM_SM = 233_472          # shared memory of an SM; each resident block also holds 1 KiB
 
@@ -161,15 +167,18 @@ def coop_sum_geometry(curve: str, K: int, lanes: int, sms: int) -> tuple:
     return warps, store + warps * per_warp
 
 
-def coop_horner_geometry(lanes: int) -> tuple:
-    """(blocks, warps per block, dynamic shared bytes) of horner4 G2 over
-    ``lanes`` lanes, five lanes a warp: each lane's group holds its
-    accumulator, its WIN_GROUP window sums and its padd scratch."""
+def coop_horner_geometry(curve: str, lanes: int, windows: int) -> tuple:
+    """(blocks, warps per block, dynamic shared bytes) of a cooperative
+    Horner step of ``windows`` windows (1: horner, WIN_GROUP: horner4) over
+    ``lanes`` lanes of ``curve``: five lanes a warp on six-thread padds, one
+    on horner G2's 18-thread padd. Each lane's group holds its accumulator,
+    its window sums and its padd scratch."""
     if lanes < 1:
-        raise ValueError(f"horner4 bn254_g2 needs at least one lane, got {lanes}")
-    per_block = HORNER4_G2_WARPS * COOP_PADDS_PER_WARP
-    smem = per_block * ((1 + WIN_GROUP) * POINT_BYTES["bn254_g2"] + COOP_SCRATCH_BYTES["bn254_g2"])
-    return -(-lanes // per_block), HORNER4_G2_WARPS, smem
+        raise ValueError(f"a {curve} Horner step needs at least one lane, got {lanes}")
+    per_warp = G2_HORNER_PER_WARP if (curve, windows) == ("bn254_g2", 1) else COOP_PADDS_PER_WARP
+    per_block = COOP_HORNER_WARPS * per_warp
+    smem = per_block * ((1 + windows) * POINT_BYTES[curve] + COOP_SCRATCH_BYTES[curve])
+    return -(-lanes // per_block), COOP_HORNER_WARPS, smem
 
 
 def _coop_geometry(dev: torch.device, curve: str, K: int, lanes: int) -> tuple:
@@ -369,7 +378,13 @@ def horner_plain(consts: torch.Tensor, acc: torch.Tensor, wsum: torch.Tensor, *,
 
 def horner(consts: torch.Tensor, acc: torch.Tensor, wsum: torch.Tensor, *,
            curve: str = "ed25519") -> torch.Tensor:
-    """acc <- 2^8 * acc + wsum over (C, n, B) int32 lanes."""
+    """acc <- 2^8 * acc + wsum over (C, n, B) int32 lanes.
+
+    The BN254 kernels narrow ``acc`` and ``wsum`` to int16 (their
+    precondition): every limb must lie in int16, as on the mesh path, where
+    ``acc`` is the identity or an earlier ``horner`` output and ``wsum`` a
+    ``tree_sum`` output, and every padd output limb lies in [-7643, 11737]
+    (``csrc/fold_curves.cuh``)."""
     if acc.device.type == "cpu":
         return horner_plain(consts, acc, wsum, curve=curve)
     eng = _engine("horner", curve)
@@ -378,8 +393,9 @@ def horner(consts: torch.Tensor, acc: torch.Tensor, wsum: torch.Tensor, *,
     _check_points(eng, "acc", acc, B)
     _check_points(eng, "wsum", wsum, B)
     out = torch.empty_like(acc)
+    geometry = coop_horner_geometry(curve, B, 1) if curve != "ed25519" else ()
     _run("horner", curve, dev, consts.data_ptr(), acc.data_ptr(), wsum.data_ptr(),
-         out.data_ptr(), B)
+         out.data_ptr(), B, *geometry)
     return out
 
 
@@ -473,7 +489,7 @@ def horner4(consts: torch.Tensor, acc: torch.Tensor, wsums: torch.Tensor, *,
     _check_points(eng, "acc", acc, B)
     _check_points(eng, "wsums", wsums, WIN_GROUP * B)
     out = torch.empty_like(acc)
-    geometry = coop_horner_geometry(B) if curve == "bn254_g2" else ()
+    geometry = coop_horner_geometry(curve, B, WIN_GROUP) if curve == "bn254_g2" else ()
     _run("horner4", curve, dev, consts.data_ptr(), acc.data_ptr(), wsums.data_ptr(),
          out.data_ptr(), B, *geometry)
     return out

@@ -1,4 +1,5 @@
-"""The BN254 G1 tree sum's design (``csrc/coop_sum.cuh``) on the CPU.
+"""The BN254 G1 tree sum's and Horner step's design (``csrc/coop_sum.cuh``,
+``csrc/coop_horner.cuh``) on the CPU.
 
 The CUDA kernel runs only on the card; what it computes is held here at
 small sizes against the plain versions:
@@ -10,8 +11,14 @@ small sizes against the plain versions:
   the kernel's level store holds it, gives ``tree_sum_plain``'s limbs (and
   so the JAX ``_window_sum_call``'s, tests/test_torch_sharded_msm.py), on
   rows of a real multiples table;
-* the wrapper's launch geometry fits a block's shared memory at every shape
-  the mesh gives ``tree_sum`` G1, and a shape that cannot fit raises.
+* horner G1's chain on that schedule (``coop_horner_kernel<G1Coop, 1>``),
+  with the accumulator and the window sum narrowed to int16 and every padd
+  output narrowed as the kernel's shared memory holds it, gives
+  ``horner_plain``'s limbs (and so the JAX ``_horner_call``'s,
+  tests/test_torch_sharded_msm.py);
+* the wrappers' launch geometry fits a block's shared memory at every shape
+  the mesh gives ``tree_sum`` G1 and at every lane count of a Horner step,
+  and a shape that cannot fit raises.
 """
 
 from __future__ import annotations
@@ -143,6 +150,38 @@ def test_narrowed_g1_tree_gives_tree_sum_plain_limbs(g1_table, K):
 
 
 # ---------------------------------------------------------------------------
+# the narrowed Horner chain (coop_horner_kernel<G1Coop, 1>)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("B", [1, 5, 6])
+def test_narrowed_g1_horner_chain_gives_horner_plain_limbs(g1_table, B):
+    """horner G1's chain: the accumulator and the window sum narrowed to
+    int16 once, then 8 doublings and 1 addition on the cooperative schedule,
+    the accumulator narrowed after every padd. Lane 0 starts from the
+    identity (the MSM's first window), the others from window sums (tree
+    sums of table rows); every intermediate fits int16 and the limbs equal
+    horner_plain's."""
+    consts, table, kp = g1_table
+    eng = get_engine(CURVE)
+    f = FieldOps(eng.n, consts)
+    sums = kernels.tree_sum_plain(consts, _gathered(table, kp, 3, 2 * B, seed=50 + B), curve=CURVE)
+    acc0 = sums[..., :B].clone()
+    acc0[..., 0] = eng.identity(1, "cpu")[..., 0]
+    wsum = sums[..., B:].contiguous()
+
+    def narrowed(x):
+        n16 = x.to(torch.int16)
+        assert torch.equal(n16.to(torch.int32), x), "a limb left int16"
+        return n16.to(torch.int32)
+
+    acc, win = narrowed(acc0), narrowed(wsum)
+    for r in range(9):
+        acc = narrowed(_coop_padd(f, acc, acc if r < 8 else win))
+    assert torch.equal(acc, kernels.horner_plain(consts, acc0, wsum, curve=CURVE))
+
+
+# ---------------------------------------------------------------------------
 # launch geometry
 # ---------------------------------------------------------------------------
 
@@ -173,3 +212,21 @@ def test_g1_geometry_raises_above_a_blocks_shared_memory():
         kernels.coop_sum_geometry(CURVE, k_max + 1, 1, H100_SMS)
     with pytest.raises(ValueError, match="at least one point"):
         kernels.coop_sum_geometry(CURVE, 0, 1, H100_SMS)
+
+
+@pytest.mark.parametrize("WG", [1, 4])
+@pytest.mark.parametrize("B", [1, 5, 6, 128, 256, 1024])
+def test_horner_g1_geometry_fits_every_lane_count(B, WG):
+    blocks, warps, smem = kernels.coop_horner_geometry(CURVE, B, WG)
+    assert warps == kernels.COOP_HORNER_WARPS
+    lanes = warps * kernels.COOP_PADDS_PER_WARP
+    assert (blocks - 1) * lanes < B <= blocks * lanes  # every lane has a group, no block is idle
+    assert smem == lanes * ((1 + WG) * kernels.POINT_BYTES[CURVE] + kernels.COOP_SCRATCH_BYTES[CURVE])
+    assert smem <= kernels.SMEM_BLOCK_MAX
+    if WG == 1:  # horner G1: 1,728 bytes a group
+        assert smem == 1728 * lanes
+
+
+def test_horner_g1_geometry_raises_without_lanes():
+    with pytest.raises(ValueError, match="at least one lane"):
+        kernels.coop_horner_geometry(CURVE, 0, 1)

@@ -1,19 +1,22 @@
-"""The BN254 G2 window sums' and Horner chain's design (``csrc/coop_sum.cuh``,
-``csrc/horner4.cu``) on the CPU.
+"""The BN254 G2 window sums' and Horner chains' design (``csrc/coop_sum.cuh``,
+``csrc/coop_horner.cuh``) on the CPU.
 
 The CUDA kernels run only on the card; what they compute is held here at
 small sizes against the plain versions:
 
-* the cooperative padd's schedule (round 1, the Karatsuba rows, the rows
+* the cooperative padds' schedule (round 1, the Karatsuba rows, the rows
   rewritten in place, round 2, round 3, the output rows, with the kernel's
-  row tables) gives the limbs of the plain ``WeierstrassEngine.padd``;
+  row tables; six threads, or horner G2's 18) gives the limbs of the plain
+  ``WeierstrassEngine.padd``;
 * the halving tree with every level narrowed to int16, as the kernel's
   level store holds it, gives ``tree_sum_plain``'s limbs (and so the JAX
   ``_window_sum_call``'s, tests/test_torch_sharded_msm.py), on rows of a
   real multiples table;
-* horner4's chain on that schedule, with its accumulator narrowed to int16
-  after every padd as the kernel's shared memory holds it, gives
-  ``horner4_plain``'s limbs (and so the JAX ``_horner4_call``'s,
+* the Horner chain on that schedule (``coop_horner_kernel``: one window on
+  the 18-thread padd for horner, four on the six-thread one for horner4), with its accumulator narrowed to int16 after
+  every padd as the kernel's shared memory holds it, gives ``horner_plain``'s
+  and ``horner4_plain``'s limbs (and so the JAX ``_horner_call``'s and
+  ``_horner4_call``'s, tests/test_torch_sharded_msm.py and
   tests/test_torch_weierstrass.py);
 * the wrappers' launch geometry fits a block's shared memory at every shape
   the paths use, and a shape that cannot fit raises.
@@ -67,12 +70,15 @@ def _gathered(table, kp: int, K: int, lanes: int, seed: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# the cooperative padd's schedule (csrc/coop_sum.cuh g2_padd_coop)
+# the cooperative padds' schedule (csrc/coop_sum.cuh g2_padd_coop and
+# g2_padd_coop18)
 # ---------------------------------------------------------------------------
 
 
-def _coop_padd(f: FieldOps, P: torch.Tensor, Q: torch.Tensor) -> torch.Tensor:
-    """g2_padd_coop row by row: P, Q (6, n, L) int32 -> P + Q (6, n, L)."""
+def _coop_padd(f: FieldOps, P: torch.Tensor, Q: torch.Tensor, group: int = 6) -> torch.Tensor:
+    """g2_padd_coop (``group`` 6) or g2_padd_coop18 (18) row by row, with
+    each one's thread-to-row maps in rounds 1 and 3 and the Karatsuba rows:
+    P, Q (6, n, L) int32 -> P + Q (6, n, L)."""
 
     def r1_row(pt, j, k):
         r = pt[2 * (j if j < 3 else (1 if j == 4 else 0)) + k]
@@ -90,8 +96,23 @@ def _coop_padd(f: FieldOps, P: torch.Tensor, Q: torch.Tensor) -> torch.Tensor:
         r = f.carry(M[3 * j + (2 if k else 0)] - M[3 * j + (0 if k else 1)])
         return f.carry(r - M[3 * j + 1]) if k else r
 
-    M = [f.mul(r1_operand(P, g, s), r1_operand(Q, g, s)) for g in range(6) for s in range(3)]
-    T = [kara(M, g, k) for g in range(6) for k in range(2)]  # t0, t1, t2, t3, t4, X3
+    per, rows_per = 18 // group, 2 if group == 6 else 1
+
+    def products(A, B):
+        """M's 18 rows as the group's threads compute them: thread g takes
+        products p = per * g .. per * (g + 1) - 1 (six threads: pair g's
+        three; 18: one), product p % 3 of pair p // 3 at row p."""
+        M = [None] * 18
+        for g in range(group):
+            for p in range(per * g, per * (g + 1)):
+                M[p] = f.mul(A(p // 3, p % 3), B(p // 3, p % 3))
+        return M
+
+    M = products(lambda j, s: r1_operand(P, j, s), lambda j, s: r1_operand(Q, j, s))
+    T = [None] * 12  # t0, t1, t2, t3, t4, X3, component r & 1 of pair r >> 1 at row r
+    for g in range(group):
+        for r in range(rows_per * g, min(rows_per * (g + 1), 12)):
+            T[r] = kara(M, r >> 1, r & 1)
     X = []
     for g in range(6):  # in place: t3 -= t0 + t1, t4 -= t1 + t2, Y3 = X3 - (t0 + t2)
         v, k = 3 + (g >> 1), g & 1
@@ -108,9 +129,8 @@ def _coop_padd(f: FieldOps, P: torch.Tensor, Q: torch.Tensor) -> torch.Tensor:
             r = f.carry(T[2 + k] - r if kind == 0 else T[2 + k] + r)
         T[2 * (0 if kind == 0 else (5 if kind == 1 else 2)) + k] = r
     rows = T + X
-    M = [f.mul(operand(rows, 2 * ((0x625043 >> (4 * g)) & 15), s),
-               operand(rows, 2 * ((0x346250 >> (4 * g)) & 15), s))
-         for g in range(6) for s in range(3)]
+    M = products(lambda j, s: operand(rows, 2 * ((0x625043 >> (4 * j)) & 15), s),
+                 lambda j, s: operand(rows, 2 * ((0x346250 >> (4 * j)) & 15), s))
     out = []
     for g in range(6):
         c, k = g >> 1, g & 1
@@ -119,9 +139,7 @@ def _coop_padd(f: FieldOps, P: torch.Tensor, Q: torch.Tensor) -> torch.Tensor:
     return torch.stack(out)
 
 
-def test_cooperative_padd_schedule_gives_padd_limbs(g2_table):
-    """Distinct points, a doubling, the identity on either side, and padd
-    outputs as inputs: every limb equals the plain padd's."""
+def _check_padd_schedule(g2_table, group: int) -> None:
     consts, table, _ = g2_table
     eng = get_engine(CURVE)
     f = FieldOps(eng.n, consts)
@@ -133,8 +151,19 @@ def test_cooperative_padd_schedule_gives_padd_limbs(g2_table):
     P[..., 2] = eng.identity(1, "cpu")[..., 0]
     for _ in range(2):
         want = eng.padd(consts, P, Q)
-        assert torch.equal(_coop_padd(f, P, Q), want)
+        assert torch.equal(_coop_padd(f, P, Q, group), want)
         P, Q = want, P
+
+
+def test_cooperative_padd_schedule_gives_padd_limbs(g2_table):
+    """Distinct points, a doubling, the identity on either side, and padd
+    outputs as inputs: every limb equals the plain padd's."""
+    _check_padd_schedule(g2_table, 6)
+
+
+def test_cooperative_padd18_schedule_gives_padd_limbs(g2_table):
+    """The same for g2_padd_coop18 (horner G2), one product a thread."""
+    _check_padd_schedule(g2_table, 18)
 
 
 # ---------------------------------------------------------------------------
@@ -167,21 +196,24 @@ def test_narrowed_tree_gives_tree_sum_plain_limbs(g2_table, K):
 
 
 # ---------------------------------------------------------------------------
-# the narrowed Horner chain (horner4_g2_kernel)
+# the narrowed Horner chain (coop_horner_kernel<G2Coop, WG>)
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("B", [1, 5, 6])
-def test_narrowed_horner_chain_gives_horner4_plain_limbs(g2_table, B):
-    """horner4_g2_kernel's chain: the accumulator and the window sums
-    narrowed to int16 once, then 4 x (8 doublings + 1 addition) on the
-    cooperative schedule, the accumulator narrowed after every padd. Lane 0
-    starts from the identity (the MSM's first group), the others from window
-    sums; every intermediate fits int16 and the limbs equal horner4_plain's."""
+# WG = 4 (horner4) keeps its earlier ids; WG = 1 is horner
+@pytest.mark.parametrize("WG, B", [(4, 1), (4, 5), (4, 6), (1, 1), (1, 5), (1, 6)],
+                         ids=["1", "5", "6", "wg1-1", "wg1-5", "wg1-6"])
+def test_narrowed_horner_chain_gives_horner4_plain_limbs(g2_table, WG, B):
+    """coop_horner_kernel's chain: the accumulator and the WG window sums
+    narrowed to int16 once, then WG x (8 doublings + 1 addition) on the
+    cooperative schedule (horner: g2_padd_coop18's, horner4:
+    g2_padd_coop's), the accumulator narrowed after every padd. Lane 0
+    starts from the identity (the MSM's first window), the others from window
+    sums; every intermediate fits int16 and the limbs equal horner_plain's
+    (WG = 1) or horner4_plain's (WG = 4)."""
     consts, table, kp = g2_table
     eng = get_engine(CURVE)
     f = FieldOps(eng.n, consts)
-    WG = kernels.WIN_GROUP
     sums = kernels.tree_sum_plain(consts, _gathered(table, kp, 3, (1 + WG) * B, seed=40 + B), curve=CURVE)
     acc0 = sums[..., :B].clone()
     acc0[..., 0] = eng.identity(1, "cpu")[..., 0]
@@ -196,8 +228,9 @@ def test_narrowed_horner_chain_gives_horner4_plain_limbs(g2_table, B):
     for w in range(WG):
         win = narrowed(wsums[..., w * B : (w + 1) * B])
         for r in range(9):
-            acc = narrowed(_coop_padd(f, acc, acc if r < 8 else win))
-    assert torch.equal(acc, kernels.horner4_plain(consts, acc0, wsums, curve=CURVE))
+            acc = narrowed(_coop_padd(f, acc, acc if r < 8 else win, 18 if WG == 1 else 6))
+    plain = kernels.horner_plain if WG == 1 else kernels.horner4_plain
+    assert torch.equal(acc, plain(consts, acc0, wsums, curve=CURVE))
 
 
 # ---------------------------------------------------------------------------
@@ -238,17 +271,33 @@ def test_g2_geometry_raises_above_a_blocks_shared_memory():
         kernels.coop_sum_geometry(CURVE, 0, 1, H100_SMS)
 
 
-@pytest.mark.parametrize("B", [1, 5, 6, 256, 1024])
-def test_horner4_g2_geometry_fits_every_lane_count(B):
-    blocks, warps, smem = kernels.coop_horner_geometry(B)
-    assert warps == kernels.HORNER4_G2_WARPS
-    lanes = warps * kernels.COOP_PADDS_PER_WARP
+def _check_horner_geometry(B: int, WG: int) -> None:
+    blocks, warps, smem = kernels.coop_horner_geometry(CURVE, B, WG)
+    assert warps == kernels.COOP_HORNER_WARPS
+    # horner G2: one 18-thread group a warp; horner4 G2: five six-thread groups
+    lanes = warps * (kernels.G2_HORNER_PER_WARP if WG == 1 else kernels.COOP_PADDS_PER_WARP)
     assert (blocks - 1) * lanes < B <= blocks * lanes  # every lane has a group, no block is idle
-    assert smem == lanes * ((1 + kernels.WIN_GROUP) * kernels.POINT_BYTES[CURVE]
-                            + kernels.COOP_SCRATCH_BYTES[CURVE])
+    assert smem == lanes * ((1 + WG) * kernels.POINT_BYTES[CURVE] + kernels.COOP_SCRATCH_BYTES[CURVE])
     assert smem <= kernels.SMEM_BLOCK_MAX
+
+
+@pytest.mark.parametrize("B", [1, 5, 6, 128, 256, 1024])
+def test_horner4_g2_geometry_fits_every_lane_count(B):
+    _check_horner_geometry(B, kernels.WIN_GROUP)
+    assert kernels.coop_horner_geometry(CURVE, B, kernels.WIN_GROUP)[2] == 4512 * 5
+
+
+@pytest.mark.parametrize("B", [1, 5, 6, 128, 256, 1024])
+def test_horner_g2_geometry_fits_every_lane_count(B):
+    _check_horner_geometry(B, 1)
+    assert kernels.coop_horner_geometry(CURVE, B, 1) == (B, 1, 3648)  # one lane a block
 
 
 def test_horner4_g2_geometry_raises_without_lanes():
     with pytest.raises(ValueError, match="at least one lane"):
-        kernels.coop_horner_geometry(0)
+        kernels.coop_horner_geometry(CURVE, 0, kernels.WIN_GROUP)
+
+
+def test_horner_g2_geometry_raises_without_lanes():
+    with pytest.raises(ValueError, match="at least one lane"):
+        kernels.coop_horner_geometry(CURVE, 0, 1)
