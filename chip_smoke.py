@@ -19,12 +19,13 @@ Phases, each printing one JSON line:
    shapes; mont_mul at an NTT stage of a 256-statement h batch (twiddles
    broadcast), with a one-row operand, and at P6's 2^20 rows. The
    cooperative BN254 kernels (window_sum4 G2, tree_sum G1 and G2, horner G1
-   and G2, horner4 G2) are held limb for limb, also at ragged shapes
-   (window_sum4 G2: B in {1, 3}, Kp in {32, 33}; tree_sum G2: B in {1, 127},
-   k in {1, 2, 3, 191}, and k = 96, 64 at 128 lanes; tree_sum G1: B in {1,
-   127}, k in {1, 2, 3, 255}, and k = 192, 128, 96, 64 at 128 lanes; horner
-   G1 and G2: B in {1, 5, 6, 127, 129}, B = 1 timed as 9 chained padds;
-   horner4 G2: B in {1, 5, 6, 257}, B = 1 timed as 36 chained padds);
+   and G2, horner4 G1 and G2, pair_add G2) are held limb for limb, also at
+   ragged shapes (window_sum4 G2: B in {1, 3}, Kp in {32, 33}; tree_sum G2:
+   B in {1, 127}, k in {1, 2, 3, 191}, and k = 96, 64 at 128 lanes;
+   tree_sum G1: B in {1, 127}, k in {1, 2, 3, 255}, and k = 192, 128, 96, 64
+   at 128 lanes; horner G1 and G2: B in {1, 5, 6, 127, 129}, B = 1 timed as
+   9 chained padds; horner4 G1 and G2: B in {1, 5, 6, 257}, B = 1 timed as
+   36 chained padds; pair_add G2: K in {1, 5, 6, 128, 353}, K = 1 timed);
 4. (phases 4 to 6 run with the seam pinned to the single-device route, a
    one-position mesh, on any number of cards) the main path: ``prove_range_batch`` of 256 range proofs (512 prover
    lanes; T1/T2 and the L/R MSMs at 1024 lanes) with the launch counters
@@ -334,20 +335,20 @@ def g2_ragged_window_sum4(dev, consts, table) -> None:
                   "shape": f"table ({Kp * 256},6,24) i16, digits (4,{Kp},{B}) i32"})
 
 
-def g2_ragged_horner4(dev, consts, sums) -> None:
-    """horner4 G2 at ragged lane counts B in {1, 5, 6, 257} (a warp's five
-    groups, one group past them, a last warp of two groups), the accumulator
-    and window sums taken from the lanes of ``sums`` (window_sum4 G2 outputs,
-    reused in turn) with lane 0's accumulator the identity, limb for limb
-    against the plain version; one kernel_check line each (not in the
-    kernels line). B = 1 is one lane's chain of 36 dependent cooperative G2
-    padds alone on the card, so its time over 36 is a padd's latency."""
+def ragged_horner4(dev, curve: str, consts, sums) -> None:
+    """horner4 G1 or G2 at ragged lane counts B in {1, 5, 6, 257} (a warp's
+    five groups, one group past them, a last warp of two groups), the
+    accumulator and window sums taken from the lanes of ``sums``
+    (window_sum4 outputs, reused in turn) with lane 0's accumulator the
+    identity, limb for limb against the plain version; one kernel_check line
+    each (not in the kernels line). B = 1 is one lane's chain of 36
+    dependent cooperative padds alone on the card, so its time over 36 is a
+    padd's latency."""
     from libzkp_tpu_torch.ops import kernels
     from libzkp_tpu_torch.ops.weierstrass import get_engine
 
-    curve = "bn254_g2"
     eng = get_engine(curve)
-    L = sums.shape[-1]
+    C, n, L = sums.shape
     for B in (1, 5, 6, 257):
         acc = sums[..., torch.arange(B, device=dev) % L].contiguous()
         acc[..., 0] = eng.identity(1, dev)[..., 0]
@@ -358,11 +359,47 @@ def g2_ragged_horner4(dev, consts, sums) -> None:
         err = _limbs_err(f"horner4 {curve} at B {B}", got, want)
         row = {"phase": "kernel_check", "name": kernels.instance("horner4", curve), "ragged": True,
                "max_abs_err": float(err), "tolerance": "exact limbs",
-               "shape": f"acc (6,24,{B}), wsums (6,24,{kernels.WIN_GROUP * B}) i32"}
+               "shape": f"acc ({C},{n},{B}), wsums ({C},{n},{kernels.WIN_GROUP * B}) i32"}
         if B == 1:
             ms = cuda_ms(lambda: kernels.horner4(consts, acc, wsums, curve=curve), 20)
             row |= {"ms": ms, "chained_padds": kernels.WIN_GROUP * 9,
                     "padd_latency_us": ms * 1e3 / (kernels.WIN_GROUP * 9)}
+        emit(row)
+
+
+def g2_ragged_pair_add(dev, consts, table, baseT, horners) -> None:
+    """pair_add G2 at ragged lane counts K in {1, 5, 6, 128, 353} (one
+    18-thread group a one-warp block; 353 one lane past the b_g2 table's
+    basis), limb for limb against the plain version, on the operands the
+    paths give it: a table build step, row d of basis point k % Kp of
+    ``table`` plus its base point from ``baseT`` (lane 0: the identity plus
+    the base; lane 1: row 1 plus the base, the build's doubling at step 2),
+    and in every third lane from lane 2 two lanes of ``horners`` (horner4
+    G2 outputs) as the mesh fold adds partial sums; one kernel_check line
+    each (not in the kernels line). K = 1 is one cooperative padd alone on
+    the card: its time is a launch's latency."""
+    from libzkp_tpu_torch.ops import kernels
+
+    curve = "bn254_g2"
+    Kp, C, n = baseT.shape[-1], table.shape[1], table.shape[2]
+    L = horners.shape[-1]
+    for K in (1, 5, 6, 128, 353):
+        k = torch.arange(K, device=dev) % Kp
+        d = torch.randint(0, 255, (K,), generator=torch.Generator().manual_seed(K)).to(dev)
+        d[:2] = torch.tensor([0, 1], device=dev)[:K]
+        p = table[k * 256 + d].permute(1, 2, 0).to(torch.int32).contiguous()
+        q = baseT[..., k].contiguous()
+        fold = torch.arange(K, device=dev)[2::3]
+        p[..., fold] = horners[..., fold % L]
+        q[..., fold] = horners[..., (fold + 1) % L]
+        got = kernels.pair_add(consts, p, q, curve=curve)
+        want = kernels.pair_add_plain(consts, p, q, curve=curve)
+        torch.cuda.synchronize()
+        err = _limbs_err(f"pair_add {curve} at K {K}", got, want)
+        row = {"phase": "kernel_check", "name": kernels.instance("pair_add", curve), "ragged": True,
+               "max_abs_err": float(err), "tolerance": "exact limbs", "shape": f"p, q ({C},{n},{K}) i32"}
+        if K == 1:
+            row["ms"] = cuda_ms(lambda: kernels.pair_add(consts, p, q, curve=curve), 200)
         emit(row)
 
 
@@ -373,7 +410,8 @@ def check_bn254_kernels(dev, int_rate: float, tables: dict) -> list:
     352 (G2, the b_g2 query). window_sum4 G2 sums in the plain tree's order,
     so it is held limb for limb, here and at ragged shapes
     (:func:`g2_ragged_window_sum4`); G1 by point equality. horner4 is held
-    limb for limb, G2 also at ragged lane counts (:func:`g2_ragged_horner4`).
+    limb for limb, also at ragged lane counts (:func:`ragged_horner4`), and
+    pair_add too, G2 also at ragged lane counts (:func:`g2_ragged_pair_add`).
     Leaves each table in ``tables[curve]``."""
     import numpy as np
 
@@ -444,8 +482,7 @@ def check_bn254_kernels(dev, int_rate: float, tables: dict) -> list:
         err = int((h_k - h_p).abs().max())
         if err != 0:
             raise AssertionError(f"horner4 {curve} limbs differ from its plain version (max {err})")
-        if curve == "bn254_g2":
-            g2_ragged_horner4(dev, consts, ws_p)
+        ragged_horner4(dev, curve, consts, ws_p)
         t_k = cuda_ms(lambda: kernels.horner4(consts, acc_in, wsums, curve=curve), 5)
         t_p = cuda_ms(lambda: kernels.horner4_plain(consts, acc_in, wsums, curve=curve), 2)
         b_ms, b_by = bound(WG * 9 * padd * B, (2 + WG) * C * n * B * 4, int_rate)
@@ -464,6 +501,8 @@ def check_bn254_kernels(dev, int_rate: float, tables: dict) -> list:
         err = int((a_k - a_p).abs().max())
         if err != 0:
             raise AssertionError(f"pair_add {curve} limbs differ from its plain version (max {err})")
+        if curve == "bn254_g2":
+            g2_ragged_pair_add(dev, consts, table, baseT, h_k)
         t_k = cuda_ms(lambda: kernels.pair_add(consts, p, q, curve=curve), 50)
         t_p = cuda_ms(lambda: kernels.pair_add_plain(consts, p, q, curve=curve), 10)
         b_ms, b_by = bound(padd * Kp, 3 * C * n * Kp * 4, int_rate)

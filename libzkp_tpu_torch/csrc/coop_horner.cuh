@@ -1,29 +1,32 @@
-// Cooperative BN254 Horner steps: WG steps acc <- 2^8 * acc + wsums[window v]
-// per lane, each lane's chain of WG x 9 padds (a Weierstrass pdouble is
-// padd(p, p)) run by one group of Cp::GROUP threads on the curve's
-// cooperative padd (coop_sum.cuh). Instances: horner G1 = <G1Coop, 1> and
-// horner G2 = <G2Coop18, 1> (horner.cu), horner4 G2 = <G2Coop, 4>
-// (horner4.cu).
+// Cooperative BN254 Horner steps: WG steps acc <- 2^D * acc + wsums[window v]
+// per lane, each lane's chain of WG x (D + 1) padds (a Weierstrass pdouble
+// is padd(p, p)) run by one group of Cp::GROUP threads on the curve's
+// cooperative padd (coop_sum.cuh). The Horner steps double D = 8 times a
+// window; D = 0 and WG = 1 is one addition a lane, acc_in + wsums.
+// Instances: horner G1 = <G1Coop, 1, 8> and horner G2 = <G2Coop18, 1, 8>
+// (horner.cu), horner4 G1 = <G1Coop, 4, 8> and horner4 G2 = <G2Coop, 4, 8>
+// (horner4.cu), pair_add G2 = <G2Coop18, 1, 0> (pair_add.cu).
 //
 // A padd's latency is the products of one thread (G1Coop: 2, against 12 in
 // one thread; G2Coop: 7 and G2Coop18: 3, against 42) plus its rows and
 // __syncwarp stages. The chain is a latency chain: the padds of a lane
-// depend on each other, and the paths give 128 (horner, a mesh block) or
-// 256 (horner4) lanes, too few to fill the card with independent work. A
-// warp holds Cp::PER_WARP groups (six-thread groups: five, lanes 30 and 31
-// idle; 18-thread groups: one, lanes 18 to 31 idle); blocks of one warp (the
-// wrapper's choice, ops/kernels.py coop_horner_geometry) spread the lanes'
-// warps over the SMs.
+// depend on each other, and the paths give 128 (horner, a mesh block), 256
+// (horner4) or 352 (pair_add G2, the b_g2 table) lanes, too few to fill the
+// card with independent work. A warp holds Cp::PER_WARP groups (six-thread
+// groups: five, lanes 30 and 31 idle; 18-thread groups: one, lanes 18 to 31
+// idle); blocks of one warp (the wrapper's choice, ops/kernels.py
+// coop_horner_geometry) spread the lanes' warps over the SMs.
 //
 // Narrowing precondition: every limb of the accumulator and of the window
 // sums lies in int16. They are narrowed once into shared memory as int16
-// points: the accumulator is the identity (the MSM's start) or an earlier
-// Horner output, each window sum a tree sum's or window sum's output (a padd
-// output, or one int16 table row), and every padd output limb lies in
-// [-7643, 11737] (fold_curves.cuh), so the narrowing is exact and every padd
-// of the chain writes an int16 point exactly. The doublings run in place,
-// padd(acc, acc, acc), which every cooperative padd allows: P and Q are read
-// in round 1 only, out written in the last stage.
+// points: the accumulator is the identity (the MSM's start, a table's first
+// row), an earlier Horner output or a table row, each window sum a tree
+// sum's or window sum's output, a table's base point or a mesh partial sum
+// (a padd output, or one int16 table row), and every padd output limb lies
+// in [-7643, 11737] (fold_curves.cuh), so the narrowing is exact and every
+// padd of the chain writes an int16 point exactly. The doublings run in
+// place, padd(acc, acc, acc), which every cooperative padd allows: P and Q
+// are read in round 1 only, out written in the last stage.
 //
 // Each padd's rows are the plain version's integer operations, so the limbs
 // are identical to it.
@@ -45,7 +48,7 @@ constexpr size_t coop_horner_smem_bytes(int warps) {
 // runs lane b = blockIdx.x * slots + slot; groups past B (and a warp's lanes
 // past its last group) pass act = false and meet every __syncwarp of the
 // chain.
-template <class Cp, int WG>
+template <class Cp, int WG, int D>
 __global__ void __launch_bounds__(coop::MAX_WARPS * 32)
 coop_horner_kernel(const int32_t* __restrict__ acc_in, const int32_t* __restrict__ wsums,
                    int32_t* __restrict__ out, int B) {
@@ -77,8 +80,8 @@ coop_horner_kernel(const int32_t* __restrict__ acc_in, const int32_t* __restrict
 #pragma unroll 1
   for (int v = 0; v < WG; ++v) {
 #pragma unroll 1
-    for (int r = 0; r < 9; ++r)  // 8 doublings, then + window v
-      Cp::padd(acc, acc, r < 8 ? acc : wins + v * POINT, scr, g, act);
+    for (int r = 0; r <= D; ++r)  // D doublings, then + window v
+      Cp::padd(acc, acc, r < D ? acc : wins + v * POINT, scr, g, act);
   }
   if (act) {  // the padd's last __syncwarp has passed: acc is whole
 #pragma unroll 1
@@ -94,17 +97,17 @@ coop_horner_kernel(const int32_t* __restrict__ acc_in, const int32_t* __restrict
 // memory), sets the shared memory attribute, loads the curve Cv's consts and
 // launches. Returns the CUDA error (cudaErrorInvalidValue for a bad
 // geometry).
-template <class Cv, class Cp, int WG>
+template <class Cv, class Cp, int WG, int D = 8>
 int coop_horner_launch(const int32_t* consts, const int32_t* acc, const int32_t* wsums, int32_t* out,
                        int B, int blocks, int warps, int smem, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B < 1 || blocks < 1 || (long long)blocks * warps * Cp::PER_WARP < B)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = coop_prepare(coop_horner_kernel<Cp, WG>, coop_horner_smem_bytes<Cp, WG>(warps), warps,
+  cudaError_t err = coop_prepare(coop_horner_kernel<Cp, WG, D>, coop_horner_smem_bytes<Cp, WG>(warps), warps,
                                  smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = fold_load_consts(consts, Cv::NCONST, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  coop_horner_kernel<Cp, WG><<<blocks, warps * 32, smem, st>>>(acc, wsums, out, B);
+  coop_horner_kernel<Cp, WG, D><<<blocks, warps * 32, smem, st>>>(acc, wsums, out, B);
   return static_cast<int>(cudaGetLastError());
 }

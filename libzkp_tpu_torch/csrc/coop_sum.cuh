@@ -26,10 +26,10 @@
 // group's scratch. Between the rounds the adds, subs and carries (the 12
 // Karatsuba rows of round 1, then 8, 6 and 6 rows) are spread over the six
 // threads the same way, one row at a time, each value computed once.
-// g2_padd_coop18 (horner G2) runs the same stages and rows on 18 threads:
-// one Fq product a thread in rounds 1 and 3 (product g % 3 of pair g / 3, at
-// M's row g), one Karatsuba row a thread after round 1 and X3 = 3 t0 on
-// threads 6 and 7, so a padd's latency is 3 products against 7. It is a
+// g2_padd_coop18 (horner G2, pair_add G2) runs the same stages and rows on
+// 18 threads: one Fq product a thread in rounds 1 and 3 (product g % 3 of
+// pair g / 3, at M's row g), one Karatsuba row a thread after round 1 and
+// X3 = 3 t0 on threads 6 and 7, so a padd's latency is 3 products against 7. It is a
 // function of its own: folding both into one template over the group cost
 // the six-thread kernels about 3 % (registers and time, paired on the card).
 // Scratch, 32 int32 rows (3072 bytes): M, rows 0..17, the products of a
@@ -507,7 +507,7 @@ struct G2Coop {
   }
 };
 
-struct G2Coop18 {  // horner G2: one 18-thread padd a warp
+struct G2Coop18 {  // horner G2, pair_add G2: one 18-thread padd a warp
   static constexpr int GROUP = 18;
   static constexpr int PER_WARP = 1;
   static constexpr int COORDS = 6;

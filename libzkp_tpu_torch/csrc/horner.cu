@@ -16,7 +16,7 @@
 // each (COORDS, N, B) row, so loads and stores coalesce, in blocks of 128.
 //
 // BN254 G1 and G2: one group of threads per lane runs the 9 padds on the
-// curve's cooperative padd (coop_horner_kernel<Cp, 1>, coop_horner.cuh): G1
+// curve's cooperative padd (coop_horner_kernel<Cp, 1, 8>, coop_horner.cuh): G1
 // six threads a lane (G1Coop), five lanes a warp, a padd's latency 2
 // products of one thread where one thread per lane ran all 12; G2 18 threads
 // a lane (G2Coop18), one lane a warp, a padd's latency 3 products where one

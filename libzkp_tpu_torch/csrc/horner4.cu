@@ -13,72 +13,38 @@
 // depend on each other, and the Groth16 batch has 256 lanes, too few to fill
 // the card with independent work.
 //
-// G1: one thread per lane, the lanes of a warp on neighbouring words of each
-// (COORDS, N, B) row, so loads and stores coalesce; blocks of one warp
-// spread the 256 lanes of a batch over 8 SMs. A lane's 36 padds of 12
-// products each are its latency.
-//
-// G2: one group of six threads per lane runs the chain on the cooperative
-// G2 padd (coop_horner_kernel<G2Coop, 4>, coop_horner.cuh, shared with horner
-// G1 and G2): a padd's latency is the 7 products of one thread (3 in round 1,
-// 1 in round 2, 3 in round 3) where one thread per lane ran all 42. Five
-// groups share a warp; blocks of one warp spread the 52 warps of 256 lanes
-// over 52 SMs, each warp alone on its SM. The accumulator and the lane's four
+// Both curves run one design, coop_horner_kernel<Cp, 4, 8> (coop_horner.cuh,
+// shared with horner G1 and G2 and pair_add G2): one group of six threads
+// per lane runs the chain on the curve's cooperative padd, G1Coop or G2Coop
+// (coop_sum.cuh), so a padd's latency is the products of one thread (G1: 2
+// of 12; G2: 7 of 42, 3 in round 1, 1 in round 2, 3 in round 3). Five
+// groups share a warp; blocks of one warp spread the 256 lanes of a batch
+// over 52 warps, each alone on its SM. The accumulator and the lane's four
 // window sums are narrowed once into shared memory as int16 points: each is
 // a padd output (window_sum4, an earlier horner4) or the identity, and every
 // padd output limb lies in [-7643, 11737] (fold_curves.cuh), so the
 // narrowing is exact.
 //
-// Both formulas are the plain version's, step for step, so the limbs are
+// Every padd's rows are the plain version's, step for step, so the limbs are
 // identical to it.
 
 #include "coop_horner.cuh"
 
 namespace {
 
-constexpr int WG = 4;        // windows per group
-constexpr int THREADS = 32;  // lanes per block (G1)
-
-template <class Cv>
-__global__ void __launch_bounds__(THREADS)
-horner4_kernel(const int32_t* __restrict__ acc_in, const int32_t* __restrict__ wsums,
-               int32_t* __restrict__ out, int B) {
-  const int b = blockIdx.x * THREADS + threadIdx.x;
-  if (b >= B) return;
-  int32_t acc[Cv::COORDS][fold::N];
-  int32_t w[Cv::COORDS][fold::N];
-  pt_load_lanes<Cv>(acc, acc_in, b, B);
-#pragma unroll 1
-  for (int g = 0; g < WG; ++g) {
-#pragma unroll 1
-    for (int r = 0; r < 8; ++r) Cv::pdouble(acc, acc);
-    pt_load_lanes<Cv>(w, wsums, g * B + b, WG * B);
-    Cv::padd(acc, acc, w);
-  }
-  pt_store_lanes<Cv>(out, acc, b, B);
-}
-
-template <class Cv>
-int launch(const int32_t* consts, const int32_t* acc, const int32_t* wsums, int32_t* out, int B,
-           void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = fold_load_consts(consts, Cv::NCONST, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (B + THREADS - 1) / THREADS;
-  horner4_kernel<Cv><<<blocks, THREADS, 0, st>>>(acc, wsums, out, B);
-  return static_cast<int>(cudaGetLastError());
-}
+constexpr int WG = 4;  // windows per group
 
 }  // namespace
 
 // consts: the curve's (NCONST, N) int32 block; acc, out: (COORDS, N, B)
-// int32; wsums: (COORDS, N, 4B) int32; G2 only: blocks, warps per block
+// int32; wsums: (COORDS, N, 4B) int32; blocks, warps per block
 // (blocks * warps * 5 >= B) and dynamic shared bytes (at least
-// g2_smem_bytes(warps)). Each returns the CUDA error of the launch (0 on
-// success).
+// coop_horner_smem_bytes<Cp, 4>(warps)). Each returns the CUDA error of the
+// launch (0 on success).
 extern "C" int horner4_bn254_g1_launch(const int32_t* consts, const int32_t* acc,
-                                       const int32_t* wsums, int32_t* out, int B, void* stream) {
-  return launch<Bn254G1>(consts, acc, wsums, out, B, stream);
+                                       const int32_t* wsums, int32_t* out, int B, int blocks,
+                                       int warps, int smem, void* stream) {
+  return coop_horner_launch<Bn254G1, G1Coop, WG>(consts, acc, wsums, out, B, blocks, warps, smem, stream);
 }
 
 extern "C" int horner4_bn254_g2_launch(const int32_t* consts, const int32_t* acc,

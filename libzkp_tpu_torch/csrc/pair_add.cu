@@ -3,19 +3,33 @@
 //
 // Replaces the JAX package's Pallas kernel libzkp_tpu/ops/curve_jax.py
 // _pair_add_call, the step of the multiples-table build (_table_build_jit):
-// 255 chained launches give each basis point its 256 multiples.
+// 255 chained launches give each basis point its 256 multiples. The BN254
+// instances also fold the mesh's partial sums (parallel/collective.py
+// reduce_points).
 //
 // Bound: integer multiply-adds per lane, against 3 * COORDS * N * 4 bytes
 // moved: an Edwards padd is 9 field products, a G1 padd (RCB) 12 products
 // and 2 small multiplies, a G2 padd 42 products (14 Fq2 products of 3), each
-// product N^2 + (N + 2) * N = 576 + 624 = 1200 multiply-adds.
+// product N^2 + (N + 2) * N = 576 + 624 = 1200 multiply-adds. At the table
+// builds' K of a few hundred lanes one launch is one padd's latency.
 //
-// Design: one thread per lane, coalesced over the lane axis. The formula is
-// the plain version's, step for step, so the limbs are identical to it.
-// A G2 point is 6 * 24 int32, so G2 lanes spill to local memory. Fusing the
-// 255-step chain into one launch is left for later work.
+// ed25519 and G1: one thread per lane, coalesced over the lane axis.
+//
+// G2: one group of 18 threads per lane, one group a warp, on the cooperative
+// G2 padd (coop_horner_kernel<G2Coop18, 1, 0>, coop_horner.cuh: the Horner
+// template with no doublings and one window, acc_in = p, wsums = q), so a
+// launch's latency is 3 Fq products of one thread where one thread per lane
+// ran all 42 with its two 6 x 24 int32 points spilled to local memory. At
+// the b_g2 table's K = 352 that is 352 one-warp blocks. p and q are narrowed
+// to int16 in shared memory: each is a table row, the base point, the
+// identity or a mesh partial sum (a Horner or padd output), whose limbs lie
+// in int16 (coop_horner.cuh states the precondition).
+//
+// Every formula is the plain version's, step for step, so the limbs are
+// identical to it. Fusing the 255-step chain into one launch is left for
+// later work.
 
-#include "fold_curves.cuh"
+#include "coop_horner.cuh"
 
 namespace {
 
@@ -49,7 +63,9 @@ int launch(const int32_t* consts, const int32_t* p, const int32_t* q, int32_t* o
 }  // namespace
 
 // consts: the curve's (NCONST, N) int32 block; p, q, out: (COORDS, N, K)
-// int32. Each returns the CUDA error of the launch (0 on success).
+// int32; G2 only: blocks, warps per block (blocks * warps >= K) and dynamic
+// shared bytes (at least coop_horner_smem_bytes<G2Coop18, 1>(warps)). Each
+// returns the CUDA error of the launch (0 on success).
 extern "C" int pair_add_ed25519_launch(const int32_t* consts, const int32_t* p, const int32_t* q,
                                        int32_t* out, int K, void* stream) {
   return launch<Ed25519>(consts, p, q, out, K, stream);
@@ -61,6 +77,7 @@ extern "C" int pair_add_bn254_g1_launch(const int32_t* consts, const int32_t* p,
 }
 
 extern "C" int pair_add_bn254_g2_launch(const int32_t* consts, const int32_t* p, const int32_t* q,
-                                        int32_t* out, int K, void* stream) {
-  return launch<Bn254G2>(consts, p, q, out, K, stream);
+                                        int32_t* out, int K, int blocks, int warps, int smem,
+                                        void* stream) {
+  return coop_horner_launch<Bn254G2, G2Coop18, 1, 0>(consts, p, q, out, K, blocks, warps, smem, stream);
 }

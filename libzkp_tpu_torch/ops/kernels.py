@@ -6,10 +6,11 @@ and bound with ``ctypes``; the field and curve code they share is
 ``csrc/fold_curves.cuh``, the Montgomery field code ``csrc/mont.cuh``, the
 cooperative BN254 padds and tree sum ``csrc/coop_sum.cuh`` (window_sum4 G2,
 tree_sum G1 and G2) and the Horner chain on them ``csrc/coop_horner.cuh``
-(horner G1 and G2, horner4 G2). Each kernel is instantiated for the curves
-its path runs, and each instance is a kernel of its own, named ``<kernel>``
-for ed25519 or a field-generic kernel and ``<kernel>_<curve>`` for BN254 or
-``<kernel>_<variant>`` for a probe's variant (:data:`INSTANCES`):
+(horner and horner4 G1 and G2, pair_add G2). Each kernel is instantiated
+for the curves its path runs, and each instance is a kernel of its own,
+named ``<kernel>`` for ed25519 or a field-generic kernel and
+``<kernel>_<curve>`` for BN254 or ``<kernel>_<variant>`` for a probe's
+variant (:data:`INSTANCES`):
 
 * ``window_sum`` (K1, ``csrc/window_sum.cu``, ed25519) replaces
   ``libzkp_tpu/ops/curve_jax.py:_window_fused_call``;
@@ -112,7 +113,7 @@ _ARGTYPES = {
     "horner": [_P, _P, _P, _P, _I, _P],
     "pair_add": [_P, _P, _P, _P, _I, _P],
     "window_sum4": [_P, _P, _P, _P, _I, _I, _P],
-    "horner4": [_P, _P, _P, _P, _I, _P],
+    "horner4": [_P, _P, _P, _P, _I, _I, _I, _I, _P],  # BN254 only: cooperative
     "tree_sum": [_P, _P, _P, _I, _I, _P],
     "padd_chain": [_P, _P, _P, _P, _I, _I, _P],
     "fe_mul": [_P, _P, _P, _P, _I, _P],
@@ -127,22 +128,22 @@ _ARGTYPES = {
     "tree_sum_bn254_g2": [_P, _P, _P, _I, _I, _I, _I, _P],
     "horner_bn254_g1": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "horner_bn254_g2": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "horner4_bn254_g2": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "pair_add_bn254_g2": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 # Geometry of the cooperative BN254 kernels (csrc/coop_sum.cuh): six threads
 # share a padd, five padds a warp, each with its int32 scratch rows (horner
-# G2's padd: 18 threads, one a warp); the tree sums (window_sum4 G2,
-# tree_sum G1 and G2) run one block per output lane with a level store of
-# ceil(K/2) int16 points; the Horner steps (horner G1 and G2, horner4 G2)
-# one group per lane, holding its accumulator and its window sums as int16
-# points.
+# G2's and pair_add G2's padd: 18 threads, one a warp); the tree sums
+# (window_sum4 G2, tree_sum G1 and G2) run one block per output lane with a
+# level store of ceil(K/2) int16 points; the Horner steps (horner and
+# horner4, G1 and G2) and pair_add G2 one group per lane, holding its
+# accumulator and its window sums (pair_add: p and q) as int16 points.
 COOP_PADDS_PER_WARP = 5
 COOP_MAX_WARPS = 12        # 384 threads a block (the kernels' launch bounds)
 POINT_BYTES = {"bn254_g1": 3 * 24 * 2, "bn254_g2": 6 * 24 * 2}
 COOP_SCRATCH_BYTES = {"bn254_g1": 15 * 24 * 4, "bn254_g2": 32 * 24 * 4}
 COOP_HORNER_WARPS = 1      # one warp a block, each alone on its SM at the paths' lane counts
-G2_HORNER_PER_WARP = 1     # horner G2: one 18-thread group a warp
+G2_HORNER_PER_WARP = 1     # horner G2, pair_add G2: one 18-thread group a warp
 SMEM_BLOCK_MAX = 232_448   # dynamic shared memory one block may use (H100)
 SMEM_SM = 233_472          # shared memory of an SM; each resident block also holds 1 KiB
 
@@ -169,10 +170,11 @@ def coop_sum_geometry(curve: str, K: int, lanes: int, sms: int) -> tuple:
 
 def coop_horner_geometry(curve: str, lanes: int, windows: int) -> tuple:
     """(blocks, warps per block, dynamic shared bytes) of a cooperative
-    Horner step of ``windows`` windows (1: horner, WIN_GROUP: horner4) over
-    ``lanes`` lanes of ``curve``: five lanes a warp on six-thread padds, one
-    on horner G2's 18-thread padd. Each lane's group holds its accumulator,
-    its window sums and its padd scratch."""
+    Horner step of ``windows`` windows (1: horner, or pair_add G2, one
+    addition over ``lanes`` = K lanes; WIN_GROUP: horner4) over ``lanes``
+    lanes of ``curve``: five lanes a warp on six-thread padds, one on the
+    18-thread G2 padd of horner G2 and pair_add G2. Each lane's group holds
+    its accumulator, its window sums and its padd scratch."""
     if lanes < 1:
         raise ValueError(f"a {curve} Horner step needs at least one lane, got {lanes}")
     per_warp = G2_HORNER_PER_WARP if (curve, windows) == ("bn254_g2", 1) else COOP_PADDS_PER_WARP
@@ -412,7 +414,14 @@ def pair_add_plain(consts: torch.Tensor, p: torch.Tensor, q: torch.Tensor, *,
 
 def pair_add(consts: torch.Tensor, p: torch.Tensor, q: torch.Tensor, *,
              curve: str = "ed25519") -> torch.Tensor:
-    """p + q per lane over (C, n, K) int32."""
+    """p + q per lane over (C, n, K) int32.
+
+    The BN254 G2 kernel narrows ``p`` and ``q`` to int16 (its
+    precondition): every limb must lie in int16. Its callers meet it:
+    ``DeviceTable``'s build adds a table row (the identity or a padd output)
+    and the encoded base point, and the mesh fold (``reduce_points``) adds
+    partial sums, each a ``horner`` or ``pair_add`` output; every padd
+    output limb lies in [-7643, 11737] (``csrc/fold_curves.cuh``)."""
     if p.device.type == "cpu":
         return pair_add_plain(consts, p, q, curve=curve)
     eng = _engine("pair_add", curve)
@@ -421,7 +430,9 @@ def pair_add(consts: torch.Tensor, p: torch.Tensor, q: torch.Tensor, *,
     _check_points(eng, "p", p, K)
     _check_points(eng, "q", q, K)
     out = torch.empty_like(p)
-    _run("pair_add", curve, dev, consts.data_ptr(), p.data_ptr(), q.data_ptr(), out.data_ptr(), K)
+    geometry = coop_horner_geometry(curve, K, 1) if curve == "bn254_g2" else ()
+    _run("pair_add", curve, dev, consts.data_ptr(), p.data_ptr(), q.data_ptr(), out.data_ptr(), K,
+         *geometry)
     return out
 
 
@@ -480,7 +491,13 @@ def horner4_plain(consts: torch.Tensor, acc: torch.Tensor, wsums: torch.Tensor, 
 def horner4(consts: torch.Tensor, acc: torch.Tensor, wsums: torch.Tensor, *,
             curve: str) -> torch.Tensor:
     """acc <- 2^8 * acc + wsums[window w], for w = 0..WIN_GROUP-1, over
-    (C, n, B) int32 lanes; ``wsums`` is ``window_sum4``'s (C, n, WG*B)."""
+    (C, n, B) int32 lanes; ``wsums`` is ``window_sum4``'s (C, n, WG*B).
+
+    The kernels narrow ``acc`` and ``wsums`` to int16 (their precondition):
+    every limb must lie in int16, as on the Groth16 path, where ``acc`` is
+    the identity or an earlier ``horner4`` output and ``wsums`` a
+    ``window_sum4`` output, and every padd output limb lies in
+    [-7643, 11737] (``csrc/fold_curves.cuh``)."""
     if acc.device.type == "cpu":
         return horner4_plain(consts, acc, wsums, curve=curve)
     eng = _engine("horner4", curve)
@@ -489,9 +506,8 @@ def horner4(consts: torch.Tensor, acc: torch.Tensor, wsums: torch.Tensor, *,
     _check_points(eng, "acc", acc, B)
     _check_points(eng, "wsums", wsums, WIN_GROUP * B)
     out = torch.empty_like(acc)
-    geometry = coop_horner_geometry(curve, B, WIN_GROUP) if curve == "bn254_g2" else ()
     _run("horner4", curve, dev, consts.data_ptr(), acc.data_ptr(), wsums.data_ptr(),
-         out.data_ptr(), B, *geometry)
+         out.data_ptr(), B, *coop_horner_geometry(curve, B, WIN_GROUP))
     return out
 
 

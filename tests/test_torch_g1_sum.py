@@ -11,11 +11,13 @@ small sizes against the plain versions:
   the kernel's level store holds it, gives ``tree_sum_plain``'s limbs (and
   so the JAX ``_window_sum_call``'s, tests/test_torch_sharded_msm.py), on
   rows of a real multiples table;
-* horner G1's chain on that schedule (``coop_horner_kernel<G1Coop, 1>``),
-  with the accumulator and the window sum narrowed to int16 and every padd
-  output narrowed as the kernel's shared memory holds it, gives
-  ``horner_plain``'s limbs (and so the JAX ``_horner_call``'s,
-  tests/test_torch_sharded_msm.py);
+* the Horner chain on that schedule (``coop_horner_kernel<G1Coop, WG, 8>``:
+  one window for horner G1, four for horner4 G1), with the accumulator and
+  the window sums narrowed to int16 and every padd output narrowed as the
+  kernel's shared memory holds it, gives ``horner_plain``'s and
+  ``horner4_plain``'s limbs (and so the JAX ``_horner_call``'s and
+  ``_horner4_call``'s, tests/test_torch_sharded_msm.py and
+  tests/test_torch_weierstrass.py);
 * the wrappers' launch geometry fits a block's shared memory at every shape
   the mesh gives ``tree_sum`` G1 and at every lane count of a Horner step,
   and a shape that cannot fit raises.
@@ -150,35 +152,40 @@ def test_narrowed_g1_tree_gives_tree_sum_plain_limbs(g1_table, K):
 
 
 # ---------------------------------------------------------------------------
-# the narrowed Horner chain (coop_horner_kernel<G1Coop, 1>)
+# the narrowed Horner chain (coop_horner_kernel<G1Coop, WG, 8>)
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("B", [1, 5, 6])
-def test_narrowed_g1_horner_chain_gives_horner_plain_limbs(g1_table, B):
-    """horner G1's chain: the accumulator and the window sum narrowed to
-    int16 once, then 8 doublings and 1 addition on the cooperative schedule,
-    the accumulator narrowed after every padd. Lane 0 starts from the
-    identity (the MSM's first window), the others from window sums (tree
-    sums of table rows); every intermediate fits int16 and the limbs equal
-    horner_plain's."""
+# WG = 1 (horner) keeps its earlier ids; WG = 4 is horner4
+@pytest.mark.parametrize("WG, B", [(1, 1), (1, 5), (1, 6), (4, 1), (4, 5), (4, 6)],
+                         ids=["1", "5", "6", "wg4-1", "wg4-5", "wg4-6"])
+def test_narrowed_g1_horner_chain_gives_horner_plain_limbs(g1_table, WG, B):
+    """coop_horner_kernel's G1 chain: the accumulator and the WG window
+    sums narrowed to int16 once, then WG x (8 doublings + 1 addition) on the
+    cooperative schedule, the accumulator narrowed after every padd. Lane 0
+    starts from the identity (the MSM's first window), the others from
+    window sums (tree sums of table rows); every intermediate fits int16 and
+    the limbs equal horner_plain's (WG = 1) or horner4_plain's (WG = 4)."""
     consts, table, kp = g1_table
     eng = get_engine(CURVE)
     f = FieldOps(eng.n, consts)
-    sums = kernels.tree_sum_plain(consts, _gathered(table, kp, 3, 2 * B, seed=50 + B), curve=CURVE)
+    sums = kernels.tree_sum_plain(consts, _gathered(table, kp, 3, (1 + WG) * B, seed=50 + B), curve=CURVE)
     acc0 = sums[..., :B].clone()
     acc0[..., 0] = eng.identity(1, "cpu")[..., 0]
-    wsum = sums[..., B:].contiguous()
+    wsums = sums[..., B:].contiguous()
 
     def narrowed(x):
         n16 = x.to(torch.int16)
         assert torch.equal(n16.to(torch.int32), x), "a limb left int16"
         return n16.to(torch.int32)
 
-    acc, win = narrowed(acc0), narrowed(wsum)
-    for r in range(9):
-        acc = narrowed(_coop_padd(f, acc, acc if r < 8 else win))
-    assert torch.equal(acc, kernels.horner_plain(consts, acc0, wsum, curve=CURVE))
+    acc = narrowed(acc0)
+    for w in range(WG):
+        win = narrowed(wsums[..., w * B : (w + 1) * B])
+        for r in range(9):
+            acc = narrowed(_coop_padd(f, acc, acc if r < 8 else win))
+    plain = kernels.horner_plain if WG == 1 else kernels.horner4_plain
+    assert torch.equal(acc, plain(consts, acc0, wsums, curve=CURVE))
 
 
 # ---------------------------------------------------------------------------

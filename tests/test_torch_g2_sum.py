@@ -13,11 +13,15 @@ small sizes against the plain versions:
   ``_window_sum_call``'s, tests/test_torch_sharded_msm.py), on rows of a
   real multiples table;
 * the Horner chain on that schedule (``coop_horner_kernel``: one window on
-  the 18-thread padd for horner, four on the six-thread one for horner4), with its accumulator narrowed to int16 after
-  every padd as the kernel's shared memory holds it, gives ``horner_plain``'s
-  and ``horner4_plain``'s limbs (and so the JAX ``_horner_call``'s and
-  ``_horner4_call``'s, tests/test_torch_sharded_msm.py and
-  tests/test_torch_weierstrass.py);
+  the 18-thread padd for horner, four on the six-thread one for horner4),
+  with its accumulator narrowed to int16 after every padd as the kernel's
+  shared memory holds it, gives ``horner_plain``'s and ``horner4_plain``'s
+  limbs (and so the JAX ``_horner_call``'s and ``_horner4_call``'s,
+  tests/test_torch_sharded_msm.py and tests/test_torch_weierstrass.py);
+* pair_add G2 (``coop_horner_kernel<G2Coop18, 1, 0>``): p and q narrowed to
+  int16, then one padd on the 18-thread schedule, gives ``pair_add_plain``'s
+  limbs (and so the JAX ``_pair_add_call``'s, tests/test_torch_weierstrass.py)
+  on the table build's operands and the mesh fold's Horner outputs;
 * the wrappers' launch geometry fits a block's shared memory at every shape
   the paths use, and a shape that cannot fit raises.
 """
@@ -50,15 +54,19 @@ def _one_torch_thread():
 
 
 @pytest.fixture(scope="module")
-def g2_table():
-    """Consts and the (Kp * 256, 6, n) int16 multiples table of 6 random G2
-    points (Kp = 8), built by the plain table-add chain."""
-    eng = get_engine(CURVE)
+def g2_base():
+    """6 random G2 points, encoded: (6, 6, n) int32 limbs."""
     g = bn.g2_from_affine((bn.G2_GEN_X, bn.G2_GEN_Y))
     rng = random.Random(5)
-    pts = [bn.g2_scalar_mul(rng.randrange(1, bn.R), g) for _ in range(6)]
-    table = tc.DeviceTable(eng.encode_points(pts), device="cpu", curve=CURVE)
-    return torch.from_numpy(eng.consts_np), table.table, table.Kp
+    return get_engine(CURVE).encode_points([bn.g2_scalar_mul(rng.randrange(1, bn.R), g) for _ in range(6)])
+
+
+@pytest.fixture(scope="module")
+def g2_table(g2_base):
+    """Consts and the (Kp * 256, 6, n) int16 multiples table of the 6
+    points (Kp = 8), built by the plain table-add chain."""
+    table = tc.DeviceTable(g2_base, device="cpu", curve=CURVE)
+    return torch.from_numpy(get_engine(CURVE).consts_np), table.table, table.Kp
 
 
 def _gathered(table, kp: int, K: int, lanes: int, seed: int) -> torch.Tensor:
@@ -234,6 +242,45 @@ def test_narrowed_horner_chain_gives_horner4_plain_limbs(g2_table, WG, B):
 
 
 # ---------------------------------------------------------------------------
+# the narrowed pair_add (coop_horner_kernel<G2Coop18, 1, 0>)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("K", [1, 5, 6, 128, 352])
+def test_narrowed_pair_add_gives_pair_add_plain_limbs(g2_base, g2_table, K):
+    """pair_add G2: p and q narrowed to int16, then one padd on the
+    18-thread schedule. Lanes as the paths give them: a table build step,
+    row d of basis point k plus its encoded base (lane 0: the identity plus
+    the base; lane 1: row 1 plus the base, the build's doubling at step 2;
+    the basis's padded points: the identity twice), and, in every third
+    lane from lane 2, two Horner outputs as the mesh fold adds them; the
+    limbs, and the output's narrowing, equal pair_add_plain's."""
+    consts, table, kp = g2_table
+    eng = get_engine(CURVE)
+    f = FieldOps(eng.n, consts)
+    k = np.arange(K) % kp
+    d = np.random.default_rng(60 + K).integers(0, 255, K)
+    d[:2] = [0, 1][:K]
+    p = table[torch.from_numpy(k * 256 + d)].permute(1, 2, 0).to(torch.int32)
+    pad = np.broadcast_to(eng.identity_np()[None], (kp - len(g2_base),) + g2_base.shape[1:])
+    base = np.concatenate([g2_base, pad])  # DeviceTable's padded basis
+    q = torch.from_numpy(np.ascontiguousarray(np.transpose(base[k], (1, 2, 0))))
+    sums = kernels.tree_sum_plain(consts, _gathered(table, kp, 3, 8, seed=70), curve=CURVE)
+    horners = kernels.horner_plain(consts, sums[..., :4], sums[..., 4:], curve=CURVE)
+    fold = torch.arange(K)[2::3]
+    p[..., fold] = horners[..., fold % 4]
+    q[..., fold] = horners[..., (fold + 1) % 4]
+
+    def narrowed(x):
+        n16 = x.to(torch.int16)
+        assert torch.equal(n16.to(torch.int32), x), "a limb left int16"
+        return n16.to(torch.int32)
+
+    got = narrowed(_coop_padd(f, narrowed(p), narrowed(q), 18))
+    assert torch.equal(got, kernels.pair_add_plain(consts, p, q, curve=CURVE))
+
+
+# ---------------------------------------------------------------------------
 # launch geometry
 # ---------------------------------------------------------------------------
 
@@ -291,6 +338,20 @@ def test_horner4_g2_geometry_fits_every_lane_count(B):
 def test_horner_g2_geometry_fits_every_lane_count(B):
     _check_horner_geometry(B, 1)
     assert kernels.coop_horner_geometry(CURVE, B, 1) == (B, 1, 3648)  # one lane a block
+
+
+@pytest.mark.parametrize("K", [1, 5, 6, 128, 352, 1024])
+def test_pair_add_g2_geometry_fits_every_lane_count(K):
+    """pair_add G2 launches on horner G2's geometry: one 18-thread group a
+    lane, one lane a one-warp block, p, q and a padd's scratch in shared
+    memory."""
+    _check_horner_geometry(K, 1)
+    assert kernels.coop_horner_geometry(CURVE, K, 1) == (K, 1, 2 * kernels.POINT_BYTES[CURVE] + 3072)
+
+
+def test_pair_add_g2_geometry_raises_without_lanes():
+    with pytest.raises(ValueError, match="at least one lane"):
+        kernels.coop_horner_geometry(CURVE, 0, 1)
 
 
 def test_horner4_g2_geometry_raises_without_lanes():
