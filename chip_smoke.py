@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py              # every phase
     python3 chip_smoke.py --kernels    # phases 1 to 3 only, no last line
+    python3 chip_smoke.py --range      # phases 1, 2 and 4 only, no last line
 
 Phases, each printing one JSON line:
 
@@ -18,9 +19,14 @@ Phases, each printing one JSON line:
    the five fold_ablate variants and padd_f32_chain at their probes'
    shapes; mont_mul at an NTT stage of a 256-statement h batch (twiddles
    broadcast), with a one-row operand, and at P6's 2^20 rows. The
-   cooperative BN254 kernels (window_sum4 G2, tree_sum G1 and G2, horner G1
-   and G2, horner4 G1 and G2, pair_add G2) are held limb for limb, also at
-   ragged shapes (window_sum4 G2: B in {1, 3}, Kp in {32, 33}; tree_sum G2:
+   cooperative kernels (window_sum and horner ed25519, window_sum4 G2,
+   tree_sum G1 and G2, horner G1 and G2, horner4 G1 and G2, pair_add G2) are
+   held limb for limb, also at ragged shapes (window_sum: Kp in {1, 2, 3,
+   33, 160}, B in {1, 7, 513}, and at 512 lanes with its warps a block
+   compared (1, 2, 4, the geometry's choice and every level-1 padd at once,
+   also at 1024); horner
+   ed25519: B in {1, 7, 8, 9, 1023}, B = 1 timed as 9 chained steps;
+   window_sum4 G2: B in {1, 3}, Kp in {32, 33}; tree_sum G2:
    B in {1, 127}, k in {1, 2, 3, 191}, and k = 96, 64 at 128 lanes;
    tree_sum G1: B in {1, 127}, k in {1, 2, 3, 255}, and k = 192, 128, 96, 64
    at 128 lanes; horner G1 and G2: B in {1, 5, 6, 127, 129}, B = 1 timed as
@@ -29,9 +35,11 @@ Phases, each printing one JSON line:
 4. (phases 4 to 6 run with the seam pinned to the single-device route, a
    one-position mesh, on any number of cards) the main path: ``prove_range_batch`` of 256 range proofs (512 prover
    lanes; T1/T2 and the L/R MSMs at 1024 lanes) with the launch counters
-   zeroed just before and read just after, then warm batches timed, a sample
-   of proofs verified by the port's host verifier, and 4 lanes held byte for
-   byte against the port's host prover under injected randomness;
+   zeroed just before and read just after, then warm batches timed, one
+   under ``torch.profiler`` for the card's busy time and K1's and K2's
+   shares, a sample of proofs verified by the port's host verifier, and 4
+   lanes held byte for byte against the port's host prover under injected
+   randomness;
 5. the Groth16 path: setup, then ``prove_equality_batch`` of 256 distinct
    equality statements with the launch counters zeroed just before and read
    just after (h: 43 mont_mul launches; the five query MSMs: 40 window_sum4
@@ -88,14 +96,16 @@ HOST_MEM_BW = 3.35e12  # H100 SXM HBM3 bytes/s (NVIDIA data sheet)
 INT32_LANES_PER_SM = 64  # IMAD results per clock per SM, compute capability 9.0
 FP32_LANES_PER_SM = 128  # FFMA results per clock per SM, compute capability 9.0
 MUL_MACS = 24 * 24 + 26 * 24  # one field product: 576 conv + 624 fold multiply-adds
+# p = 2^255 - 19: 576 conv + the 52 fold multiply-adds whose constant is not 0
+ED_MUL_MACS = 24 * 24 + 52
 MONT_MACS = 2 * 22 * 22 + 22  # one Montgomery product: 484 conv + 484 REDC + 22 m
 H_N = 512              # the equality circuit's domain
 H_BATCHES = (1, 16, 64, 170, 256)  # distinct statements per h batch (groth16_h)
 H_MONT_MULS = 43       # mont_mul launches of one h_batch_device call at n = 512
 MIMC_VALUES = 4096     # values per MiMC batch (bench.py's size)
 MIMC_MONT_MULS = 332   # to_mont, 110 rounds x 3, from_mont
-PADD_MACS = 9 * MUL_MACS      # Edwards padd: 9 products
-PDOUBLE_MACS = 8 * MUL_MACS
+PADD_MACS = 9 * ED_MUL_MACS   # Edwards padd: 9 products
+PDOUBLE_MACS = 8 * ED_MUL_MACS
 WPADD_MACS = {"bn254_g1": 12 * MUL_MACS + 2 * 24,  # RCB padd: 12 products + 2 small multiplies
               "bn254_g2": 42 * MUL_MACS}           # 14 Fq2 products of 3
 BN_KP = {"bn254_g1": 512, "bn254_g2": 352}  # h query (511 points), b_g2 query (334)
@@ -145,6 +155,38 @@ def bound(macs: float, nbytes: float, int_rate: float):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def profiled(run) -> tuple:
+    """``run()`` under ``torch.profiler`` (CUDA activity): its result, its
+    wall ms (host clock around the call and a synchronise) and the card's
+    busy entries, (name, device us, calls) for each kernel and copy."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    busy = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    return out, ms, busy
+
+
+def busy_summary(busy: list, wall_ms: float, **kernels) -> dict:
+    """The card's busy ms, idle share and operations over ``wall_ms``, the
+    8 busiest entries, and for each keyword the device ms and calls of the
+    entries whose name holds its value."""
+    busy_ms = sum(b[1] for b in busy) / 1e3
+    out = {"device_busy_ms": busy_ms, "device_idle_share": 1 - busy_ms / wall_ms,
+           "device_ops": sum(b[2] for b in busy),
+           "top": [{"name": b[0][:60], "device_ms": b[1] / 1e3, "calls": b[2]}
+                   for b in sorted(busy, key=lambda b: -b[1])[:8]]}
+    for key, sub in kernels.items():
+        hits = [b for b in busy if sub in b[0]]
+        out[key] = {"device_ms": sum(b[1] for b in hits) / 1e3, "calls": sum(b[2] for b in hits)}
+    return out
+
+
 def _edwards_point_err(a, b) -> int:
     """Largest residue mod p of the projective cross-products
     X1*Z2 - X2*Z1, Y1*Z2 - Y2*Z1, T1*Z2 - T2*Z1 between the lanes of ``a``
@@ -172,9 +214,66 @@ def _edwards_point_err(a, b) -> int:
     return err
 
 
+def k1_warps(dev, consts, table, digits, want) -> None:
+    """K1 at its path's shape with 1, 2 and 4 warps a block, with the
+    geometry's choice and with every level-1 padd at once (the geometry's
+    choice for one lane), each held limb for limb against ``want`` (the
+    plain version's output), timed in turns; one k1_warps line."""
+    from libzkp_tpu_torch.ops import kernels
+
+    Kp, B = digits.shape
+    curve = "ed25519"
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rule = kernels.coop_sum_geometry(curve, Kp, B, sms)[0]
+    full = kernels.coop_sum_geometry(curve, Kp, 1, sms)[0]
+    per_warp = kernels.COOP_PADDS_PER_WARP[curve] * kernels.COOP_SCRATCH_BYTES[curve]
+    out = torch.empty_like(want)
+
+    def run(warps):
+        smem = (Kp + 1) // 2 * kernels.POINT_BYTES[curve] + warps * per_warp
+        kernels._run("window_sum", curve, dev, consts.data_ptr(), table.data_ptr(), digits.data_ptr(),
+                     out.data_ptr(), Kp, B, warps, smem)
+
+    ms = {}
+    order = sorted({1, 2, 4, rule, full})
+    for warps in order + order[::-1]:
+        run(warps)
+        torch.cuda.synchronize()
+        _limbs_err(f"window_sum at {warps} warps a block", out, want)
+        ms.setdefault(warps, []).append(cuda_ms(lambda: run(warps), 20))
+    emit({"phase": "k1_warps", "shape": f"digits ({Kp},{B})", "rule_warps": rule, "full_warps": full,
+          "ms": {w: sum(t) / len(t) for w, t in ms.items()}, "ms_runs": ms})
+
+
+def ragged_window_sum(dev, consts, table) -> None:
+    """K1 at ragged shapes, B in {1, 7, 513} lanes over the first Kp in
+    {1, 2, 3, 33, 160} basis points of the path's table (a lone point, the
+    tree's odd carries, one lane past V, A and S's 512), limb for limb
+    against the plain version; one kernel_check line each (not in the
+    kernels line)."""
+    from libzkp_tpu_torch.ops import kernels
+
+    C, n = table.shape[1:]
+    for Kp in (1, 2, 3, 33, KP):
+        sub = table[:Kp * 256]
+        for B in (1, 7, 513):
+            digits = torch.randint(0, 256, (Kp, B), dtype=torch.int32,
+                                   generator=torch.Generator().manual_seed(10 * Kp + B)).to(dev)
+            got = kernels.window_sum(consts, sub, digits)
+            want = kernels.window_sum_plain(consts, sub, digits)
+            torch.cuda.synchronize()
+            err = _limbs_err(f"window_sum at Kp {Kp}, B {B}", got, want)
+            emit({"phase": "kernel_check", "name": "window_sum", "ragged": True,
+                  "max_abs_err": float(err), "tolerance": "exact limbs",
+                  "shape": f"table ({Kp * 256},{C},{n}) i16, digits ({Kp},{B}) i32"})
+
+
 def check_kernels(dev, int_rate: float, tables: dict) -> list:
-    """Phase 3: each kernel against its plain version at the path's shapes.
-    Leaves the table in ``tables["ed25519"]``."""
+    """Phase 3: each kernel against its plain version at the path's shapes,
+    limb for limb: window_sum (K1) also at 512 lanes, at its warps a block
+    compared (:func:`k1_warps`) and at ragged shapes
+    (:func:`ragged_window_sum`), horner (K2) also at ragged lane counts
+    (:func:`ragged_horner`). Leaves the table in ``tables["ed25519"]``."""
     import numpy as np
 
     from libzkp_tpu_torch.ops import curve, ed25519 as ed, kernels
@@ -199,29 +298,36 @@ def check_kernels(dev, int_rate: float, tables: dict) -> list:
     tables["ed25519"] = (consts, table, KP)
 
     results = []
-    ws_k = kernels.window_sum(consts, table, digits)
-    ws_p = kernels.window_sum_plain(consts, table, digits)
-    torch.cuda.synchronize()
-    err = _edwards_point_err(ws_k, ws_p)
-    if err != 0:
-        raise AssertionError(f"window_sum disagrees with its plain version (point err {err})")
-    t_k = cuda_ms(lambda: kernels.window_sum(consts, table, digits), 20)
-    t_p = cuda_ms(lambda: kernels.window_sum_plain(consts, table, digits), 3)
-    b_ms, b_by = bound((KP - 1) * PADD_MACS * MSM_LANES,
-                       table.numel() * 2 + digits.numel() * 4 + C * n * MSM_LANES * 4, int_rate)
-    results.append(dict(name="window_sum", route="cuda", source="libzkp_tpu_torch/csrc/window_sum.cu",
-                        replaces="libzkp_tpu/ops/curve_jax.py:626",
-                        max_abs_err=float(err), tolerance="point equality (X, Y, T cross-products with Z and T*Z = X*Y, mod p)",
-                        ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                        shape=f"table ({KP * 256},{C},{n}) i16, digits ({KP},{MSM_LANES}) i32"))
+    # K1 at the T1||T2 and L||R MSMs' 1024 lanes (the kernels line) and at
+    # V, A and S's 512 (a kernel_check line)
+    for lanes in (MSM_LANES, MSM_LANES // 2):
+        d = digits[:, :lanes].contiguous()
+        ws_k = kernels.window_sum(consts, table, d)
+        ws_p = kernels.window_sum_plain(consts, table, d)
+        torch.cuda.synchronize()
+        err = _limbs_err(f"window_sum at {lanes} lanes", ws_k, ws_p)
+        t_k = cuda_ms(lambda: kernels.window_sum(consts, table, d), 20)
+        t_p = cuda_ms(lambda: kernels.window_sum_plain(consts, table, d), 3)
+        b_ms, b_by = bound((KP - 1) * PADD_MACS * lanes,
+                           table.numel() * 2 + d.numel() * 4 + C * n * lanes * 4, int_rate)
+        row = dict(name="window_sum", route="cuda", source="libzkp_tpu_torch/csrc/window_sum.cu",
+                   replaces="libzkp_tpu/ops/curve_jax.py:626", max_abs_err=float(err),
+                   tolerance="exact limbs", ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
+                   library_ms=None, shape=f"table ({KP * 256},{C},{n}) i16, digits ({KP},{lanes}) i32")
+        if lanes == MSM_LANES:
+            results.append(row)
+        else:
+            emit({"phase": "kernel_check", **row})
+        k1_warps(dev, consts, table, d, ws_p)
+    ragged_window_sum(dev, consts, table)
 
-    acc_in, wsum = ws_k, ws_p
+    ws_k = kernels.window_sum(consts, table, digits)
+    acc_in, wsum = ws_k, kernels.window_sum_plain(consts, table, digits)
     h_k = kernels.horner(consts, acc_in, wsum)
     h_p = kernels.horner_plain(consts, acc_in, wsum)
     torch.cuda.synchronize()
-    err = int((h_k - h_p).abs().max())
-    if err != 0:
-        raise AssertionError(f"horner limbs differ from its plain version (max {err})")
+    err = _limbs_err("horner", h_k, h_p)
+    ragged_horner(dev, "ed25519", consts, wsum, (1, 7, 8, 9, MSM_LANES - 1))
     t_k = cuda_ms(lambda: kernels.horner(consts, acc_in, wsum), 50)
     t_p = cuda_ms(lambda: kernels.horner_plain(consts, acc_in, wsum), 5)
     b_ms, b_by = bound((8 * PDOUBLE_MACS + PADD_MACS) * MSM_LANES, 3 * C * n * MSM_LANES * 4, int_rate)
@@ -555,22 +661,24 @@ def ragged_tree_sum(dev, curve: str, consts, table, table_kp: int) -> None:
               "shape": f"pts ({B},{k},{C},{n}) i16"})
 
 
-def ragged_horner(dev, curve: str, consts, sums) -> None:
-    """horner G1 or G2 at ragged lane counts B in {1, 5, 6, 127, 129} (G1: a
-    warp's five six-thread groups, one group past them, a partial last
-    block; G2, one 18-thread group a warp: as many one-warp blocks; both:
-    one lane past the mesh block's 128), the accumulator and window sum taken from the
-    lanes of ``sums`` (tree_sum outputs, reused in turn) with lane 0's
-    accumulator the identity, limb for limb against the plain version; one
-    kernel_check line each (not in the kernels line). B = 1 is one lane's
-    chain of 9 dependent cooperative padds alone on the card, so its time
-    over 9 is a padd's latency."""
+def ragged_horner(dev, curve: str, consts, sums, lane_counts=(1, 5, 6, 127, 129)) -> None:
+    """horner at ragged lane counts: G1 and G2 at B in {1, 5, 6, 127, 129}
+    (G1: a warp's five six-thread groups, one group past them, a partial
+    last block; G2, one 18-thread group a warp: as many one-warp blocks;
+    both: one lane past the mesh block's 128), ed25519 at B in {1, 7, 8, 9,
+    1023} (eight four-thread groups a warp: short of them, one past, a
+    partial last warp at the path's 1024), the accumulator and window sum
+    taken from the lanes of ``sums`` (tree_sum or window_sum outputs, reused
+    in turn) with lane 0's accumulator the identity, limb for limb against
+    the plain version; one kernel_check line each (not in the kernels line).
+    B = 1 is one lane's chain of 9 dependent cooperative steps alone on the
+    card, so its time over 9 is a step's latency."""
     from libzkp_tpu_torch.ops import kernels
     from libzkp_tpu_torch.ops.weierstrass import get_engine
 
     eng = get_engine(curve)
     C, n, L = sums.shape
-    for B in (1, 5, 6, 127, 129):
+    for B in lane_counts:
         acc = sums[..., torch.arange(B, device=dev) % L].contiguous()
         acc[..., 0] = eng.identity(1, dev)[..., 0]
         wsum = sums[..., (torch.arange(B, device=dev) + B) % L].contiguous()
@@ -693,7 +801,8 @@ def check_probe_kernels(dev, int_rate: float, fp32_rate: float) -> list:
             "scripts/bench_fold.py:138",
             lambda: kernels.fe_mul(mc, a, b, curve=curve),
             lambda: kernels.fe_mul_plain(mc, a, b, curve=curve), 50,
-            MUL_MACS * a.shape[-1], 3 * a.numel() * 4, f"a, b (24,{a.shape[-1]}) i32"))
+            (ED_MUL_MACS if curve == "ed25519" else MUL_MACS) * a.shape[-1], 3 * a.numel() * 4,
+            f"a, b (24,{a.shape[-1]}) i32"))
     consts, p, q, _, _ = probes.add_inputs(dev)
     check("pair_add", "libzkp_tpu_torch/csrc/pair_add.cu", "scripts/bench_fold.py:185",
           lambda: kernels.pair_add(consts, p, q), lambda: kernels.pair_add_plain(consts, p, q), 20,
@@ -852,31 +961,17 @@ def groth16_path(dev) -> dict:
 
     # one batch under the profiler, with injected randomness for the
     # byte-exact check below
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     seeded = random.Random(4242)
     draws = [seeded.randrange(1, groth16.R) for _ in range(2 * G16_LANES)]
     saved = groth16._rand_fr
     it = iter(draws)
     groth16._rand_fr = lambda: next(it)
     try:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            seeded_envs = zkp.prove_equality_batch(pairs, device=dev)
-            torch.cuda.synchronize()
-            prof_ms = (time.perf_counter() - t0) * 1e3
+        seeded_envs, prof_ms, busy = profiled(lambda: zkp.prove_equality_batch(pairs, device=dev))
     finally:
         groth16._rand_fr = saved
-    busy = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(b[1] for b in busy) / 1e3
-    top = sorted(busy, key=lambda b: -b[1])[:8]
-    mont = [b for b in busy if "mont_mul_kernel" in b[0]]
-    emit({"phase": "groth16_profile", "batch_ms_profiled": prof_ms, "device_busy_ms": busy_ms,
-          "device_idle_share": 1 - busy_ms / prof_ms, "device_ops": sum(b[2] for b in busy),
-          "top": [{"name": b[0][:60], "device_ms": b[1] / 1e3, "calls": b[2]} for b in top],
-          "mont_mul": {"device_ms": sum(b[1] for b in mont) / 1e3, "calls": sum(b[2] for b in mont)}})
+    emit({"phase": "groth16_profile", "batch_ms_profiled": prof_ms,
+          **busy_summary(busy, prof_ms, mont_mul="mont_mul_kernel")})
 
     sample = list(range(0, G16_LANES, G16_LANES // G16_VERIFY))[:G16_VERIFY]
     t0 = time.perf_counter()
@@ -1290,6 +1385,12 @@ def main_path(dev) -> dict:
     emit({"phase": "main_path_warm", "batch_ms": [s * 1e3 for s in batch_s],
           "ms_per_batch": ms_batch, "ms_per_range_proof": ms_batch / N_TRIPLES})
 
+    # one warm batch under the profiler: the card's busy time and K1's and
+    # K2's shares of it (320 launches each)
+    _, prof_ms, busy = profiled(lambda: zkp.prove_range_batch(triples, device=dev))
+    emit({"phase": "main_path_profile", "batch_ms_profiled": prof_ms,
+          **busy_summary(busy, prof_ms, window_sum="window_sum_kernel", horner="horner_kernel")})
+
     sample = list(range(0, N_TRIPLES, max(1, N_TRIPLES // 8)))[:8]
     t0 = time.perf_counter()
     for i in sample:
@@ -1333,8 +1434,8 @@ def main_path(dev) -> dict:
 
 
 def main(argv: list) -> int:
-    if argv not in ([], ["--kernels"]):
-        print(f"usage: python3 chip_smoke.py [--kernels], got {argv}", file=sys.stderr)
+    if argv not in ([], ["--kernels"], ["--range"]):
+        print(f"usage: python3 chip_smoke.py [--kernels | --range], got {argv}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1370,6 +1471,9 @@ def main(argv: list) -> int:
     # on any number of cards, so phases 4 to 6 and phase 8's reference
     # envelopes never take the mesh route
     meshmod.set_mesh(meshmod.get_mesh(dp=1, devices=[dev]))
+    if argv == ["--range"]:  # the main path alone, to run two checkouts in turns
+        main_path(dev)
+        return 0
     tables: dict = {}
     checks = (check_kernels(dev, int_rate, tables) + check_bn254_kernels(dev, int_rate, tables)
               + check_sharded_kernels(dev, int_rate, tables)

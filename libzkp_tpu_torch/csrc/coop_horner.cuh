@@ -1,34 +1,42 @@
-// Cooperative BN254 Horner steps: WG steps acc <- 2^D * acc + wsums[window v]
-// per lane, each lane's chain of WG x (D + 1) padds (a Weierstrass pdouble
-// is padd(p, p)) run by one group of Cp::GROUP threads on the curve's
-// cooperative padd (coop_sum.cuh). The Horner steps double D = 8 times a
-// window; D = 0 and WG = 1 is one addition a lane, acc_in + wsums.
-// Instances: horner G1 = <G1Coop, 1, 8> and horner G2 = <G2Coop18, 1, 8>
-// (horner.cu), horner4 G1 = <G1Coop, 4, 8> and horner4 G2 = <G2Coop, 4, 8>
-// (horner4.cu), pair_add G2 = <G2Coop18, 1, 0> (pair_add.cu).
+// Cooperative Horner steps: WG steps acc <- 2^D * acc + wsums[window v] per
+// lane, each lane's chain of WG x D pdoubles and WG padds run by one group
+// of Cp::GROUP threads on the curve's cooperative padd and pdouble
+// (coop_sum.cuh; a Weierstrass pdouble is padd(p, p), the Edwards one its own
+// formula). The Horner steps double D = 8 times a window; D = 0 and WG = 1
+// is one addition a lane, acc_in + wsums. Instances: horner ed25519 =
+// <EdCoop, 1, 8>, horner G1 = <G1Coop, 1, 8> and horner G2 = <G2Coop18, 1,
+// 8> (horner.cu), horner4 G1 = <G1Coop, 4, 8> and horner4 G2 = <G2Coop, 4,
+// 8> (horner4.cu), pair_add G2 = <G2Coop18, 1, 0> (pair_add.cu).
 //
-// A padd's latency is the products of one thread (G1Coop: 2, against 12 in
-// one thread; G2Coop: 7 and G2Coop18: 3, against 42) plus its rows and
-// __syncwarp stages. The chain is a latency chain: the padds of a lane
-// depend on each other, and the paths give 128 (horner, a mesh block), 256
-// (horner4) or 352 (pair_add G2, the b_g2 table) lanes, too few to fill the
-// card with independent work. A warp holds Cp::PER_WARP groups (six-thread
-// groups: five, lanes 30 and 31 idle; 18-thread groups: one, lanes 18 to 31
-// idle); blocks of one warp (the wrapper's choice, ops/kernels.py
-// coop_horner_geometry) spread the lanes' warps over the SMs.
+// A padd's latency is the products of one thread (EdCoop: 3, a pdouble 2,
+// against 9 and 8 in one thread; G1Coop: 2, against 12; G2Coop: 7 and
+// G2Coop18: 3, against 42) plus its rows and __syncwarp stages. The chain
+// is a latency chain: the padds of a lane depend on each other, and the
+// paths give 128 (horner, a mesh block), 256 (horner4), 352 (pair_add G2,
+// the b_g2 table), 512 or 1024 lanes (horner ed25519, the range prover),
+// too few to fill the card with independent work. A warp holds Cp::PER_WARP
+// groups (four-thread groups: eight; six-thread groups: five, lanes 30 and
+// 31 idle; 18-thread groups: one, lanes 18 to 31 idle); blocks of one warp
+// (the wrapper's choice, ops/kernels.py coop_horner_geometry) spread the
+// lanes' warps over the SMs.
 //
 // Narrowing precondition: every limb of the accumulator and of the window
 // sums lies in int16. They are narrowed once into shared memory as int16
 // points: the accumulator is the identity (the MSM's start, a table's first
 // row), an earlier Horner output or a table row, each window sum a tree
 // sum's or window sum's output, a table's base point or a mesh partial sum
-// (a padd output, or one int16 table row), and every padd output limb lies
-// in [-7643, 11737] (fold_curves.cuh), so the narrowing is exact and every
-// padd of the chain writes an int16 point exactly. The doublings run in
-// place, padd(acc, acc, acc), which every cooperative padd allows: P and Q
-// are read in round 1 only, out written in the last stage.
+// (a padd output, or one int16 table row), and every padd or pdouble output
+// limb lies in [-7643, 11737] (BN254, fold_curves.cuh) or [-1536, 5631]
+// (ed25519, coop_sum.cuh), so the narrowing is exact and every step of the
+// chain writes an int16 point exactly. A curve whose pdouble is its padd
+// (Cp::PDOUBLE_IS_PADD, the Weierstrass curves) runs its doublings and its
+// addition through one inlined padd: a second inlined copy of the G1 padd
+// made horner4 G1 16 % slower (paired on the card). The steps run in place,
+// pdouble(acc, acc) and padd(acc, acc, w), which every cooperative padd and
+// pdouble allows: their operands are read in round 1 only, out written in
+// the last stage.
 //
-// Each padd's rows are the plain version's integer operations, so the limbs
+// Each step's rows are the plain version's integer operations, so the limbs
 // are identical to it.
 #pragma once
 
@@ -78,10 +86,15 @@ coop_horner_kernel(const int32_t* __restrict__ acc_in, const int32_t* __restrict
   }
   __syncwarp();
 #pragma unroll 1
-  for (int v = 0; v < WG; ++v) {
+  for (int v = 0; v < WG; ++v) {  // D doublings, then + window v
+    if constexpr (Cp::PDOUBLE_IS_PADD) {  // one inlined padd for both
 #pragma unroll 1
-    for (int r = 0; r <= D; ++r)  // D doublings, then + window v
-      Cp::padd(acc, acc, r < D ? acc : wins + v * POINT, scr, g, act);
+      for (int r = 0; r <= D; ++r) Cp::padd(acc, acc, r < D ? acc : wins + v * POINT, scr, g, act);
+    } else {
+#pragma unroll 1
+      for (int r = 0; r < D; ++r) Cp::pdouble(acc, acc, scr, g, act);
+      Cp::padd(acc, acc, wins + v * POINT, scr, g, act);
+    }
   }
   if (act) {  // the padd's last __syncwarp has passed: acc is whole
 #pragma unroll 1

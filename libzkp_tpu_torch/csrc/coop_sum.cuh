@@ -1,8 +1,8 @@
-// Cooperative BN254 point additions: a G1 or G2 padd shared by six threads
-// (or a G2 padd by 18) of a warp on int16 operands in shared memory, and the
-// plain version's halving tree over one lane's K points built on them
-// (tree_sum G1 and G2, window_sum4 G2; the Horner steps chain them,
-// coop_horner.cuh).
+// Cooperative point additions: a BN254 G1 or G2 padd shared by six threads
+// (or a G2 padd by 18) of a warp, an ed25519 padd or pdouble by four, on
+// int16 operands in shared memory, and the plain version's halving tree over
+// one lane's K points built on them (tree_sum G1 and G2, window_sum4 G2,
+// window_sum ed25519; the Horner steps chain them, coop_horner.cuh).
 //
 // Both padds are RCB'15 algorithm 7 as rcb_padd (fold_curves.cuh) and the
 // plain WeierstrassEngine.padd order it: round 1, the six independent
@@ -55,7 +55,42 @@
 // (global memory), later levels from the level store: ceil(K/2) int16
 // points in shared memory, written in place (padd i writes slot i, which no
 // other padd of its level reads). A padd output's limbs lie in [-7643, 11737]
-// (fold_curves.cuh), so int16 holds them exactly.
+// (BN254, fold_curves.cuh) or [-1536, 5631] (ed25519, below), so int16 holds
+// them exactly. A block runs Cp::PER_WARP padds a warp.
+//
+// ed25519 (ed_padd_coop, ed_pdouble_coop). add-2008-hwcd-3 (as
+// Ed25519::padd, fold_curves.cuh) and dbl-2008-hwcd as the plain
+// EdwardsEngine.padd and pdouble order them fall in rounds of four
+// independent products, so four threads share one: eight groups fill a warp
+// with no idle lane. padd: round 1, thread g computes product g of A =
+// carry(Y1 - X1) carry(Y2 - X2), B = carry(Y1 + X1) carry(Y2 + X2), T1 T2,
+// Z1 Z2 in registers; thread 2 goes on to C = (T1 T2) 2d, thread 3 to D =
+// carry(Z1Z2 + Z1Z2); each stores its row. Round 3: thread g builds the two
+// operands of its product X3 = E F, Y3 = G H, Z3 = F G, T3 = E H from the
+// rows (E = carry(B - A), F = carry(D - C), G = carry(D + C), H = carry(B +
+// A): each value computed by two threads from the same integers, as
+// g1_padd_coop does with b3 t2), multiplies and stores coordinate g. A
+// padd's latency is three products (thread 2's chain), against nine in one
+// thread. pdouble: round 1, X^2, Y^2, Z^2 (then C = carry(Z^2 + Z^2)) and
+// carry(X + Y)^2; round 2 from the rows, H = carry(A + B), G = carry(A - B),
+// E = carry(H - (X + Y)^2), F = carry(G + C), the same four products: two
+// products against eight. Scratch, 4 int32 rows (384 bytes): padd A, B, C,
+// D; pdouble A, B, C, (X + Y)^2. Every row is the plain version's integer
+// operation on the same operands, so the limbs equal it. The products run
+// ed_mul, the fold product with p = 2^255 - 19's 52 nonzero fold and 2
+// nonzero wrap constants in the code (below): the same sums, without the
+// 572 zero terms and 624 constant-memory reads of fe_mul_inline.
+//
+// ed25519 interval (tests/test_torch_ed_coop.py::test_edwards_int32_headroom,
+// interval arithmetic over every add, sub, carry, conv column and fold row of
+// padd and pdouble with p = 2^255 - 19's ONE, FOLD and 2d limbs): from
+// canonical limbs [0, 4095], every padd and pdouble output limb lies in
+// [-1536, 5631], that interval is closed under both, and every intermediate
+// stays below 2^28.68 < 2^31. ONE = 2^288 mod p = 19 * 2^33 has two nonzero
+// limbs (1536 in limb 2, 2 in limb 3), so a wrap carry moves little: a top
+// carry of -1 gives the low end. The identity (0 : 1 : 1 : 0) and every
+// table row are canonical or padd outputs, so the narrowing to int16 of the
+// tree's level store and the Horner chain's points is exact.
 #pragma once
 
 #include "fold_curves.cuh"
@@ -480,18 +515,194 @@ __device__ __forceinline__ void g1_padd_coop(int16_t* out, const int16_t* P, con
 }
 
 // ---------------------------------------------------------------------------
+// ed25519
+// ---------------------------------------------------------------------------
+
+// The field product for p = 2^255 - 19 (ed_mul): fe_mul_inline's integer
+// operations with the consts block's ONE and FOLD rows written into the
+// code and their zero limbs left out. ONE = 2^288 mod p has two nonzero
+// limbs (limb 2 = 1536, limb 3 = 2) and FOLD 52 of its 624: row k < 19 is
+// 19 * 2^(33 + 12k), limbs 2 + k = 1536 and 3 + k = 2; row k >= 19 wraps
+// once more, limbs k - 19 = 2624 and k - 18 = 5 (ops/limbfold.py FoldCtx,
+// pinned by tests/test_torch_ed_coop.py). Every sum keeps its nonzero terms,
+// so the limbs are fe_mul_inline's. The generic fold reads 624 constants a
+// product; this one multiplies 52 by immediates (K1 2.4x and K2 2x faster,
+// paired on the card).
+__device__ __forceinline__ void ed_carry(int32_t* x) {
+  using namespace fold;
+  const int32_t top = x[N - 1] >> LIMB_BITS;
+#pragma unroll
+  for (int i = N - 1; i > 0; --i) x[i] = (x[i] & MASK) + (x[i - 1] >> LIMB_BITS);
+  x[0] &= MASK;
+  x[2] += top * 1536;
+  x[3] += top * 2;
+}
+
+// r = a * b mod 2^255 - 19, as fe_mul_inline; r may alias a or b.
+__device__ __forceinline__ void ed_mul(int32_t* r, const int32_t* a, const int32_t* b) {
+  using namespace fold;
+  int32_t t[NCOL];
+#pragma unroll
+  for (int k = 0; k < NCOL; ++k) t[k] = 0;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int32_t ai = a[i];
+#pragma unroll
+    for (int j = 0; j < N; ++j) t[i + j] += ai * b[j];
+  }
+#pragma unroll
+  for (int pass = 0; pass < 2; ++pass) {
+#pragma unroll
+    for (int k = NCOL - 1; k > 0; --k) t[k] = (t[k] & MASK) + (t[k - 1] >> LIMB_BITS);
+    t[0] &= MASK;
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) {  // t[i] + sum over k of t[N + k] * FOLD[k][i], nonzero terms
+    int32_t acc = t[i];
+    if (i >= 2 && i <= 20) acc += t[N + i - 2] * 1536;  // k = i - 2 < 19
+    if (i >= 3 && i <= 21) acc += t[N + i - 3] * 2;     // k = i - 3 < 19
+    if (i <= 6) acc += t[N + i + 19] * 2624;            // k = i + 19
+    if (i >= 1 && i <= 7) acc += t[N + i + 18] * 5;     // k = i + 18 >= 19
+    r[i] = acc;
+  }
+  ed_carry(r);
+  ed_carry(r);
+  ed_carry(r);
+}
+
+// Row v of the padd's round 3 operands from the rows A, B, C, D of scr: v =
+// 0, E = carry(B - A); 1, F = carry(D - C); 2, G = carry(D + C); 3, H =
+// carry(B + A).
+__device__ __forceinline__ void ed_padd_row(int32_t* r, const int32_t* scr, int v) {
+  using fold::N;
+  int32_t x[N];
+  const int base = (v == 1 || v == 2) ? 2 : 0;
+  row_ld32(r, scr + (base + 1) * N);
+  row_ld32(x, scr + base * N);
+  row_add_carry(r, x, v >= 2 ? 1 : -1);
+}
+
+// Row v (as in ed_padd_row) of the pdouble's round 2 operands from the rows
+// A, B, C, (X + Y)^2 of scr: H = carry(A + B), G = carry(A - B), E =
+// carry(H - (X + Y)^2), F = carry(G + C).
+__device__ __forceinline__ void ed_pdouble_row(int32_t* r, const int32_t* scr, int v) {
+  using fold::N;
+  int32_t x[N];
+  row_ld32(r, scr);
+  row_ld32(x, scr + N);
+  row_add_carry(r, x, (v == 0 || v == 3) ? 1 : -1);  // E, H from H; F, G from G
+  if (v < 2) {
+    row_ld32(x, scr + (v == 0 ? 3 : 2) * N);
+    row_add_carry(r, x, v == 0 ? -1 : 1);
+  }
+}
+
+// Round 3 of padd and round 2 of pdouble: thread g multiplies its operands
+// (E, F), (G, H), (F, G), (E, H), rows (0, 1), (2, 3), (1, 2), (0, 3) of
+// ed_padd_row or ed_pdouble_row, into coordinate g of out: X3, Y3, Z3, T3.
+template <bool DOUBLE>
+__device__ __forceinline__ void ed_out_coop(int16_t* out, const int32_t* scr, int g) {
+  using fold::N;
+  int32_t a[N], b[N];
+  const int va = (0x0120 >> (4 * g)) & 15, vb = (0x3231 >> (4 * g)) & 15;
+  if (DOUBLE) {
+    ed_pdouble_row(a, scr, va);
+    ed_pdouble_row(b, scr, vb);
+  } else {
+    ed_padd_row(a, scr, va);
+    ed_padd_row(b, scr, vb);
+  }
+  ed_mul(a, a, b);
+  row_st16(out + g * N, a);
+}
+
+// out = P + Q (int16 extended points X, Y, Z, T), by the four threads
+// g = 0..3 of one group with scratch scr (4 int32 rows).
+__device__ __forceinline__ void ed_padd_coop(int16_t* out, const int16_t* P, const int16_t* Q,
+                                            int32_t* scr, int g, bool act) {
+  using fold::N;
+  // round 1, product g: A, B (carry(Y -/+ X) of both points), T1 T2, Z1 Z2;
+  // then C = (T1 T2) 2d (g = 2), D = carry(Z1Z2 + Z1Z2) (g = 3); row g
+  if (act) {
+    int32_t a[N], b[N];
+    if (g < 2) {
+      int32_t x[N];
+      row_ld16(a, P + N);
+      row_ld16(x, P);
+      row_add_carry(a, x, g ? 1 : -1);
+      row_ld16(b, Q + N);
+      row_ld16(x, Q);
+      row_add_carry(b, x, g ? 1 : -1);
+    } else {
+      row_ld16(a, P + (g == 2 ? 3 : 2) * N);
+      row_ld16(b, Q + (g == 2 ? 3 : 2) * N);
+    }
+    ed_mul(a, a, b);
+    if (g == 2) {
+#pragma unroll
+      for (int i = 0; i < N; ++i) b[i] = c_consts[fold::ROW_CURVE * N + i];
+      ed_mul(a, a, b);
+    } else if (g == 3) {
+#pragma unroll
+      for (int i = 0; i < N; ++i) a[i] = a[i] + a[i];
+      fe_carry(a);
+    }
+    row_st32(scr + g * N, a);
+  }
+  __syncwarp();
+  if (act) ed_out_coop<false>(out, scr, g);
+  __syncwarp();
+}
+
+// out = 2P (int16 extended points), by the four threads g = 0..3 of one
+// group with scratch scr (4 int32 rows).
+__device__ __forceinline__ void ed_pdouble_coop(int16_t* out, const int16_t* P, int32_t* scr, int g,
+                                               bool act) {
+  using fold::N;
+  // round 1, square g: X^2, Y^2, Z^2 (then C = carry(Z^2 + Z^2)),
+  // carry(X + Y)^2; row g
+  if (act) {
+    int32_t a[N];
+    row_ld16(a, P + (g < 3 ? g : 0) * N);
+    if (g == 3) {
+      int32_t x[N];
+      row_ld16(x, P + N);
+      row_add_carry(a, x, 1);
+    }
+    ed_mul(a, a, a);
+    if (g == 2) {
+#pragma unroll
+      for (int i = 0; i < N; ++i) a[i] = a[i] + a[i];
+      fe_carry(a);
+    }
+    row_st32(scr + g * N, a);
+  }
+  __syncwarp();
+  if (act) ed_out_coop<true>(out, scr, g);
+  __syncwarp();
+}
+
+// ---------------------------------------------------------------------------
 // The curves' cooperative padds and the tree
 // ---------------------------------------------------------------------------
 
+// Each Cp: its group's threads, groups a warp, point and scratch sizes,
+// whether its pdouble is its padd, and padd and pdouble, both in place (out
+// may be P or Q).
 struct G1Coop {
   static constexpr int GROUP = coop::GROUP;              // threads of a padd
   static constexpr int PER_WARP = coop::PADDS_PER_WARP;  // padds a warp
   static constexpr int COORDS = 3;                       // coordinate rows of a point
   static constexpr int POINT = COORDS * fold::N;         // int16 limbs of a point
   static constexpr int SCRATCH = 15 * fold::N;           // int32 of one padd's scratch
+  static constexpr bool PDOUBLE_IS_PADD = true;          // pdouble(p) is padd(p, p)
   static __device__ __forceinline__ void padd(int16_t* out, const int16_t* P, const int16_t* Q,
                                               int32_t* scr, int g, bool act) {
     g1_padd_coop(out, P, Q, scr, g, act);
+  }
+  static __device__ __forceinline__ void pdouble(int16_t* out, const int16_t* P, int32_t* scr, int g,
+                                                 bool act) {
+    g1_padd_coop(out, P, P, scr, g, act);  // a Weierstrass pdouble is padd(p, p)
   }
 };
 
@@ -501,9 +712,14 @@ struct G2Coop {
   static constexpr int COORDS = 6;
   static constexpr int POINT = COORDS * fold::N;
   static constexpr int SCRATCH = 32 * fold::N;
+  static constexpr bool PDOUBLE_IS_PADD = true;
   static __device__ __forceinline__ void padd(int16_t* out, const int16_t* P, const int16_t* Q,
                                               int32_t* scr, int g, bool act) {
     g2_padd_coop(out, P, Q, scr, g, act);
+  }
+  static __device__ __forceinline__ void pdouble(int16_t* out, const int16_t* P, int32_t* scr, int g,
+                                                 bool act) {
+    g2_padd_coop(out, P, P, scr, g, act);  // a Weierstrass pdouble is padd(p, p)
   }
 };
 
@@ -513,9 +729,31 @@ struct G2Coop18 {  // horner G2, pair_add G2: one 18-thread padd a warp
   static constexpr int COORDS = 6;
   static constexpr int POINT = COORDS * fold::N;
   static constexpr int SCRATCH = 32 * fold::N;
+  static constexpr bool PDOUBLE_IS_PADD = true;
   static __device__ __forceinline__ void padd(int16_t* out, const int16_t* P, const int16_t* Q,
                                               int32_t* scr, int g, bool act) {
     g2_padd_coop18(out, P, Q, scr, g, act);
+  }
+  static __device__ __forceinline__ void pdouble(int16_t* out, const int16_t* P, int32_t* scr, int g,
+                                                 bool act) {
+    g2_padd_coop18(out, P, P, scr, g, act);  // a Weierstrass pdouble is padd(p, p)
+  }
+};
+
+struct EdCoop {  // K1 window_sum, K2 horner ed25519: eight four-thread groups a warp
+  static constexpr int GROUP = 4;
+  static constexpr int PER_WARP = 8;
+  static constexpr int COORDS = 4;
+  static constexpr int POINT = COORDS * fold::N;
+  static constexpr int SCRATCH = 4 * fold::N;
+  static constexpr bool PDOUBLE_IS_PADD = false;  // dbl-2008-hwcd
+  static __device__ __forceinline__ void padd(int16_t* out, const int16_t* P, const int16_t* Q,
+                                              int32_t* scr, int g, bool act) {
+    ed_padd_coop(out, P, Q, scr, g, act);
+  }
+  static __device__ __forceinline__ void pdouble(int16_t* out, const int16_t* P, int32_t* scr, int g,
+                                                 bool act) {
+    ed_pdouble_coop(out, P, scr, g, act);
   }
 };
 
@@ -524,7 +762,7 @@ struct G2Coop18 {  // horner G2, pair_add G2: one 18-thread padd a warp
 template <class Cp>
 __host__ __device__ constexpr size_t coop_smem_bytes(int K, int warps) {
   return (size_t)((K + 1) / 2) * Cp::POINT * sizeof(int16_t) +
-         (size_t)warps * coop::PADDS_PER_WARP * Cp::SCRATCH * sizeof(int32_t);
+         (size_t)warps * Cp::PER_WARP * Cp::SCRATCH * sizeof(int32_t);
 }
 
 // Dynamic shared memory of the cooperative kernels.
@@ -541,21 +779,20 @@ __device__ __forceinline__ int4* coop_smem() {
 template <class Cp, class Row>
 __device__ __forceinline__ void coop_tree_sum(Row row, int K, int32_t* __restrict__ out, int lane,
                                               int lanes) {
-  using namespace coop;
-  constexpr int POINT = Cp::POINT;
+  constexpr int POINT = Cp::POINT, GROUP = Cp::GROUP, PER_WARP = Cp::PER_WARP;
   const int warps = blockDim.x >> 5;
   const int w = threadIdx.x >> 5;
   const int grp = (threadIdx.x & 31) / GROUP;
   const int g = (threadIdx.x & 31) - grp * GROUP;
   int16_t* store = reinterpret_cast<int16_t*>(coop_smem());
   int32_t* scr = reinterpret_cast<int32_t*>(store + (size_t)((K + 1) / 2) * POINT) +
-                 (w * PADDS_PER_WARP + (grp < PADDS_PER_WARP ? grp : 0)) * Cp::SCRATCH;
+                 (w * PER_WARP + (grp < PER_WARP ? grp : 0)) * Cp::SCRATCH;
   bool first = true;  // level 1 reads row(), later levels the store
   for (int n = K; n > 1; n = n / 2 + (n & 1)) {
     const int half = n / 2;
     // warp-uniform loop: every thread of a warp meets the padd's __syncwarp
-    for (int base = w * PADDS_PER_WARP; base < half; base += warps * PADDS_PER_WARP) {
-      const bool act = grp < PADDS_PER_WARP && base + grp < half;
+    for (int base = w * PER_WARP; base < half; base += warps * PER_WARP) {
+      const bool act = grp < PER_WARP && base + grp < half;
       const int i = act ? base + grp : 0;
       const int16_t* P = first ? row(i) : store + (size_t)i * POINT;
       const int16_t* Q = first ? row(i + half) : store + (size_t)(i + half) * POINT;

@@ -1,6 +1,8 @@
 // Fold-field arithmetic on 12-bit limbs and the point formulas of the three
 // curves of the MSM (ed25519, BN254 G1, BN254 G2), one lane per thread,
-// shared by the window-sum, Horner and table-add kernels.
+// shared by the one-thread kernels (window_sum4 G1, tree_sum ed25519,
+// pair_add ed25519 and G1, the probes) and, for the field product, by the
+// cooperative ones (coop_sum.cuh).
 //
 // The same schedule as the plain PyTorch version (ops/limbfold.py FieldOps,
 // ops/edwards.py, ops/weierstrass.py) and the JAX package's ops/limbfold.py
@@ -177,7 +179,7 @@ __device__ __forceinline__ void ext_mul(int32_t (*r)[fold::N], int32_t (*a)[fold
 }
 
 // ---------------------------------------------------------------------------
-// Curves: coordinates, consts rows, padd, pdouble, identity
+// Curves: coordinates, consts rows, padd, identity
 // ---------------------------------------------------------------------------
 
 // Extended twisted Edwards a = -1 (Curve25519 / Ristretto255), (X, Y, Z, T).
@@ -210,29 +212,6 @@ struct Ed25519 {
     fe_sub(F, D, C);
     fe_add(G, D, C);
     fe_add(H, B, A);
-    fe_mul(r[0], E, F);
-    fe_mul(r[1], G, H);
-    fe_mul(r[2], F, G);
-    fe_mul(r[3], E, H);
-  }
-
-  // dbl-2008-hwcd (8 products, identity-safe). r may alias p.
-  static __device__ __forceinline__ void pdouble(int32_t (*r)[fold::N], int32_t (*p)[fold::N]) {
-    using namespace fold;
-    int32_t A[N], B[N], C[N], H[N], u[N], v[N];
-    fe_mul(A, p[0], p[0]);
-    fe_mul(B, p[1], p[1]);
-    fe_mul(u, p[2], p[2]);
-#pragma unroll
-    for (int i = 0; i < N; ++i) C[i] = u[i] + u[i];
-    fe_carry(C);
-    fe_add(H, A, B);
-    fe_add(u, p[0], p[1]);
-    fe_mul(v, u, u);
-    int32_t E[N], F[N], G[N];
-    fe_sub(E, H, v);
-    fe_sub(G, A, B);
-    fe_add(F, C, G);
     fe_mul(r[0], E, F);
     fe_mul(r[1], G, H);
     fe_mul(r[2], F, G);
@@ -317,9 +296,6 @@ struct Bn254G1 {
                                               int32_t (*q)[fold::N]) {
     rcb_padd<Bn254G1>(r, p, q);
   }
-  static __device__ __forceinline__ void pdouble(int32_t (*r)[fold::N], int32_t (*p)[fold::N]) {
-    rcb_padd<Bn254G1>(r, p, p);
-  }
   // (0 : 1 : 0)
   static __device__ __forceinline__ void identity(int32_t (*r)[fold::N]) {
 #pragma unroll
@@ -347,9 +323,6 @@ struct Bn254G2 {
   static __device__ __forceinline__ void padd(int32_t (*r)[fold::N], int32_t (*p)[fold::N],
                                               int32_t (*q)[fold::N]) {
     rcb_padd<Bn254G2>(r, p, q);
-  }
-  static __device__ __forceinline__ void pdouble(int32_t (*r)[fold::N], int32_t (*p)[fold::N]) {
-    rcb_padd<Bn254G2>(r, p, p);
   }
   // (0 : 1 : 0), Y = (1, 0)
   static __device__ __forceinline__ void identity(int32_t (*r)[fold::N]) {

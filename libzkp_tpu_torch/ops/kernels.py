@@ -4,11 +4,13 @@ Eight CUDA C++ sources under ``libzkp_tpu_torch/csrc/``, each compiled for
 ``sm_90a`` by ``nvcc`` into its own shared library with a plain C interface
 and bound with ``ctypes``; the field and curve code they share is
 ``csrc/fold_curves.cuh``, the Montgomery field code ``csrc/mont.cuh``, the
-cooperative BN254 padds and tree sum ``csrc/coop_sum.cuh`` (window_sum4 G2,
-tree_sum G1 and G2) and the Horner chain on them ``csrc/coop_horner.cuh``
-(horner and horner4 G1 and G2, pair_add G2). Each kernel is instantiated
-for the curves its path runs, and each instance is a kernel of its own,
-named ``<kernel>`` for ed25519 or a field-generic kernel and
+cooperative padds (BN254 G1 and G2, the Edwards padd and pdouble of
+ed25519) and tree sum ``csrc/coop_sum.cuh`` (window_sum ed25519,
+window_sum4 G2, tree_sum G1 and G2) and the Horner chain on them
+``csrc/coop_horner.cuh`` (horner on every curve, horner4 G1 and G2,
+pair_add G2). Each kernel is instantiated for the curves its path runs,
+and each instance is a kernel of its own, named ``<kernel>`` for ed25519
+or a field-generic kernel and
 ``<kernel>_<curve>`` for BN254 or ``<kernel>_<variant>`` for a probe's
 variant (:data:`INSTANCES`):
 
@@ -109,11 +111,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _ARGTYPES = {
-    "window_sum": [_P, _P, _P, _P, _I, _I, _P],
-    "horner": [_P, _P, _P, _P, _I, _P],
+    "window_sum": [_P, _P, _P, _P, _I, _I, _I, _I, _P],  # cooperative: (blocks,) warps, shared bytes
+    "horner": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "pair_add": [_P, _P, _P, _P, _I, _P],
     "window_sum4": [_P, _P, _P, _P, _I, _I, _P],
-    "horner4": [_P, _P, _P, _P, _I, _I, _I, _I, _P],  # BN254 only: cooperative
+    "horner4": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "tree_sum": [_P, _P, _P, _I, _I, _P],
     "padd_chain": [_P, _P, _P, _P, _I, _I, _P],
     "fe_mul": [_P, _P, _P, _P, _I, _P],
@@ -121,28 +123,31 @@ _ARGTYPES = {
     "mont_padd": [_P, _P, _P, _P, _I, _P],
     "fold_ablate": [_P, _P, _P, _P, _I, _I, _P],
     "padd_f32_chain": [_P, _P, _P, _P, _I, _I, _P],
-    # the cooperative BN254 kernels also take their geometry: (blocks,)
-    # warps per block, shared bytes
+    # the other cooperative instances also take their geometry
     "window_sum4_bn254_g2": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "tree_sum_bn254_g1": [_P, _P, _P, _I, _I, _I, _I, _P],
     "tree_sum_bn254_g2": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "horner_bn254_g1": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "horner_bn254_g2": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "pair_add_bn254_g2": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
-# Geometry of the cooperative BN254 kernels (csrc/coop_sum.cuh): six threads
-# share a padd, five padds a warp, each with its int32 scratch rows (horner
-# G2's and pair_add G2's padd: 18 threads, one a warp); the tree sums
-# (window_sum4 G2, tree_sum G1 and G2) run one block per output lane with a
-# level store of ceil(K/2) int16 points; the Horner steps (horner and
-# horner4, G1 and G2) and pair_add G2 one group per lane, holding its
+# Geometry of the cooperative kernels (csrc/coop_sum.cuh): six threads share
+# a BN254 padd, five padds a warp, four an ed25519 padd or pdouble, eight a
+# warp, each with its int32 scratch rows (horner G2's and pair_add G2's
+# padd: 18 threads, one a warp); the tree sums (window_sum ed25519,
+# window_sum4 G2, tree_sum G1 and G2) run one block per output lane with a
+# level store of ceil(K/2) int16 points; the Horner steps (horner on every
+# curve, horner4 G1 and G2) and pair_add G2 one group per lane, holding its
 # accumulator and its window sums (pair_add: p and q) as int16 points.
-COOP_PADDS_PER_WARP = 5
+COOP_PADDS_PER_WARP = {"ed25519": 8, "bn254_g1": 5, "bn254_g2": 5}
 COOP_MAX_WARPS = 12        # 384 threads a block (the kernels' launch bounds)
-POINT_BYTES = {"bn254_g1": 3 * 24 * 2, "bn254_g2": 6 * 24 * 2}
-COOP_SCRATCH_BYTES = {"bn254_g1": 15 * 24 * 4, "bn254_g2": 32 * 24 * 4}
+POINT_BYTES = {"ed25519": 4 * 24 * 2, "bn254_g1": 3 * 24 * 2, "bn254_g2": 6 * 24 * 2}
+COOP_SCRATCH_BYTES = {"ed25519": 4 * 24 * 4, "bn254_g1": 15 * 24 * 4, "bn254_g2": 32 * 24 * 4}
 COOP_HORNER_WARPS = 1      # one warp a block, each alone on its SM at the paths' lane counts
+# K1 (the ed25519 tree sum): at most this many warps an SM over all lanes.
+# The four-thread padd keeps the card's integer pipes busy from about 8
+# warps an SM on; more warps a lane then only lengthen the tree's tail
+# (chip_smoke's k1_warps line: 1 warp a lane fastest at 1024 lanes, 2 at 512).
+ED_SUM_WARPS_PER_SM = 8
 G2_HORNER_PER_WARP = 1     # horner G2, pair_add G2: one 18-thread group a warp
 SMEM_BLOCK_MAX = 232_448   # dynamic shared memory one block may use (H100)
 SMEM_SM = 233_472          # shared memory of an SM; each resident block also holds 1 KiB
@@ -153,17 +158,21 @@ def coop_sum_geometry(curve: str, K: int, lanes: int, sms: int) -> tuple:
     over ``K`` points of ``curve`` for ``lanes`` output lanes on a card of
     ``sms`` SMs: enough warps for level 1's K // 2 padds at once, up to what
     shared memory holds; when the lanes outnumber twice the SMs, few enough
-    that two blocks share an SM. Raises where the level store and one
-    warp's scratch exceed a block's shared memory."""
+    that two blocks share an SM; for ed25519 (K1), no more than
+    ED_SUM_WARPS_PER_SM warps an SM over all lanes. Raises where the level
+    store and one warp's scratch exceed a block's shared memory."""
     if K < 1:
         raise ValueError(f"a {curve} tree sum needs at least one point, got {K}")
     store = (K + 1) // 2 * POINT_BYTES[curve]
-    per_warp = COOP_PADDS_PER_WARP * COOP_SCRATCH_BYTES[curve]
+    padds = COOP_PADDS_PER_WARP[curve]
+    per_warp = padds * COOP_SCRATCH_BYTES[curve]
     if store + per_warp > SMEM_BLOCK_MAX:
         raise ValueError(f"a {curve} tree sum over {K} points needs {store + per_warp} bytes of "
                          f"shared memory a block, above the {SMEM_BLOCK_MAX} the card allows")
     limit = SMEM_BLOCK_MAX if lanes < 2 * sms else SMEM_SM // 2 - 1024
-    warps = min(COOP_MAX_WARPS, -(-(K // 2) // COOP_PADDS_PER_WARP), (limit - store) // per_warp)
+    warps = min(COOP_MAX_WARPS, -(-(K // 2) // padds), (limit - store) // per_warp)
+    if curve == "ed25519":
+        warps = min(warps, ED_SUM_WARPS_PER_SM * sms // lanes)
     warps = max(1, warps)
     return warps, store + warps * per_warp
 
@@ -172,12 +181,13 @@ def coop_horner_geometry(curve: str, lanes: int, windows: int) -> tuple:
     """(blocks, warps per block, dynamic shared bytes) of a cooperative
     Horner step of ``windows`` windows (1: horner, or pair_add G2, one
     addition over ``lanes`` = K lanes; WIN_GROUP: horner4) over ``lanes``
-    lanes of ``curve``: five lanes a warp on six-thread padds, one on the
-    18-thread G2 padd of horner G2 and pair_add G2. Each lane's group holds
-    its accumulator, its window sums and its padd scratch."""
+    lanes of ``curve``: eight lanes a warp on four-thread Edwards steps,
+    five on six-thread padds, one on the 18-thread G2 padd of horner G2 and
+    pair_add G2. Each lane's group holds its accumulator, its window sums
+    and its padd scratch."""
     if lanes < 1:
         raise ValueError(f"a {curve} Horner step needs at least one lane, got {lanes}")
-    per_warp = G2_HORNER_PER_WARP if (curve, windows) == ("bn254_g2", 1) else COOP_PADDS_PER_WARP
+    per_warp = G2_HORNER_PER_WARP if (curve, windows) == ("bn254_g2", 1) else COOP_PADDS_PER_WARP[curve]
     per_block = COOP_HORNER_WARPS * per_warp
     smem = per_block * ((1 + windows) * POINT_BYTES[curve] + COOP_SCRATCH_BYTES[curve])
     return -(-lanes // per_block), COOP_HORNER_WARPS, smem
@@ -350,7 +360,8 @@ def window_sum(consts: torch.Tensor, table: torch.Tensor, digits: torch.Tensor) 
     """Sum over the basis of each lane's table multiples for one window.
 
     ``table``: (Kp*256, 4, n) int16; ``digits``: (Kp, B) int32 in [0, 256).
-    Returns (4, n, B) int32."""
+    Returns (4, n, B) int32. The kernel sums in the plain version's tree
+    order, so its limbs equal ``window_sum_plain``'s."""
     if table.device.type == "cpu":
         return window_sum_plain(consts, table, digits)
     eng = _engine("window_sum", "ed25519")
@@ -359,7 +370,7 @@ def window_sum(consts: torch.Tensor, table: torch.Tensor, digits: torch.Tensor) 
     _check_table(eng, table, digits, Kp)
     out = torch.empty((eng.coords, eng.n, B), dtype=torch.int32, device=table.device)
     _run("window_sum", "ed25519", dev, consts.data_ptr(), table.data_ptr(), digits.data_ptr(),
-         out.data_ptr(), Kp, B)
+         out.data_ptr(), Kp, B, *_coop_geometry(dev, "ed25519", Kp, B))
     return out
 
 
@@ -382,11 +393,13 @@ def horner(consts: torch.Tensor, acc: torch.Tensor, wsum: torch.Tensor, *,
            curve: str = "ed25519") -> torch.Tensor:
     """acc <- 2^8 * acc + wsum over (C, n, B) int32 lanes.
 
-    The BN254 kernels narrow ``acc`` and ``wsum`` to int16 (their
-    precondition): every limb must lie in int16, as on the mesh path, where
-    ``acc`` is the identity or an earlier ``horner`` output and ``wsum`` a
-    ``tree_sum`` output, and every padd output limb lies in [-7643, 11737]
-    (``csrc/fold_curves.cuh``)."""
+    The kernels narrow ``acc`` and ``wsum`` to int16 (their precondition):
+    every limb must lie in int16, as on the range prover's window walk,
+    where ``acc`` is the identity or an earlier ``horner`` output and
+    ``wsum`` a ``window_sum`` output, and on the mesh's v1 walk, where
+    ``wsum`` is a ``tree_sum`` output; every padd output limb lies in
+    [-7643, 11737] (BN254, ``csrc/fold_curves.cuh``) or [-1536, 5631]
+    (ed25519, ``csrc/coop_sum.cuh``)."""
     if acc.device.type == "cpu":
         return horner_plain(consts, acc, wsum, curve=curve)
     eng = _engine("horner", curve)
@@ -395,9 +408,8 @@ def horner(consts: torch.Tensor, acc: torch.Tensor, wsum: torch.Tensor, *,
     _check_points(eng, "acc", acc, B)
     _check_points(eng, "wsum", wsum, B)
     out = torch.empty_like(acc)
-    geometry = coop_horner_geometry(curve, B, 1) if curve != "ed25519" else ()
     _run("horner", curve, dev, consts.data_ptr(), acc.data_ptr(), wsum.data_ptr(),
-         out.data_ptr(), B, *geometry)
+         out.data_ptr(), B, *coop_horner_geometry(curve, B, 1))
     return out
 
 

@@ -205,14 +205,14 @@ def test_g1_geometry_fits_every_path_shape(B):
         warps, smem = kernels.coop_sum_geometry(CURVE, K, B, H100_SMS)
         assert 1 <= warps <= kernels.COOP_MAX_WARPS
         store = (K + 1) // 2 * kernels.POINT_BYTES[CURVE]
-        assert smem == store + warps * kernels.COOP_PADDS_PER_WARP * kernels.COOP_SCRATCH_BYTES[CURVE]
+        assert smem == store + warps * kernels.COOP_PADDS_PER_WARP[CURVE] * kernels.COOP_SCRATCH_BYTES[CURVE]
         assert smem <= kernels.SMEM_BLOCK_MAX
         # no more warps than level 1 has padds for, and every warp it can use
-        assert warps == min(kernels.COOP_MAX_WARPS, -(-(K // 2) // kernels.COOP_PADDS_PER_WARP))
+        assert warps == min(kernels.COOP_MAX_WARPS, -(-(K // 2) // kernels.COOP_PADDS_PER_WARP[CURVE]))
 
 
 def test_g1_geometry_raises_above_a_blocks_shared_memory():
-    per_warp = kernels.COOP_PADDS_PER_WARP * kernels.COOP_SCRATCH_BYTES[CURVE]
+    per_warp = kernels.COOP_PADDS_PER_WARP[CURVE] * kernels.COOP_SCRATCH_BYTES[CURVE]
     k_max = (kernels.SMEM_BLOCK_MAX - per_warp) // kernels.POINT_BYTES[CURVE] * 2
     assert kernels.coop_sum_geometry(CURVE, k_max, 1, H100_SMS)[1] <= kernels.SMEM_BLOCK_MAX
     with pytest.raises(ValueError, match="shared memory"):
@@ -226,7 +226,7 @@ def test_g1_geometry_raises_above_a_blocks_shared_memory():
 def test_horner_g1_geometry_fits_every_lane_count(B, WG):
     blocks, warps, smem = kernels.coop_horner_geometry(CURVE, B, WG)
     assert warps == kernels.COOP_HORNER_WARPS
-    lanes = warps * kernels.COOP_PADDS_PER_WARP
+    lanes = warps * kernels.COOP_PADDS_PER_WARP[CURVE]
     assert (blocks - 1) * lanes < B <= blocks * lanes  # every lane has a group, no block is idle
     assert smem == lanes * ((1 + WG) * kernels.POINT_BYTES[CURVE] + kernels.COOP_SCRATCH_BYTES[CURVE])
     assert smem <= kernels.SMEM_BLOCK_MAX

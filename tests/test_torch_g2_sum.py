@@ -300,16 +300,16 @@ def test_g2_geometry_fits_every_path_shape(kernel, B):
         warps, smem = kernels.coop_sum_geometry(CURVE, K, lanes, H100_SMS)
         assert 1 <= warps <= kernels.COOP_MAX_WARPS
         store = (K + 1) // 2 * kernels.POINT_BYTES[CURVE]
-        assert smem == store + warps * kernels.COOP_PADDS_PER_WARP * kernels.COOP_SCRATCH_BYTES[CURVE]
+        assert smem == store + warps * kernels.COOP_PADDS_PER_WARP[CURVE] * kernels.COOP_SCRATCH_BYTES[CURVE]
         assert smem <= kernels.SMEM_BLOCK_MAX
         # no more warps than level 1 has padds for
-        assert warps <= max(1, -(-(K // 2) // kernels.COOP_PADDS_PER_WARP))
+        assert warps <= max(1, -(-(K // 2) // kernels.COOP_PADDS_PER_WARP[CURVE]))
         if lanes >= 2 * H100_SMS:  # two blocks share an SM
             assert 2 * (smem + 1024) <= kernels.SMEM_SM
 
 
 def test_g2_geometry_raises_above_a_blocks_shared_memory():
-    per_warp = kernels.COOP_PADDS_PER_WARP * kernels.COOP_SCRATCH_BYTES[CURVE]
+    per_warp = kernels.COOP_PADDS_PER_WARP[CURVE] * kernels.COOP_SCRATCH_BYTES[CURVE]
     k_max = (kernels.SMEM_BLOCK_MAX - per_warp) // kernels.POINT_BYTES[CURVE] * 2
     assert kernels.coop_sum_geometry(CURVE, k_max, 1, H100_SMS)[1] <= kernels.SMEM_BLOCK_MAX
     with pytest.raises(ValueError, match="shared memory"):
@@ -322,7 +322,7 @@ def _check_horner_geometry(B: int, WG: int) -> None:
     blocks, warps, smem = kernels.coop_horner_geometry(CURVE, B, WG)
     assert warps == kernels.COOP_HORNER_WARPS
     # horner G2: one 18-thread group a warp; horner4 G2: five six-thread groups
-    lanes = warps * (kernels.G2_HORNER_PER_WARP if WG == 1 else kernels.COOP_PADDS_PER_WARP)
+    lanes = warps * (kernels.G2_HORNER_PER_WARP if WG == 1 else kernels.COOP_PADDS_PER_WARP[CURVE])
     assert (blocks - 1) * lanes < B <= blocks * lanes  # every lane has a group, no block is idle
     assert smem == lanes * ((1 + WG) * kernels.POINT_BYTES[CURVE] + kernels.COOP_SCRATCH_BYTES[CURVE])
     assert smem <= kernels.SMEM_BLOCK_MAX
