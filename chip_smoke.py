@@ -3,6 +3,8 @@
     python3 chip_smoke.py              # every phase
     python3 chip_smoke.py --kernels    # phases 1 to 3 only, no last line
     python3 chip_smoke.py --range      # phases 1, 2 and 4 only, no last line
+    python3 chip_smoke.py --groth16    # phases 1, 2, 5 and 6 only, no last line
+    python3 chip_smoke.py --g1         # phases 1, 2 and g1_pair only, no last line
 
 Phases, each printing one JSON line:
 
@@ -19,19 +21,24 @@ Phases, each printing one JSON line:
    the five fold_ablate variants and padd_f32_chain at their probes'
    shapes; mont_mul at an NTT stage of a 256-statement h batch (twiddles
    broadcast), with a one-row operand, and at P6's 2^20 rows. The
-   cooperative kernels (window_sum and horner ed25519, window_sum4 G2,
-   tree_sum G1 and G2, horner G1 and G2, horner4 G1 and G2, pair_add G2) are
-   held limb for limb, also at ragged shapes (window_sum: Kp in {1, 2, 3,
+   cooperative kernels (window_sum and horner ed25519, window_sum4 G1 and
+   G2, tree_sum G1 and G2, horner G1 and G2, horner4 G1 and G2, pair_add G1
+   and G2) are held limb for limb, also at ragged shapes (window_sum: Kp in {1, 2, 3,
    33, 160}, B in {1, 7, 513}, and at 512 lanes with its warps a block
    compared (1, 2, 4, the geometry's choice and every level-1 padd at once,
    also at 1024); horner
    ed25519: B in {1, 7, 8, 9, 1023}, B = 1 timed as 9 chained steps;
-   window_sum4 G2: B in {1, 3}, Kp in {32, 33}; tree_sum G2:
+   window_sum4 G2: B in {1, 3}, Kp in {32, 33}; window_sum4 G1: B in {1,
+   3}, Kp in {1, 8, 32, 33} at every node count G, also against its order
+   model, at Kp 512 and 352 (1024 lanes) at the rule's G, its neighbours
+   and G = Kp, timed in turns (the ws4_g1_groups line), and at Kp = 8, 128
+   lanes, timed; tree_sum G2:
    B in {1, 127}, k in {1, 2, 3, 191}, and k = 96, 64 at 128 lanes;
    tree_sum G1: B in {1, 127}, k in {1, 2, 3, 255}, and k = 192, 128, 96, 64
    at 128 lanes; horner G1 and G2: B in {1, 5, 6, 127, 129}, B = 1 timed as
    9 chained padds; horner4 G1 and G2: B in {1, 5, 6, 257}, B = 1 timed as
-   36 chained padds; pair_add G2: K in {1, 5, 6, 128, 353}, K = 1 timed);
+   36 chained padds; pair_add G2: K in {1, 5, 6, 128, 353}, K = 1 timed;
+   pair_add G1: K in {1, 5, 6, 8, 128, 512}, K = 8 and 512 timed);
 4. (phases 4 to 6 run with the seam pinned to the single-device route, a
    one-position mesh, on any number of cards) the main path: ``prove_range_batch`` of 256 range proofs (512 prover
    lanes; T1/T2 and the L/R MSMs at 1024 lanes) with the launch counters
@@ -53,8 +60,10 @@ Phases, each printing one JSON line:
    statements (32 each), every statement through ``_finish_proof_group``,
    with the launch counters zeroed just before and read just after; then
    the per-proof and grouped routes interleaved on the same batch and the
-   same injected draws, timed, every run's bytes equal; 2 lanes held byte
-   for byte against the host golden prover;
+   same injected draws, timed, every run's bytes equal; one grouped run
+   under ``torch.profiler`` (the card's time in pair_add G1 and window_sum4
+   G1, the table builds' wall time); 2 lanes held byte for byte against the
+   host golden prover;
 7. the mesh-sharded MSM on a (dp 2, shard 2) mesh whose four positions are
    all this card (it checks the sharding, the per-block kernels and the
    cross-shard fold, and measures no interconnect): the five query MSMs of a
@@ -109,9 +118,14 @@ PDOUBLE_MACS = 8 * ED_MUL_MACS
 WPADD_MACS = {"bn254_g1": 12 * MUL_MACS + 2 * 24,  # RCB padd: 12 products + 2 small multiplies
               "bn254_g2": 42 * MUL_MACS}           # 14 Fq2 products of 3
 BN_KP = {"bn254_g1": 512, "bn254_g2": 352}  # h query (511 points), b_g2 query (334)
+G1_KPS = (512, 352)    # window_sum4 G1's Kp in a Groth16 batch: the h query, the a, b_g1, l queries
 G16_LANES = 256        # distinct equality statements per batch
 G16_VERIFY = 8
 G16_GROUP_STATEMENTS = 8  # statements of the grouped batch: 32 proofs each
+# the G1 kernels' names in a profile, this tree's and the one-thread kernels'
+# they replaced (so the profiles of two checkouts compare)
+WS4_G1_KERNELS = ("window_sum4_g1_nodes_kernel", "window_sum4_g1_top_kernel", "window_sum4_kernel<Bn254G1>")
+PAIR_ADD_G1_KERNELS = ("coop_horner_kernel<G1Coop, 1, 0>", "pair_add_kernel<Bn254G1>")
 CURVE_PADD_MACS = {"ed25519": PADD_MACS, **WPADD_MACS}
 SHARD_DP, SHARD_SHARD = 2, 2  # the one-card mesh: four positions, all cuda:0
 SHARD_B_LOCAL = G16_LANES // SHARD_DP
@@ -175,14 +189,16 @@ def profiled(run) -> tuple:
 def busy_summary(busy: list, wall_ms: float, **kernels) -> dict:
     """The card's busy ms, idle share and operations over ``wall_ms``, the
     8 busiest entries, and for each keyword the device ms and calls of the
-    entries whose name holds its value."""
+    entries whose name holds its value (or one of a tuple of values: a
+    kernel's names before and after a redesign)."""
     busy_ms = sum(b[1] for b in busy) / 1e3
     out = {"device_busy_ms": busy_ms, "device_idle_share": 1 - busy_ms / wall_ms,
            "device_ops": sum(b[2] for b in busy),
            "top": [{"name": b[0][:60], "device_ms": b[1] / 1e3, "calls": b[2]}
                    for b in sorted(busy, key=lambda b: -b[1])[:8]]}
     for key, sub in kernels.items():
-        hits = [b for b in busy if sub in b[0]]
+        subs = sub if isinstance(sub, tuple) else (sub,)
+        hits = [b for b in busy if any(x in b[0] for x in subs)]
         out[key] = {"device_ms": sum(b[1] for b in hits) / 1e3, "calls": sum(b[2] for b in hits)}
     return out
 
@@ -441,6 +457,111 @@ def g2_ragged_window_sum4(dev, consts, table) -> None:
                   "shape": f"table ({Kp * 256},6,24) i16, digits (4,{Kp},{B}) i32"})
 
 
+def window_sum4_plain_chunked(consts, table, digits, curve: str):
+    """``window_sum4_plain`` in chunks of 64 lanes: the plain tree's stacked
+    products would take tens of GB at 4 * 256 lanes at once."""
+    from libzkp_tpu_torch.ops import kernels
+    from libzkp_tpu_torch.ops.weierstrass import get_engine
+
+    eng = get_engine(curve)
+    WG, _, B = digits.shape
+    out = torch.empty((eng.coords, eng.n, WG * B), dtype=torch.int32, device=digits.device)
+    ch = min(64, B)
+    for b0 in range(0, B, ch):
+        part = kernels.window_sum4_plain(consts, table, digits[:, :, b0:b0 + ch].contiguous(), curve=curve)
+        for w in range(WG):
+            out[..., w * B + b0:w * B + b0 + ch] = part[..., w * ch:(w + 1) * ch]
+    return out
+
+
+def ws4_g1_forced(dev, consts, table, digits, G: int, out) -> None:
+    """window_sum4 G1's launch with G nodes a lane (the wrapper's, with
+    ``window_sum4_g1_geometry(groups=G)``) into ``out``."""
+    from libzkp_tpu_torch.ops import kernels
+
+    WG, Kp, B = digits.shape
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    G, nodes_smem, warps, smem = kernels.window_sum4_g1_geometry(Kp, WG * B, sms, groups=G)
+    nodes = torch.empty((WG * B * G, 3, 24), dtype=torch.int16, device=dev) if G < Kp else None
+    kernels._run("window_sum4", "bn254_g1", dev, consts.data_ptr(), table.data_ptr(), digits.data_ptr(),
+                 nodes.data_ptr() if nodes is not None else None, out.data_ptr(), Kp, B, G, nodes_smem,
+                 warps, smem)
+
+
+def _node_counts(Kp: int) -> list:
+    """Every G window_sum4 G1 may split Kp into: Kp, Kp / 2, ... down to
+    its odd part."""
+    out = [Kp]
+    while out[-1] % 2 == 0:
+        out.append(out[-1] // 2)
+    return out
+
+
+def g1_ragged_window_sum4(dev, consts, table) -> None:
+    """window_sum4 G1 at ragged shapes, B in {1, 3} lanes over the first Kp
+    in {1, 8, 32, 33} basis points of the path's table: through the wrapper
+    and with every G forced (kernel 1's chains of 2^l points, kernel 2's
+    tree over G nodes), limb for limb against the order model
+    (``window_sum4_order``) and the plain version; one kernel_check line
+    each (not in the kernels line)."""
+    from libzkp_tpu_torch.ops import kernels
+
+    curve = "bn254_g1"
+    for Kp in (1, 8, 32, 33):
+        sub = table[:Kp * 256]
+        for B in (1, 3):
+            digits = torch.randint(0, 256, (kernels.WIN_GROUP, Kp, B), dtype=torch.int32,
+                                   generator=torch.Generator().manual_seed(20 * Kp + B)).to(dev)
+            want = kernels.window_sum4_plain(consts, sub, digits, curve=curve)
+            got = kernels.window_sum4(consts, sub, digits, curve=curve)
+            torch.cuda.synchronize()
+            err = _limbs_err(f"window_sum4 {curve} at Kp {Kp}, B {B}", got, want)
+            for G in _node_counts(Kp):
+                model = kernels.window_sum4_order(consts, sub, digits, groups=G)
+                ws4_g1_forced(dev, consts, sub, digits, G, got)
+                torch.cuda.synchronize()
+                _limbs_err(f"window_sum4 {curve}'s order model at Kp {Kp}, B {B}, G {G}", model, want)
+                err = max(err, _limbs_err(f"window_sum4 {curve} at Kp {Kp}, B {B}, G {G}", got, model))
+            emit({"phase": "kernel_check", "name": kernels.instance("window_sum4", curve), "ragged": True,
+                  "max_abs_err": float(err), "tolerance": "exact limbs (order model and plain version)",
+                  "groups": _node_counts(Kp),
+                  "shape": f"table ({Kp * 256},3,24) i16, digits (4,{Kp},{B}) i32"})
+
+
+def ws4_g1_groups(dev, consts, table, digits, want: dict) -> dict:
+    """window_sum4 G1 at the Groth16 batch's shapes, over the first Kp in
+    G1_KPS points of ``table`` and ``digits`` (the plain version's output
+    in ``want[Kp]``), 1024 lanes, with G nodes a lane: the rule's choice,
+    its neighbours and G = Kp (kernel 2 alone: the plain tree in one block a
+    lane, coop_tree_sum over the digit gather), each held limb for limb,
+    timed in turns; one ws4_g1_groups line. Returns {Kp: {G: ms}}."""
+    from libzkp_tpu_torch.ops import kernels
+
+    WG, _, B = digits.shape
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    res, rules = {}, {}
+    for Kp in G1_KPS:
+        sub, d, ref = table[:Kp * 256], digits[:, :Kp].contiguous(), want[Kp]
+        out = torch.empty_like(ref)
+        rule = kernels.window_sum4_g1_geometry(Kp, WG * B, sms)[0]
+        rules[Kp] = rule
+        cands = _node_counts(Kp)
+        i = cands.index(rule)
+        order = sorted({Kp, *cands[max(0, i - 2):i + 3]})
+        ms: dict = {}
+        for G in order + order[::-1]:
+            ws4_g1_forced(dev, consts, sub, d, G, out)
+            torch.cuda.synchronize()
+            _limbs_err(f"window_sum4 bn254_g1 at Kp {Kp}, G {G}", out, ref)
+            ms.setdefault(G, []).append(cuda_ms(lambda: ws4_g1_forced(dev, consts, sub, d, G, out), 5))
+        res[Kp] = {G: sum(t) / len(t) for G, t in ms.items()}
+        res[f"{Kp}_runs"] = ms
+    emit({"phase": "ws4_g1_groups", "lanes": WG * B, "rule_groups": rules,
+          "ms": {k: v for k, v in res.items() if isinstance(k, int)},
+          "ms_runs": {k: v for k, v in res.items() if not isinstance(k, int)}})
+    return res
+
+
 def ragged_horner4(dev, curve: str, consts, sums) -> None:
     """horner4 G1 or G2 at ragged lane counts B in {1, 5, 6, 257} (a warp's
     five groups, one group past them, a last warp of two groups), the
@@ -473,23 +594,28 @@ def ragged_horner4(dev, curve: str, consts, sums) -> None:
         emit(row)
 
 
-def g2_ragged_pair_add(dev, consts, table, baseT, horners) -> None:
-    """pair_add G2 at ragged lane counts K in {1, 5, 6, 128, 353} (one
-    18-thread group a one-warp block; 353 one lane past the b_g2 table's
-    basis), limb for limb against the plain version, on the operands the
-    paths give it: a table build step, row d of basis point k % Kp of
-    ``table`` plus its base point from ``baseT`` (lane 0: the identity plus
-    the base; lane 1: row 1 plus the base, the build's doubling at step 2),
-    and in every third lane from lane 2 two lanes of ``horners`` (horner4
-    G2 outputs) as the mesh fold adds partial sums; one kernel_check line
-    each (not in the kernels line). K = 1 is one cooperative padd alone on
-    the card: its time is a launch's latency."""
+# ragged_pair_add's lane counts (timed ones): G2, one 18-thread group a
+# one-warp block, 353 one lane past the b_g2 table's basis; G1, five groups
+# a warp, 8 the grouped route's statement tables, 512 the h query's table
+RAGGED_PAIR_ADD = {"bn254_g2": ((1, 5, 6, 128, 353), (1,)), "bn254_g1": ((1, 5, 6, 8, 128, 512), (8, 512))}
+
+
+def ragged_pair_add(dev, curve: str, consts, table, baseT, horners) -> None:
+    """pair_add G1 or G2 at ragged lane counts (RAGGED_PAIR_ADD), limb for
+    limb against the plain version, on the operands the paths give it: a
+    table build step, row d of basis point k % Kp of ``table`` plus its base
+    point from ``baseT`` (lane 0: the identity plus the base; lane 1: row 1
+    plus the base, the build's doubling at step 2), and in every third lane
+    from lane 2 two lanes of ``horners`` (horner4 outputs) as the mesh fold
+    adds partial sums; one kernel_check line each (not in the kernels line).
+    G2's K = 1 is one cooperative padd alone on the card: its time is a
+    launch's latency; G1's K = 8 is a grouped-route table build step."""
     from libzkp_tpu_torch.ops import kernels
 
-    curve = "bn254_g2"
     Kp, C, n = baseT.shape[-1], table.shape[1], table.shape[2]
     L = horners.shape[-1]
-    for K in (1, 5, 6, 128, 353):
+    sizes, timed = RAGGED_PAIR_ADD[curve]
+    for K in sizes:
         k = torch.arange(K, device=dev) % Kp
         d = torch.randint(0, 255, (K,), generator=torch.Generator().manual_seed(K)).to(dev)
         d[:2] = torch.tensor([0, 1], device=dev)[:K]
@@ -504,8 +630,9 @@ def g2_ragged_pair_add(dev, consts, table, baseT, horners) -> None:
         err = _limbs_err(f"pair_add {curve} at K {K}", got, want)
         row = {"phase": "kernel_check", "name": kernels.instance("pair_add", curve), "ragged": True,
                "max_abs_err": float(err), "tolerance": "exact limbs", "shape": f"p, q ({C},{n},{K}) i32"}
-        if K == 1:
+        if K in timed:
             row["ms"] = cuda_ms(lambda: kernels.pair_add(consts, p, q, curve=curve), 200)
+            row["plain_ms"] = cuda_ms(lambda: kernels.pair_add_plain(consts, p, q, curve=curve), 10)
         emit(row)
 
 
@@ -513,12 +640,15 @@ def check_bn254_kernels(dev, int_rate: float, tables: dict) -> list:
     """Phase 3b: pair_add, window_sum4 and horner4 for BN254 G1 and G2
     against their plain versions at the Groth16 prover's shapes: 256
     statements, so 4 * 256 window-sum lanes; Kp = 512 (G1, the h query) and
-    352 (G2, the b_g2 query). window_sum4 G2 sums in the plain tree's order,
-    so it is held limb for limb, here and at ragged shapes
-    (:func:`g2_ragged_window_sum4`); G1 by point equality. horner4 is held
-    limb for limb, also at ragged lane counts (:func:`ragged_horner4`), and
-    pair_add too, G2 also at ragged lane counts (:func:`g2_ragged_pair_add`).
-    Leaves each table in ``tables[curve]``."""
+    352 (G2, the b_g2 query). window_sum4 sums in the plain tree's order,
+    so both curves are held limb for limb (and by point equality), here and
+    at ragged shapes (:func:`g1_ragged_window_sum4`, against its order model
+    too, and :func:`g2_ragged_window_sum4`); G1 also at every G near the
+    rule's at Kp 512 and 352 (:func:`ws4_g1_groups`) and timed at the
+    grouped route's Kp = 8, 128 lanes. horner4 is held limb for limb, also
+    at ragged lane counts (:func:`ragged_horner4`), and pair_add too, also
+    at ragged lane counts (:func:`ragged_pair_add`). Leaves each table in
+    ``tables[curve]``."""
     import numpy as np
 
     from libzkp_tpu_torch.ops import kernels
@@ -547,16 +677,7 @@ def check_bn254_kernels(dev, int_rate: float, tables: dict) -> list:
         padd = WPADD_MACS[curve]
 
         def plain4():
-            # in lane chunks: the plain tree's stacked products would take
-            # tens of GB at all 4 * 256 lanes at once
-            out = torch.empty((C, n, WG * B), dtype=torch.int32, device=dev)
-            ch = min(64, B)
-            for b0 in range(0, B, ch):
-                part = kernels.window_sum4_plain(consts, table, digits[:, :, b0:b0 + ch].contiguous(),
-                                                 curve=curve)
-                for w in range(WG):
-                    out[..., w * B + b0:w * B + b0 + ch] = part[..., w * ch:(w + 1) * ch]
-            return out
+            return window_sum4_plain_chunked(consts, table, digits, curve)
 
         ws_k = kernels.window_sum4(consts, table, digits, curve=curve)
         ws_p = plain4()
@@ -564,11 +685,29 @@ def check_bn254_kernels(dev, int_rate: float, tables: dict) -> list:
         err = _weierstrass_point_err(curve, ws_k, ws_p)
         if err != 0:
             raise AssertionError(f"window_sum4 {curve} disagrees with its plain version (point err {err})")
-        tolerance = "projective equality (X, Y cross-products with Z, mod p) and the curve equation"
-        if curve == "bn254_g2":  # summed in the plain tree's order: limb for limb
-            err = _limbs_err(f"window_sum4 {curve}", ws_k, ws_p)
-            tolerance = "exact limbs, and projective equality and the curve equation"
+        err = _limbs_err(f"window_sum4 {curve}", ws_k, ws_p)  # the plain tree's order
+        tolerance = "exact limbs, and projective equality and the curve equation"
+        extra = {}
+        if curve == "bn254_g2":
             g2_ragged_window_sum4(dev, consts, table)
+        else:
+            g1_ragged_window_sum4(dev, consts, table)
+            ws4_g1_groups(dev, consts, table, digits, {
+                k: ws_p if k == Kp else window_sum4_plain_chunked(consts, table[:k * 256],
+                                                                  digits[:, :k].contiguous(), curve)
+                for k in G1_KPS})
+            # the grouped route's statement tables: Kp = 8, 32 proofs (128 lanes)
+            sub, d8 = table[:8 * 256], digits[:, :8, :32].contiguous()
+            got8 = kernels.window_sum4(consts, sub, d8, curve=curve)
+            want8 = kernels.window_sum4_plain(consts, sub, d8, curve=curve)
+            torch.cuda.synchronize()
+            emit({"phase": "kernel_check", "name": kernels.instance("window_sum4", curve), "grouped": True,
+                  "max_abs_err": float(_limbs_err(f"window_sum4 {curve} at Kp 8", got8, want8)),
+                  "tolerance": "exact limbs", "shape": "table (2048,3,24) i16, digits (4,8,32) i32",
+                  "ms": cuda_ms(lambda: kernels.window_sum4(consts, sub, d8, curve=curve), 50),
+                  "plain_ms": cuda_ms(lambda: kernels.window_sum4_plain(consts, sub, d8, curve=curve), 5)})
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            extra["groups"] = kernels.window_sum4_g1_geometry(Kp, WG * B, sms)[0]
         t_k = cuda_ms(lambda: kernels.window_sum4(consts, table, digits, curve=curve), 5)
         t_p = cuda_ms(plain4, 1)
         b_ms, b_by = bound((Kp - 1) * padd * WG * B,
@@ -578,7 +717,7 @@ def check_bn254_kernels(dev, int_rate: float, tables: dict) -> list:
                             replaces="libzkp_tpu/ops/curve_jax.py:737",
                             max_abs_err=float(err), tolerance=tolerance,
                             ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                            shape=f"table ({Kp * 256},{C},{n}) i16, digits ({WG},{Kp},{B}) i32"))
+                            shape=f"table ({Kp * 256},{C},{n}) i16, digits ({WG},{Kp},{B}) i32", **extra))
 
         acc_in = ws_k[..., :B].contiguous()
         wsums = ws_p
@@ -607,8 +746,7 @@ def check_bn254_kernels(dev, int_rate: float, tables: dict) -> list:
         err = int((a_k - a_p).abs().max())
         if err != 0:
             raise AssertionError(f"pair_add {curve} limbs differ from its plain version (max {err})")
-        if curve == "bn254_g2":
-            g2_ragged_pair_add(dev, consts, table, baseT, h_k)
+        ragged_pair_add(dev, curve, consts, table, baseT, h_k)
         t_k = cuda_ms(lambda: kernels.pair_add(consts, p, q, curve=curve), 50)
         t_p = cuda_ms(lambda: kernels.pair_add_plain(consts, p, q, curve=curve), 10)
         b_ms, b_by = bound(padd * Kp, 3 * C * n * Kp * 4, int_rate)
@@ -621,6 +759,65 @@ def check_bn254_kernels(dev, int_rate: float, tables: dict) -> list:
     for r in results:
         emit({"phase": "kernel_check", **r})
     return results
+
+
+def g1_pair(dev) -> None:
+    """window_sum4 G1 and pair_add G1 alone, through the wrappers and the
+    plain versions only, so that this function also runs on an earlier
+    checkout (this script copied into it) for timings paired in one call:
+    window_sum4 at Kp 512 and 352 (1024 lanes, the Groth16 batch) and 8 (128
+    lanes, a grouped-route statement table), pair_add at K 8 and 512, each
+    held by point equality against its plain version (limbs reported, not
+    required); one g1_pair line."""
+    import numpy as np
+
+    from libzkp_tpu_torch.ops import kernels
+    from libzkp_tpu_torch.ops.weierstrass import get_engine
+
+    curve, Kp, WG = "bn254_g1", BN_KP["bn254_g1"], 4
+    eng = get_engine(curve)
+    consts = torch.from_numpy(eng.consts_np).to(dev)
+    baseT = torch.from_numpy(np.ascontiguousarray(np.transpose(
+        eng.encode_points(_random_points(curve, Kp, random.Random(20261017))), (1, 2, 0)))).to(dev)
+    acc, rows = eng.identity(Kp, dev), []
+    for _ in range(256):
+        rows.append(acc)
+        acc = kernels.pair_add_plain(consts, acc, baseT, curve=curve)
+    table = torch.stack(rows).permute(3, 0, 1, 2).reshape(Kp * 256, 3, 24).to(torch.int16).contiguous()
+    digits = torch.randint(0, 256, (WG, Kp, G16_LANES), generator=torch.Generator().manual_seed(8),
+                           dtype=torch.int32).to(dev)
+    out: dict = {"card": smi("name,power.limit")}
+    # the Groth16 batch; a grouped-route statement table (32 proofs); the h
+    # query at the grouped route's 8 statements
+    for k, lanes in ((G1_KPS[0], G16_LANES), (G1_KPS[1], G16_LANES), (8, 32), (G1_KPS[0], 8)):
+        sub, d = table[:k * 256], digits[:, :k, :lanes].contiguous()
+        got = kernels.window_sum4(consts, sub, d, curve=curve)
+        want = window_sum4_plain_chunked(consts, sub, d, curve)
+        torch.cuda.synchronize()
+        if _weierstrass_point_err(curve, got, want) != 0:
+            raise AssertionError(f"window_sum4 {curve} at Kp {k} disagrees with its plain version")
+        key = f"window_sum4_kp{k}_b{d.shape[-1]}"
+        out[key] = {"ms": cuda_ms(lambda: kernels.window_sum4(consts, sub, d, curve=curve), 20),
+                    "lanes": WG * d.shape[-1], "limbs_equal": bool(torch.equal(got, want))}
+        if hasattr(kernels, "window_sum4_g1_geometry") and k != 8:  # this tree's design: G nodes a lane
+            sweep = {}
+            for G in [k] + [G for G in _node_counts(k) if G >= 8][-5:]:
+                ws4_g1_forced(dev, consts, sub, d, G, got)
+                torch.cuda.synchronize()
+                _limbs_err(f"window_sum4 {curve} at Kp {k}, G {G}", got, want)
+                sweep[G] = cuda_ms(lambda: ws4_g1_forced(dev, consts, sub, d, G, got), 10)
+            out[key]["ms_by_groups"] = sweep
+    for K in (8, Kp):
+        p = table.view(Kp, 256, 3, 24)[:K, 7].permute(1, 2, 0).to(torch.int32).contiguous()
+        q = baseT[..., :K].contiguous()
+        got = kernels.pair_add(consts, p, q, curve=curve)
+        want = kernels.pair_add_plain(consts, p, q, curve=curve)
+        torch.cuda.synchronize()
+        if _weierstrass_point_err(curve, got, want) != 0:
+            raise AssertionError(f"pair_add {curve} at K {K} disagrees with its plain version")
+        out[f"pair_add_k{K}"] = {"ms": cuda_ms(lambda: kernels.pair_add(consts, p, q, curve=curve), 200),
+                                 "limbs_equal": bool(torch.equal(got, want))}
+    emit({"phase": "g1_pair", **out})
 
 
 def _point_err(curve: str, a, b) -> int:
@@ -971,7 +1168,7 @@ def groth16_path(dev) -> dict:
     finally:
         groth16._rand_fr = saved
     emit({"phase": "groth16_profile", "batch_ms_profiled": prof_ms,
-          **busy_summary(busy, prof_ms, mont_mul="mont_mul_kernel")})
+          **busy_summary(busy, prof_ms, mont_mul="mont_mul_kernel", window_sum4_g1=WS4_G1_KERNELS)})
 
     sample = list(range(0, G16_LANES, G16_LANES // G16_VERIFY))[:G16_VERIFY]
     t0 = time.perf_counter()
@@ -1076,6 +1273,21 @@ def groth16_grouped(dev) -> dict:
     out, split_ms, spent = run(True, wrap=("_h_many", "_accs_many", "_finish_proof_group"))
     if out != envs:
         raise AssertionError("the grouped split run gave other proof bytes")
+    # one grouped batch under the profiler: the card's time in pair_add G1
+    # (the statement tables' 255-step builds) and the builds' wall time
+    from libzkp_tpu_torch.ops import curve as tc
+
+    built: dict = defaultdict(float)
+    undo = _wrap(tc.DeviceTable, "__init__", "table_builds", built, [0])
+    try:
+        (out, _, _), prof_ms, busy = profiled(lambda: run(True))
+    finally:
+        undo()
+    if out != envs:
+        raise AssertionError("the profiled grouped run gave other proof bytes")
+    emit({"phase": "groth16_grouped_profile", "batch_ms_profiled": prof_ms,
+          "table_builds_ms": built["table_builds"] * 1e3,
+          **busy_summary(busy, prof_ms, pair_add_g1=PAIR_ADD_G1_KERNELS, window_sum4_g1=WS4_G1_KERNELS)})
     emit({"phase": "groth16_grouped_vs_per_proof", "batch_ms": times,
           "ms_per_equality_proof": {k: v / G16_LANES for k, v in mean.items()},
           "per_proof_over_grouped": mean["per_proof"] / mean["grouped"],
@@ -1104,7 +1316,7 @@ def groth16_grouped(dev) -> dict:
         if not zkp.verify_equality(envs[i], pairs[i][0], pairs[i][1]):
             raise AssertionError(f"grouped equality proof {i} does not verify")
     emit({"phase": "groth16_grouped_byte_exact", "lanes": lanes, "identical": True,
-          "runs_identical": 6, "verified": 2})
+          "runs_identical": 7, "verified": 2})
     return {"counts": counts, "ms_per_batch": mean}
 
 
@@ -1434,8 +1646,9 @@ def main_path(dev) -> dict:
 
 
 def main(argv: list) -> int:
-    if argv not in ([], ["--kernels"], ["--range"]):
-        print(f"usage: python3 chip_smoke.py [--kernels | --range], got {argv}", file=sys.stderr)
+    if argv not in ([], ["--kernels"], ["--range"], ["--groth16"], ["--g1"]):
+        print(f"usage: python3 chip_smoke.py [--kernels | --range | --groth16 | --g1], got {argv}",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1473,6 +1686,13 @@ def main(argv: list) -> int:
     meshmod.set_mesh(meshmod.get_mesh(dp=1, devices=[dev]))
     if argv == ["--range"]:  # the main path alone, to run two checkouts in turns
         main_path(dev)
+        return 0
+    if argv == ["--groth16"]:  # the Groth16 phases alone, likewise
+        groth16_path(dev)
+        groth16_grouped(dev)
+        return 0
+    if argv == ["--g1"]:  # window_sum4 G1 and pair_add G1 alone, likewise
+        g1_pair(dev)
         return 0
     tables: dict = {}
     checks = (check_kernels(dev, int_rate, tables) + check_bn254_kernels(dev, int_rate, tables)

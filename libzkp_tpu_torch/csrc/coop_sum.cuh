@@ -1,16 +1,17 @@
 // Cooperative point additions: a BN254 G1 or G2 padd shared by six threads
 // (or a G2 padd by 18) of a warp, an ed25519 padd or pdouble by four, on
 // int16 operands in shared memory, and the plain version's halving tree over
-// one lane's K points built on them (tree_sum G1 and G2, window_sum4 G2,
-// window_sum ed25519; the Horner steps chain them, coop_horner.cuh).
+// one lane's K points built on them (tree_sum G1 and G2, window_sum4 G1 and
+// G2, window_sum ed25519; the Horner steps chain them, coop_horner.cuh).
 //
-// Both padds are RCB'15 algorithm 7 as rcb_padd (fold_curves.cuh) and the
-// plain WeierstrassEngine.padd order it: round 1, the six independent
-// products t0, t1, t2, t3, t4, X3; the rows between (the subtractions, the
-// two b3 products, Z3 and t1 - b3 t2); round 3, the six output products; the
-// output rows. Each row is the same integer operation on the same operands
-// as in rcb_padd, so the limbs equal the plain version's and JAX's, and the
-// int32 headroom argument of fold_curves.cuh holds unchanged. The stages
+// Both padds are RCB'15 algorithm 7 as the plain WeierstrassEngine.padd
+// (ops/weierstrass.py, and the JAX package's) orders it: round 1, the six
+// independent products t0, t1, t2, t3, t4, X3; the rows between (the
+// subtractions, the two b3 products, Z3 and t1 - b3 t2); round 3, the six
+// output products; the output rows. Each row is the same integer operation
+// on the same operands as in the plain padd, so the limbs equal the plain
+// version's and JAX's, and the int32 headroom argument of fold_curves.cuh
+// holds unchanged. The stages
 // meet at __syncwarp: a group never leaves its warp. Five groups fill a warp
 // (lanes 30 and 31 idle; an 18-thread group leaves lanes 18 to 31 idle); a
 // group with no padd passes act = false and still meets every __syncwarp.
@@ -445,64 +446,68 @@ __device__ __forceinline__ void g1_r1_operand(int32_t* r, const int16_t* pt, int
 }
 
 // out = P + Q (int16 G1 points), by the six threads g = 0..5 of one group
-// with scratch scr.
+// with scratch scr. Rounds 1 and 3 run through one product call site: two
+// inlined products made every G1 kernel's code larger and window_sum4 G1 7 %
+// slower (paired on the card).
 __device__ __forceinline__ void g1_padd_coop(int16_t* out, const int16_t* P, const int16_t* Q,
                                             int32_t* scr, int g, bool act) {
   using fold::N;
   int32_t* T = scr;
   int32_t* M = scr + 9 * N;  // after T's 9 rows
-  // round 1: product g, (X1, X2), (Y1, Y2), (Z1, Z2), (X1+Y1, X2+Y2),
-  // (Y1+Z1, Y2+Z2), (X1+Z1, X2+Z2): t0, t1, t2, t3, t4, X3 in T's rows 0..5
-  if (act) {
-    int32_t a[N], b[N];
-    g1_r1_operand(a, P, g);
-    g1_r1_operand(b, Q, g);
-    fe_mul_inline(a, a, b);
-    row_st32(T + g * N, a);
-  }
-  __syncwarp();
-  // one value a thread: g = 0, X3 = carry(t0 + t0 + t0) into row 6; g = 1,
-  // 2, b3 t2 = smul(t2, 9) (Bn254G1::mul_b3), then t1 - b3 t2 into row 7 and
-  // Z3 = t1 + b3 t2 into row 8; g = 3, 4, 5 in place, t3 = carry(t3 -
-  // carry(t0 + t1)), t4 = carry(t4 - carry(t1 + t2)), Y3 = carry(X3 -
-  // carry(t0 + t2)), then b3 Y3 = smul(Y3, 9)
-  if (act) {
-    int32_t r[N], x[N];
-    if (g == 0) {
-      row_ld32(r, T);
-#pragma unroll
-      for (int i = 0; i < N; ++i) r[i] = r[i] + r[i] + r[i];
-      fe_carry(r);
-      row_st32(T + 6 * N, r);
-    } else if (g < 3) {
-      row_ld32(x, T + 2 * N);
-      fe_smul(x, x, 9);
-      row_ld32(r, T + N);
-      row_add_carry(r, x, g == 1 ? -1 : 1);
-      row_st32(T + (6 + g) * N, r);
-    } else {
-      row_ld32(r, T + (g == 4 ? 1 : 0) * N);
-      row_ld32(x, T + (g == 3 ? 1 : 2) * N);
-      row_add_carry(r, x, 1);
-      row_ld32(x, T + g * N);
-#pragma unroll
-      for (int i = 0; i < N; ++i) r[i] = x[i] - r[i];
-      fe_carry(r);
-      if (g == 5) fe_smul(r, r, 9);
-      row_st32(T + g * N, r);
+#pragma unroll 1
+  for (int rnd = 0; rnd < 2; ++rnd) {
+    // round 1: product g, (X1, X2), (Y1, Y2), (Z1, Z2), (X1+Y1, X2+Y2),
+    // (Y1+Z1, Y2+Z2), (X1+Z1, X2+Z2): t0, t1, t2, t3, t4, X3 in T's rows
+    // 0..5; round 3: (t3, t1), (t4, Y3), (t1, Z3), (Y3, X3), (Z3, t4),
+    // (X3, t3), the operands' rows A = 3, 4, 7, 5, 8, 6; B = 7, 5, 8, 6, 4,
+    // 3, into M's rows
+    if (act) {
+      int32_t a[N], b[N];
+      if (rnd == 0) {
+        g1_r1_operand(a, P, g);
+        g1_r1_operand(b, Q, g);
+      } else {
+        row_ld32(a, T + ((0x685743 >> (4 * g)) & 15) * N);
+        row_ld32(b, T + ((0x346857 >> (4 * g)) & 15) * N);
+      }
+      fe_mul_inline(a, a, b);
+      row_st32((rnd == 0 ? T : M) + g * N, a);
     }
+    __syncwarp();
+    if (rnd == 1) break;
+    // one value a thread: g = 0, X3 = carry(t0 + t0 + t0) into row 6; g = 1,
+    // 2, b3 t2 = smul(t2, 9) (the plain _mul_b3), then t1 - b3 t2 into row 7
+    // and Z3 = t1 + b3 t2 into row 8; g = 3, 4, 5 in place, t3 = carry(t3 -
+    // carry(t0 + t1)), t4 = carry(t4 - carry(t1 + t2)), Y3 = carry(X3 -
+    // carry(t0 + t2)), then b3 Y3 = smul(Y3, 9)
+    if (act) {
+      int32_t r[N], x[N];
+      if (g == 0) {
+        row_ld32(r, T);
+#pragma unroll
+        for (int i = 0; i < N; ++i) r[i] = r[i] + r[i] + r[i];
+        fe_carry(r);
+        row_st32(T + 6 * N, r);
+      } else if (g < 3) {
+        row_ld32(x, T + 2 * N);
+        fe_smul(x, x, 9);
+        row_ld32(r, T + N);
+        row_add_carry(r, x, g == 1 ? -1 : 1);
+        row_st32(T + (6 + g) * N, r);
+      } else {
+        row_ld32(r, T + (g == 4 ? 1 : 0) * N);
+        row_ld32(x, T + (g == 3 ? 1 : 2) * N);
+        row_add_carry(r, x, 1);
+        row_ld32(x, T + g * N);
+#pragma unroll
+        for (int i = 0; i < N; ++i) r[i] = x[i] - r[i];
+        fe_carry(r);
+        if (g == 5) fe_smul(r, r, 9);
+        row_st32(T + g * N, r);
+      }
+    }
+    __syncwarp();
   }
-  __syncwarp();
-  // round 3: (t3, t1), (t4, Y3), (t1, Z3), (Y3, X3), (Z3, t4), (X3, t3), the
-  // operands' rows: A = 3, 4, 7, 5, 8, 6; B = 7, 5, 8, 6, 4, 3
-  if (act) {
-    int32_t a[N], b[N];
-    row_ld32(a, T + ((0x685743 >> (4 * g)) & 15) * N);
-    row_ld32(b, T + ((0x346857 >> (4 * g)) & 15) * N);
-    fe_mul_inline(a, a, b);
-    row_st32(M + g * N, a);
-  }
-  __syncwarp();
   // out row g < 3: X = p1 - p2, Y = p3 + p4, Z = p5 + p6
   if (act && g < 3) {
     int32_t r[N], x[N];

@@ -1,8 +1,9 @@
-// Fold-field arithmetic on 12-bit limbs and the point formulas of the three
-// curves of the MSM (ed25519, BN254 G1, BN254 G2), one lane per thread,
-// shared by the one-thread kernels (window_sum4 G1, tree_sum ed25519,
-// pair_add ed25519 and G1, the probes) and, for the field product, by the
-// cooperative ones (coop_sum.cuh).
+// Fold-field arithmetic on 12-bit limbs, the consts blocks of the three
+// curves of the MSM (ed25519, BN254 G1, BN254 G2) and the one-thread
+// Edwards padd, one lane per thread, shared by the one-thread kernels
+// (tree_sum ed25519, pair_add ed25519, the probes) and, for the field
+// product and carries, by the cooperative ones (coop_sum.cuh), which run
+// every BN254 padd.
 //
 // The same schedule as the plain PyTorch version (ops/limbfold.py FieldOps,
 // ops/edwards.py, ops/weierstrass.py) and the JAX package's ops/limbfold.py
@@ -31,7 +32,8 @@
 //   and a per-limb bound is needed. Interval arithmetic over the RCB formula
 //   with this p's actual ONE, FOLD and b3 limbs (every add, sub, carry, conv
 //   column, fold row and b3 product of padd, for G1 and for G2;
-//   tests/test_torch_weierstrass.py::test_int32_headroom) shows: starting from
+//   tests/test_torch_weierstrass.py::test_int32_headroom; the cooperative
+//   padds of coop_sum.cuh run these rows) shows: starting from
 //   canonical limbs [0, 4095], every padd output limb lies in
 //   [-7643, 11737], that interval is closed under padd, and every conv
 //   column (as the sum of its terms' magnitudes), fold row and carry
@@ -139,46 +141,6 @@ __device__ __noinline__ void fe_mul(int32_t* r, const int32_t* a, const int32_t*
 }
 
 // ---------------------------------------------------------------------------
-// Coordinate fields: Fq (R = 1 row) and Fq2 = Fq[u]/(u^2+1) (R = 2 rows)
-// ---------------------------------------------------------------------------
-
-template <int R>
-__device__ __forceinline__ void ext_add(int32_t (*r)[fold::N], int32_t (*a)[fold::N],
-                                        int32_t (*b)[fold::N]) {
-#pragma unroll
-  for (int k = 0; k < R; ++k) fe_add(r[k], a[k], b[k]);
-}
-
-template <int R>
-__device__ __forceinline__ void ext_sub(int32_t (*r)[fold::N], int32_t (*a)[fold::N],
-                                        int32_t (*b)[fold::N]) {
-#pragma unroll
-  for (int k = 0; k < R; ++k) fe_sub(r[k], a[k], b[k]);
-}
-
-// r = a * b; r may alias a or b. Fq2 is the JAX _Fq2.mul Karatsuba:
-// m0 = a0 b0, m1 = a1 b1, t = (a0 + a1)(b0 + b1), c0 = m0 - m1,
-// c1 = (t - m0) - m1.
-template <int R>
-__device__ __forceinline__ void ext_mul(int32_t (*r)[fold::N], int32_t (*a)[fold::N],
-                                        int32_t (*b)[fold::N]) {
-  using namespace fold;
-  if constexpr (R == 1) {
-    fe_mul(r[0], a[0], b[0]);
-  } else {
-    int32_t m0[N], m1[N], sa[N], sb[N], t[N];
-    fe_mul(m0, a[0], b[0]);
-    fe_mul(m1, a[1], b[1]);
-    fe_add(sa, a[0], a[1]);
-    fe_add(sb, b[0], b[1]);
-    fe_mul(t, sa, sb);
-    fe_sub(r[0], m0, m1);
-    fe_sub(t, t, m0);
-    fe_sub(r[1], t, m1);
-  }
-}
-
-// ---------------------------------------------------------------------------
 // Curves: coordinates, consts rows, padd, identity
 // ---------------------------------------------------------------------------
 
@@ -227,110 +189,17 @@ struct Ed25519 {
   }
 };
 
-// Complete projective y^2 = x^3 + b, a = 0: Renes-Costello-Batina 2015,
-// algorithm 7, step for step as the JAX WeierstrassEngine.padd. Coordinates
-// X, Y, Z of W::ROWS rows each. r may alias p or q: every read of p and q
-// comes before the first write of r.
-template <class W>
-__device__ __forceinline__ void rcb_padd(int32_t (*r)[fold::N], int32_t (*p)[fold::N],
-                                         int32_t (*q)[fold::N]) {
-  using namespace fold;
-  constexpr int R = W::ROWS;
-  int32_t (*X1)[N] = p;
-  int32_t (*Y1)[N] = p + R;
-  int32_t (*Z1)[N] = p + 2 * R;
-  int32_t (*X2)[N] = q;
-  int32_t (*Y2)[N] = q + R;
-  int32_t (*Z2)[N] = q + 2 * R;
-  int32_t t0[R][N], t1[R][N], t2[R][N], t3[R][N], t4[R][N], X3[R][N], Y3[R][N], Z3[R][N];
-  int32_t u[R][N], v[R][N];
-  ext_mul<R>(t0, X1, X2);
-  ext_mul<R>(t1, Y1, Y2);
-  ext_mul<R>(t2, Z1, Z2);
-  ext_add<R>(u, X1, Y1);
-  ext_add<R>(v, X2, Y2);
-  ext_mul<R>(t3, u, v);
-  ext_add<R>(u, t0, t1);
-  ext_sub<R>(t3, t3, u);
-  ext_add<R>(u, Y1, Z1);
-  ext_add<R>(v, Y2, Z2);
-  ext_mul<R>(t4, u, v);
-  ext_add<R>(u, t1, t2);
-  ext_sub<R>(t4, t4, u);
-  ext_add<R>(u, X1, Z1);
-  ext_add<R>(v, X2, Z2);
-  ext_mul<R>(X3, u, v);
-  ext_add<R>(u, t0, t2);
-  ext_sub<R>(Y3, X3, u);
-#pragma unroll
-  for (int k = 0; k < R; ++k) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) X3[k][i] = t0[k][i] + t0[k][i] + t0[k][i];
-    fe_carry(X3[k]);
-  }
-  W::mul_b3(t2, t2);
-  ext_add<R>(Z3, t1, t2);
-  ext_sub<R>(t1, t1, t2);
-  W::mul_b3(Y3, Y3);
-  ext_mul<R>(u, t3, t1);
-  ext_mul<R>(v, t4, Y3);
-  ext_sub<R>(r, u, v);
-  ext_mul<R>(u, t1, Z3);
-  ext_mul<R>(v, Y3, X3);
-  ext_add<R>(r + R, u, v);
-  ext_mul<R>(u, Z3, t4);
-  ext_mul<R>(v, X3, t3);
-  ext_add<R>(r + 2 * R, u, v);
-}
-
-// BN254 G1 over Fq: (X, Y, Z), b3 = 9.
+// BN254 G1 over Fq, (X, Y, Z), and G2 over Fq2, (X, Y, Z) each (c0, c1):
+// their consts blocks; the cooperative padds (coop_sum.cuh) run RCB'15
+// algorithm 7 on them.
 struct Bn254G1 {
-  static constexpr int ROWS = 1;
   static constexpr int COORDS = 3;
-  static constexpr int NCONST = fold::N + 3;  // ONE, FOLD[N + 2]
-
-  static __device__ __forceinline__ void mul_b3(int32_t (*r)[fold::N], int32_t (*x)[fold::N]) {
-    fe_smul(r[0], x[0], 9);
-  }
-  static __device__ __forceinline__ void padd(int32_t (*r)[fold::N], int32_t (*p)[fold::N],
-                                              int32_t (*q)[fold::N]) {
-    rcb_padd<Bn254G1>(r, p, q);
-  }
-  // (0 : 1 : 0)
-  static __device__ __forceinline__ void identity(int32_t (*r)[fold::N]) {
-#pragma unroll
-    for (int c = 0; c < COORDS; ++c)
-#pragma unroll
-      for (int i = 0; i < fold::N; ++i) r[c][i] = (i == 0 && c == ROWS) ? 1 : 0;
-  }
+  static constexpr int NCONST = fold::N + 3;  // ONE, FOLD[N + 2]; b3 = 9 is a small multiply
 };
 
-// BN254 G2 over Fq2: (X, Y, Z), each (c0, c1); b3 from the consts block.
 struct Bn254G2 {
-  static constexpr int ROWS = 2;
   static constexpr int COORDS = 6;
   static constexpr int NCONST = fold::N + 5;  // ONE, FOLD[N + 2], b3.c0, b3.c1
-
-  static __device__ __forceinline__ void mul_b3(int32_t (*r)[fold::N], int32_t (*x)[fold::N]) {
-    using namespace fold;
-    int32_t b3[2][N];
-#pragma unroll
-    for (int k = 0; k < 2; ++k)
-#pragma unroll
-      for (int i = 0; i < N; ++i) b3[k][i] = c_consts[(ROW_CURVE + k) * N + i];
-    ext_mul<2>(r, x, b3);
-  }
-  static __device__ __forceinline__ void padd(int32_t (*r)[fold::N], int32_t (*p)[fold::N],
-                                              int32_t (*q)[fold::N]) {
-    rcb_padd<Bn254G2>(r, p, q);
-  }
-  // (0 : 1 : 0), Y = (1, 0)
-  static __device__ __forceinline__ void identity(int32_t (*r)[fold::N]) {
-#pragma unroll
-    for (int c = 0; c < COORDS; ++c)
-#pragma unroll
-      for (int i = 0; i < fold::N; ++i) r[c][i] = (i == 0 && c == ROWS) ? 1 : 0;
-  }
 };
 
 // ---------------------------------------------------------------------------
@@ -401,18 +270,4 @@ __device__ __forceinline__ void warp_point_sum(int32_t (*acc)[fold::N], int32_t 
       for (int i = 0; i < fold::N; ++i) pt[c][i] = __shfl_down_sync(0xffffffffu, acc[c][i], off);
     if (s < off) Cv::padd(acc, acc, pt);
   }
-}
-
-// The window sum of the MSM: sum over the basis k = 0..Kp-1 of
-// table[k * 256 + digit(k)], a (rows, COORDS, N) int16 multiples table, for
-// one output lane. `digit` is this lane's digit column with its stride over k.
-template <class Cv>
-__device__ __forceinline__ void warp_window_sum(int32_t (*acc)[fold::N], int32_t (*pt)[fold::N],
-                                                const int16_t* __restrict__ table,
-                                                const int32_t* __restrict__ digit, size_t stride,
-                                                int Kp, int s) {
-  warp_point_sum<Cv>(acc, pt, [=](int k) {
-    const int d = digit[(size_t)k * stride] & 0xFF;
-    return table + (size_t)(k * 256 + d) * Cv::COORDS * fold::N;
-  }, Kp, s);
 }

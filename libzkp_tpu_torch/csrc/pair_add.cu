@@ -13,17 +13,21 @@
 // product N^2 + (N + 2) * N = 576 + 624 = 1200 multiply-adds. At the table
 // builds' K of a few hundred lanes one launch is one padd's latency.
 //
-// ed25519 and G1: one thread per lane, coalesced over the lane axis.
+// ed25519: one thread per lane, coalesced over the lane axis (the table
+// build of the range prover's basis, run once a process).
 //
-// G2: one group of 18 threads per lane, one group a warp, on the cooperative
-// G2 padd (coop_horner_kernel<G2Coop18, 1, 0>, coop_horner.cuh: the Horner
-// template with no doublings and one window, acc_in = p, wsums = q), so a
-// launch's latency is 3 Fq products of one thread where one thread per lane
-// ran all 42 with its two 6 x 24 int32 points spilled to local memory. At
-// the b_g2 table's K = 352 that is 352 one-warp blocks. p and q are narrowed
-// to int16 in shared memory: each is a table row, the base point, the
-// identity or a mesh partial sum (a Horner or padd output), whose limbs lie
-// in int16 (coop_horner.cuh states the precondition).
+// BN254 G1 and G2: one cooperative group per lane on the Horner template
+// with no doublings and one window (coop_horner_kernel<Cp, 1, 0>,
+// coop_horner.cuh: acc_in = p, wsums = q). G1 runs five six-thread groups a
+// warp on G1Coop, so a launch's latency is 2 products of one thread where one
+// thread per lane ran all 12 with its two 3 x 24 int32 points in 255
+// registers; G2 one group of 18 threads a warp on G2Coop18, 3 Fq products of
+// one thread against 42, its two 6 x 24 int32 points spilled to local memory.
+// Blocks of one warp spread the lanes over the SMs: the grouped route's
+// statement tables have K = 8 lanes (two blocks), the query tables 352 or 512.
+// p and q are narrowed to int16 in shared memory: each is a table row, the
+// base point, the identity or a mesh partial sum (a Horner or padd output),
+// whose limbs lie in int16 (coop_horner.cuh states the precondition).
 //
 // Every formula is the plain version's, step for step, so the limbs are
 // identical to it. Fusing the 255-step chain into one launch is left for
@@ -63,17 +67,19 @@ int launch(const int32_t* consts, const int32_t* p, const int32_t* q, int32_t* o
 }  // namespace
 
 // consts: the curve's (NCONST, N) int32 block; p, q, out: (COORDS, N, K)
-// int32; G2 only: blocks, warps per block (blocks * warps >= K) and dynamic
-// shared bytes (at least coop_horner_smem_bytes<G2Coop18, 1>(warps)). Each
-// returns the CUDA error of the launch (0 on success).
+// int32; BN254 only: blocks, warps per block (blocks * warps * lanes a warp
+// >= K: 5 for G1, 1 for G2) and dynamic shared bytes (at least
+// coop_horner_smem_bytes<Cp, 1>(warps)). Each returns the CUDA error of the
+// launch (0 on success).
 extern "C" int pair_add_ed25519_launch(const int32_t* consts, const int32_t* p, const int32_t* q,
                                        int32_t* out, int K, void* stream) {
   return launch<Ed25519>(consts, p, q, out, K, stream);
 }
 
 extern "C" int pair_add_bn254_g1_launch(const int32_t* consts, const int32_t* p, const int32_t* q,
-                                        int32_t* out, int K, void* stream) {
-  return launch<Bn254G1>(consts, p, q, out, K, stream);
+                                        int32_t* out, int K, int blocks, int warps, int smem,
+                                        void* stream) {
+  return coop_horner_launch<Bn254G1, G1Coop, 1, 0>(consts, p, q, out, K, blocks, warps, smem, stream);
 }
 
 extern "C" int pair_add_bn254_g2_launch(const int32_t* consts, const int32_t* p, const int32_t* q,

@@ -6,9 +6,9 @@ and bound with ``ctypes``; the field and curve code they share is
 ``csrc/fold_curves.cuh``, the Montgomery field code ``csrc/mont.cuh``, the
 cooperative padds (BN254 G1 and G2, the Edwards padd and pdouble of
 ed25519) and tree sum ``csrc/coop_sum.cuh`` (window_sum ed25519,
-window_sum4 G2, tree_sum G1 and G2) and the Horner chain on them
+window_sum4 G1 and G2, tree_sum G1 and G2) and the Horner chain on them
 ``csrc/coop_horner.cuh`` (horner on every curve, horner4 G1 and G2,
-pair_add G2). Each kernel is instantiated for the curves its path runs,
+pair_add G1 and G2). Each kernel is instantiated for the curves its path runs,
 and each instance is a kernel of its own, named ``<kernel>`` for ed25519
 or a field-generic kernel and
 ``<kernel>_<curve>`` for BN254 or ``<kernel>_<variant>`` for a probe's
@@ -114,7 +114,7 @@ _ARGTYPES = {
     "window_sum": [_P, _P, _P, _P, _I, _I, _I, _I, _P],  # cooperative: (blocks,) warps, shared bytes
     "horner": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "pair_add": [_P, _P, _P, _P, _I, _P],
-    "window_sum4": [_P, _P, _P, _P, _I, _I, _P],
+    "window_sum4": [_P, _P, _P, _P, _I, _I, _I, _I, _P],  # G2: warps, shared bytes
     "horner4": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "tree_sum": [_P, _P, _P, _I, _I, _P],
     "padd_chain": [_P, _P, _P, _P, _I, _I, _P],
@@ -124,9 +124,10 @@ _ARGTYPES = {
     "fold_ablate": [_P, _P, _P, _P, _I, _I, _P],
     "padd_f32_chain": [_P, _P, _P, _P, _I, _I, _P],
     # the other cooperative instances also take their geometry
-    "window_sum4_bn254_g2": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "window_sum4_bn254_g1": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],  # + partials
     "tree_sum_bn254_g1": [_P, _P, _P, _I, _I, _I, _I, _P],
     "tree_sum_bn254_g2": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "pair_add_bn254_g1": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "pair_add_bn254_g2": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
@@ -135,9 +136,11 @@ _ARGTYPES = {
 # warp, each with its int32 scratch rows (horner G2's and pair_add G2's
 # padd: 18 threads, one a warp); the tree sums (window_sum ed25519,
 # window_sum4 G2, tree_sum G1 and G2) run one block per output lane with a
-# level store of ceil(K/2) int16 points; the Horner steps (horner on every
-# curve, horner4 G1 and G2) and pair_add G2 one group per lane, holding its
-# accumulator and its window sums (pair_add: p and q) as int16 points.
+# level store of ceil(K/2) int16 points; window_sum4 G1 first gives each of
+# a lane's G nodes of the same tree to one group (window_sum4_g1_geometry);
+# the Horner steps (horner on every curve, horner4 G1 and G2) and pair_add
+# G1 and G2 one group per lane, holding its accumulator and its window sums
+# (pair_add: p and q) as int16 points.
 COOP_PADDS_PER_WARP = {"ed25519": 8, "bn254_g1": 5, "bn254_g2": 5}
 COOP_MAX_WARPS = 12        # 384 threads a block (the kernels' launch bounds)
 POINT_BYTES = {"ed25519": 4 * 24 * 2, "bn254_g1": 3 * 24 * 2, "bn254_g2": 6 * 24 * 2}
@@ -149,6 +152,15 @@ COOP_HORNER_WARPS = 1      # one warp a block, each alone on its SM at the paths
 # (chip_smoke's k1_warps line: 1 warp a lane fastest at 1024 lanes, 2 at 512).
 ED_SUM_WARPS_PER_SM = 8
 G2_HORNER_PER_WARP = 1     # horner G2, pair_add G2: one 18-thread group a warp
+# window_sum4 G1 (csrc/window_sum4.cu): kernel 1's one-warp blocks an SM and
+# kernel 2's largest block, both as the kernels' launch bounds promise them
+# registers (at most 112 and 128 a thread), and the waves of kernel 1 blocks
+# the rule asks for: one wave of padd chains ends ragged (chip_smoke's
+# ws4_g1_groups line: at Kp 512 and 1024 lanes, G = 32, 2.8 waves, 6 %
+# faster than G = 8, 0.7 of a wave)
+WS4_G1_NODE_BLOCKS = 18
+WS4_G1_TOP_WARPS = 8
+WS4_G1_WAVES = 2
 SMEM_BLOCK_MAX = 232_448   # dynamic shared memory one block may use (H100)
 SMEM_SM = 233_472          # shared memory of an SM; each resident block also holds 1 KiB
 
@@ -191,6 +203,65 @@ def coop_horner_geometry(curve: str, lanes: int, windows: int) -> tuple:
     per_block = COOP_HORNER_WARPS * per_warp
     smem = per_block * ((1 + windows) * POINT_BYTES[curve] + COOP_SCRATCH_BYTES[curve])
     return -(-lanes // per_block), COOP_HORNER_WARPS, smem
+
+
+def window_sum4_g1_geometry(Kp: int, lanes: int, sms: int, groups: int = None) -> tuple:
+    """(G, kernel 1's dynamic shared bytes, kernel 2's warps per block and
+    dynamic shared bytes) of window_sum4 G1 over ``Kp`` points for ``lanes``
+    output lanes on a card of ``sms`` SMs (``csrc/window_sum4.cu``).
+
+    Every lane's tree splits into G nodes of 2^l = Kp / G points each, G
+    one of Kp, Kp / 2, ... down to Kp's odd part; kernel 1 runs one
+    six-thread group a node (G = Kp: none), with l int16 points and its padd
+    scratch in shared memory, and kernel 2 the tree over a lane's G nodes.
+    The rule, among the G whose kernel 1 blocks fit WS4_G1_NODE_BLOCKS to
+    an SM's shared memory: the fewest nodes (the longest chains) that still
+    give WS4_G1_WAVES waves of such blocks an SM; with too few lanes for
+    that, the card is not full and the G of the fewest dependent padd steps
+    (kernel 1's chain, then kernel 2's block steps of 5 padds a warp, a
+    level at a time), the larger G on a tie. ``groups`` forces G. Every G
+    sums the plain tree, so the limbs do not depend on it. Raises for a G
+    that does not split Kp so, or where kernel 2's level store and one
+    warp's scratch exceed a block's shared memory."""
+    if Kp < 1 or lanes < 1:
+        raise ValueError(f"window_sum4 G1 needs points and lanes, got Kp {Kp}, {lanes} lanes")
+    point, scratch = POINT_BYTES["bn254_g1"], COOP_SCRATCH_BYTES["bn254_g1"]
+    padds = COOP_PADDS_PER_WARP["bn254_g1"]
+
+    def nodes_smem(G):
+        ell = (Kp // G).bit_length() - 1
+        return padds * (ell * point + scratch) if ell else 0
+
+    per_warp = padds * scratch
+
+    def top_warps(G):
+        store = (G + 1) // 2 * point
+        return max(1, min(WS4_G1_TOP_WARPS, -(-(G // 2) // padds), (SMEM_SM // 2 - 1024 - store) // per_warp))
+
+    def steps(G):  # dependent padd steps of one lane: kernel 1's chain, kernel 2's levels
+        n, out = G, Kp // G - 1
+        while n > 1:
+            out += -(-(n // 2) // (padds * top_warps(G)))
+            n -= n // 2
+        return out
+
+    cands = [Kp]
+    while cands[-1] % 2 == 0:
+        cands.append(cands[-1] // 2)
+    if groups is None:
+        fit = [G for G in cands if WS4_G1_NODE_BLOCKS * (nodes_smem(G) + 1024) <= SMEM_SM]
+        full = [G for G in fit if -(-lanes * G // padds) >= WS4_G1_WAVES * WS4_G1_NODE_BLOCKS * sms]
+        G = min(full) if full else min(fit, key=lambda G: (steps(G), -G))
+    elif groups in cands:
+        G = groups
+    else:
+        raise ValueError(f"{groups} nodes do not split {Kp} points into powers of two")
+    store = (G + 1) // 2 * point
+    if store + per_warp > SMEM_BLOCK_MAX:
+        raise ValueError(f"window_sum4 G1's tree over {G} nodes needs {store + per_warp} bytes of "
+                         f"shared memory a block, above the {SMEM_BLOCK_MAX} the card allows")
+    warps = top_warps(G)
+    return G, nodes_smem(G), warps, store + warps * per_warp
 
 
 def _coop_geometry(dev: torch.device, curve: str, K: int, lanes: int) -> tuple:
@@ -428,8 +499,8 @@ def pair_add(consts: torch.Tensor, p: torch.Tensor, q: torch.Tensor, *,
              curve: str = "ed25519") -> torch.Tensor:
     """p + q per lane over (C, n, K) int32.
 
-    The BN254 G2 kernel narrows ``p`` and ``q`` to int16 (its
-    precondition): every limb must lie in int16. Its callers meet it:
+    The BN254 G1 and G2 kernels narrow ``p`` and ``q`` to int16 (their
+    precondition): every limb must lie in int16. Their callers meet it:
     ``DeviceTable``'s build adds a table row (the identity or a padd output)
     and the encoded base point, and the mesh fold (``reduce_points``) adds
     partial sums, each a ``horner`` or ``pair_add`` output; every padd
@@ -442,7 +513,7 @@ def pair_add(consts: torch.Tensor, p: torch.Tensor, q: torch.Tensor, *,
     _check_points(eng, "p", p, K)
     _check_points(eng, "q", q, K)
     out = torch.empty_like(p)
-    geometry = coop_horner_geometry(curve, K, 1) if curve == "bn254_g2" else ()
+    geometry = coop_horner_geometry(curve, K, 1) if curve != "ed25519" else ()
     _run("pair_add", curve, dev, consts.data_ptr(), p.data_ptr(), q.data_ptr(), out.data_ptr(), K,
          *geometry)
     return out
@@ -463,13 +534,69 @@ def window_sum4_plain(consts: torch.Tensor, table: torch.Tensor, digits: torch.T
     return tree_sum_plain(consts, _gather(table, d), curve=curve)
 
 
+def window_sum4_order(consts: torch.Tensor, table: torch.Tensor, digits: torch.Tensor, *,
+                      groups: int, padd=None) -> torch.Tensor:
+    """The G1 kernel's order, on the CPU: each lane's ``groups`` nodes of
+    2^l = Kp / G points summed one padd at a time as kernel 1 sums them
+    (the leaf pairs in bit-reversed order, a binary counter of pending left
+    nodes), then the tree over the nodes as kernel 2 sums it, every padd
+    output narrowed to int16 as the kernels' shared and global memory hold
+    it (raises where a limb leaves int16). ``padd(p, q)`` on (3, n, L) int32
+    lanes is the plain padd unless given (a test passes the cooperative
+    schedule's). The plain tree's order, so the limbs equal
+    ``window_sum4_plain``'s; for tests and chip_smoke only."""
+    eng = get_engine("bn254_g1")
+    padd = padd or (lambda p, q: eng.padd(consts, p, q))
+    WG, Kp, B = digits.shape
+    G, L, C, n = groups, WG * B, eng.coords, eng.n
+    ell = (Kp // G).bit_length() - 1
+    if Kp % G or Kp // G != 1 << ell:
+        raise ValueError(f"{G} nodes do not split {Kp} points into powers of two")
+    rows = _gather(table, digits.permute(1, 0, 2).reshape(Kp, L))  # (L, Kp, C, n) int16
+
+    def narrowed(x):
+        x16 = x.to(torch.int16)
+        if not torch.equal(x16.to(torch.int32), x):
+            raise ValueError("a padd output left int16")
+        return x16.to(torch.int32)
+
+    def leaves(m):  # point r + m G of every lane's node r, as lanes j * G + r
+        return rows[:, m * G:(m + 1) * G].reshape(L * G, C, n).permute(1, 2, 0).to(torch.int32)
+
+    nodes, pending = leaves(0), {}
+    for u in range(1 << ell >> 1):
+        m = int(f"{2 * u:0{ell}b}"[::-1], 2)
+        p, q, v = leaves(m), leaves(m + (1 << ell >> 1)), u
+        for lvl in range(1, ell + 1):
+            out = narrowed(padd(p, q))
+            if lvl == ell:
+                nodes = out
+            elif v & 1:
+                p, q, v = pending[lvl], out, v >> 1
+                continue
+            else:
+                pending[lvl] = out
+            break
+    v = nodes.reshape(C, n, L, G).permute(3, 0, 1, 2)  # (G, C, n, L)
+    while v.shape[0] > 1:
+        half = v.shape[0] // 2
+
+        def lanes(x):
+            return x.permute(1, 2, 0, 3).reshape(C, n, half * L)
+
+        s = narrowed(padd(lanes(v[:half]), lanes(v[half:2 * half]))).reshape(C, n, half, L).permute(2, 0, 1, 3)
+        v = torch.cat([s, v[-1:]]) if v.shape[0] % 2 else s
+    return v[0]
+
+
 def window_sum4(consts: torch.Tensor, table: torch.Tensor, digits: torch.Tensor, *,
                 curve: str) -> torch.Tensor:
     """Window sums of WIN_GROUP windows at once.
 
     ``table``: (Kp*256, C, n) int16; ``digits``: (WIN_GROUP, Kp, B) int32 in
     [0, 256), window 0 the highest of the group. Returns (C, n, WIN_GROUP*B)
-    int32, window w of lane b in lane w*B + b."""
+    int32, window w of lane b in lane w*B + b. Both kernels sum in the plain
+    tree's order, so their limbs equal ``window_sum4_plain``'s."""
     if table.device.type == "cpu":
         return window_sum4_plain(consts, table, digits, curve=curve)
     eng = _engine("window_sum4", curve)
@@ -479,9 +606,17 @@ def window_sum4(consts: torch.Tensor, table: torch.Tensor, digits: torch.Tensor,
         raise ValueError(f"digits must hold {WIN_GROUP} windows, got {WG}")
     _check_table(eng, table, digits, Kp)
     out = torch.empty((eng.coords, eng.n, WG * B), dtype=torch.int32, device=table.device)
-    geometry = _coop_geometry(dev, curve, Kp, WG * B) if curve == "bn254_g2" else ()
+    if curve == "bn254_g2":
+        _run("window_sum4", curve, dev, consts.data_ptr(), table.data_ptr(), digits.data_ptr(),
+             out.data_ptr(), Kp, B, *_coop_geometry(dev, curve, Kp, WG * B))
+        return out
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    G, nodes_smem, warps, smem = window_sum4_g1_geometry(Kp, WG * B, sms)
+    nodes = (torch.empty((WG * B * G, eng.coords, eng.n), dtype=torch.int16, device=table.device)
+             if G < Kp else None)
     _run("window_sum4", curve, dev, consts.data_ptr(), table.data_ptr(), digits.data_ptr(),
-         out.data_ptr(), Kp, B, *geometry)
+         nodes.data_ptr() if nodes is not None else None, out.data_ptr(), Kp, B, G, nodes_smem, warps,
+         smem)
     return out
 
 

@@ -18,19 +18,31 @@ small sizes against the plain versions:
   ``horner4_plain``'s limbs (and so the JAX ``_horner_call``'s and
   ``_horner4_call``'s, tests/test_torch_sharded_msm.py and
   tests/test_torch_weierstrass.py);
+* window_sum4 G1's order (``csrc/window_sum4.cu``: each lane's G nodes of
+  the plain tree summed one padd at a time by one group each, the leaf pairs
+  in bit-reversed order, then the tree over the nodes), on that schedule
+  with every padd output narrowed to int16, gives the JAX
+  ``_window_fused4_call``'s limbs at every G;
+* pair_add G1 (``coop_horner_kernel<G1Coop, 1, 0>``): p and q narrowed to
+  int16, then one padd on the schedule, gives ``pair_add_plain``'s limbs;
 * the wrappers' launch geometry fits a block's shared memory at every shape
-  the mesh gives ``tree_sum`` G1 and at every lane count of a Horner step,
-  and a shape that cannot fit raises.
+  the mesh gives ``tree_sum`` G1, at every lane count of a Horner step and
+  at every window_sum4 G1 shape of the Groth16 paths (and the SM's
+  registers, as the kernels' launch bounds give them), and a shape that
+  cannot fit raises.
 """
 
 from __future__ import annotations
 
 import random
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from libzkp_tpu.ops import curve_jax as cj
+from libzkp_tpu_torch import convert
 from libzkp_tpu_torch.ops import bn254 as bn
 from libzkp_tpu_torch.ops import curve as tc
 from libzkp_tpu_torch.ops import kernels
@@ -51,15 +63,19 @@ def _one_torch_thread():
 
 
 @pytest.fixture(scope="module")
-def g1_table():
-    """Consts and the (Kp * 256, 3, n) int16 multiples table of 6 random G1
-    points (Kp = 8), built by the plain table-add chain."""
-    eng = get_engine(CURVE)
+def g1_base():
+    """6 random G1 points, encoded: (6, 3, n) int32 limbs."""
     rng = random.Random(6)
     g = bn.g1_from_affine(bn.G1_GEN)
-    pts = [bn.g1_scalar_mul(rng.randrange(1, bn.R), g) for _ in range(6)]
-    table = tc.DeviceTable(eng.encode_points(pts), device="cpu", curve=CURVE)
-    return torch.from_numpy(eng.consts_np), table.table, table.Kp
+    return get_engine(CURVE).encode_points([bn.g1_scalar_mul(rng.randrange(1, bn.R), g) for _ in range(6)])
+
+
+@pytest.fixture(scope="module")
+def g1_table(g1_base):
+    """Consts and the (Kp * 256, 3, n) int16 multiples table of the 6
+    points (Kp = 8), built by the plain table-add chain."""
+    table = tc.DeviceTable(g1_base, device="cpu", curve=CURVE)
+    return torch.from_numpy(get_engine(CURVE).consts_np), table.table, table.Kp
 
 
 def _gathered(table, kp: int, K: int, lanes: int, seed: int) -> torch.Tensor:
@@ -189,6 +205,100 @@ def test_narrowed_g1_horner_chain_gives_horner_plain_limbs(g1_table, WG, B):
 
 
 # ---------------------------------------------------------------------------
+# window_sum4 G1's order (csrc/window_sum4.cu kernels 1 and 2)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def g1_jax_table():
+    """The JAX package's host-built table of 64 random G1 points (Kp = 64)
+    and the JAX consts."""
+    rng = random.Random(64)
+    g = bn.g1_from_affine(bn.G1_GEN)
+    jt = cj.build_table_bn254_g1([bn.g1_scalar_mul(rng.randrange(1, bn.R), g) for _ in range(64)])
+    assert jt.Kp == 64
+    return jt, jnp.asarray(cj.bn254_g1_engine().consts_np)
+
+
+def _jax_window_sum4(jt, jc, Kp: int, dig: np.ndarray) -> np.ndarray:
+    """The JAX window sum of the first Kp basis points, as the JAX tests run
+    it on the CPU: the ``_window_fused4_call`` branch where its K chunk
+    divides Kp, else its plain reference, ``_tree_reduce`` over the
+    engine's padd on the gathered rows (Kp = 33)."""
+    B = dig.shape[-1]
+    if Kp % min(cj.K_CHUNK, Kp) == 0:
+        return np.asarray(cj._window_fused4_call(CURVE, Kp, B)(jc, jt.table_int8_packed[:Kp], jnp.asarray(dig)))
+    ej = cj.bn254_g1_engine()
+    d = np.transpose(dig, (1, 0, 2)).reshape(Kp, -1)
+    rows = jt.table[jnp.asarray(d + 256 * np.arange(Kp)[:, None])].astype(jnp.int32)  # (Kp, 4B, 3, n)
+    return np.asarray(cj._tree_reduce(lambda a, b: ej.padd(jc, a, b), jnp.transpose(rows, (0, 2, 3, 1))))
+
+
+@pytest.mark.parametrize("Kp", [1, 2, 8, 33, 64])
+@pytest.mark.parametrize("B", [1, 3])
+def test_window_sum4_g1_order_gives_jax_limbs(g1_jax_table, Kp, B):
+    """window_sum4_order on the cooperative schedule, every padd output
+    narrowed to int16 (it raises where a limb leaves int16), at every G the
+    geometry may choose (Kp, Kp / 2, ... down to Kp's odd part: kernel 1's
+    chains of 2^l points and kernel 2's tree), gives the JAX
+    _window_fused4_call's limbs on the same table and seeded digits."""
+    jt, jc = g1_jax_table
+    dig = np.random.default_rng(100 * Kp + B).integers(0, 256, (kernels.WIN_GROUP, Kp, B)).astype(np.int32)
+    want = _jax_window_sum4(jt, jc, Kp, dig)
+    assert want.shape == (3, get_engine(CURVE).n, kernels.WIN_GROUP * B)
+    consts = torch.from_numpy(get_engine(CURVE).consts_np)
+    table = convert.multiples_table(np.asarray(jt.table)[:Kp * 256], Kp, device="cpu", curve=CURVE).table
+    f = FieldOps(get_engine(CURVE).n, consts)
+    G = Kp
+    while True:
+        got = kernels.window_sum4_order(consts, table, torch.from_numpy(dig), groups=G,
+                                        padd=lambda p, q: _coop_padd(f, p, q))
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=f"G = {G}")
+        if G % 2:
+            break
+        G //= 2
+
+
+# ---------------------------------------------------------------------------
+# the narrowed pair_add (coop_horner_kernel<G1Coop, 1, 0>)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("K", [1, 5, 6, 8, 352])
+def test_narrowed_g1_pair_add_gives_pair_add_plain_limbs(g1_base, g1_table, K):
+    """pair_add G1: p and q narrowed to int16, then one padd on the
+    six-thread schedule. Lanes as the paths give them: a table build step,
+    row d of basis point k plus its encoded base (lane 0: the identity plus
+    the base; lane 1: row 1 plus the base, the build's doubling at step 2;
+    the basis's padded points: the identity twice), and, in every third
+    lane from lane 2, two Horner outputs as the mesh fold adds them; the
+    limbs, and the output's narrowing, equal pair_add_plain's."""
+    consts, table, kp = g1_table
+    eng = get_engine(CURVE)
+    f = FieldOps(eng.n, consts)
+    k = np.arange(K) % kp
+    d = np.random.default_rng(80 + K).integers(0, 255, K)
+    d[:2] = [0, 1][:K]
+    p = table[torch.from_numpy(k * 256 + d)].permute(1, 2, 0).to(torch.int32)
+    pad = np.broadcast_to(eng.identity_np()[None], (kp - len(g1_base),) + g1_base.shape[1:])
+    base = np.concatenate([g1_base, pad])  # DeviceTable's padded basis
+    q = torch.from_numpy(np.ascontiguousarray(np.transpose(base[k], (1, 2, 0))))
+    sums = kernels.tree_sum_plain(consts, _gathered(table, kp, 3, 8, seed=90), curve=CURVE)
+    horners = kernels.horner_plain(consts, sums[..., :4], sums[..., 4:], curve=CURVE)
+    fold = torch.arange(K)[2::3]
+    p[..., fold] = horners[..., fold % 4]
+    q[..., fold] = horners[..., (fold + 1) % 4]
+
+    def narrowed(x):
+        n16 = x.to(torch.int16)
+        assert torch.equal(n16.to(torch.int32), x), "a limb left int16"
+        return n16.to(torch.int32)
+
+    got = narrowed(_coop_padd(f, narrowed(p), narrowed(q)))
+    assert torch.equal(got, kernels.pair_add_plain(consts, p, q, curve=CURVE))
+
+
+# ---------------------------------------------------------------------------
 # launch geometry
 # ---------------------------------------------------------------------------
 
@@ -237,3 +347,49 @@ def test_horner_g1_geometry_fits_every_lane_count(B, WG):
 def test_horner_g1_geometry_raises_without_lanes():
     with pytest.raises(ValueError, match="at least one lane"):
         kernels.coop_horner_geometry(CURVE, 0, 1)
+
+
+# (Kp, lanes) -> G the rule gives on an H100: the h query and the a, b_g1, l
+# queries at 256 statements (two waves of kernel 1 blocks), a statement's
+# table on the grouped route and the h query at its 8 statements (the
+# fewest dependent padd steps)
+WS4_G1_PATH_G = {(512, 1024): 32, (352, 1024): 44, (8, 128): 8, (512, 32): 128}
+
+
+@pytest.mark.parametrize("Kp", [8, 352, 512])
+@pytest.mark.parametrize("B", [1, 8, 32, 256])
+def test_window_sum4_g1_geometry_fits_every_path_shape(Kp, B):
+    """Kernel 1's blocks fit WS4_G1_NODE_BLOCKS to an SM (their launch
+    bounds give each at most 112 registers: 18 one-warp blocks take 64,512
+    of the SM's 65,536) and kernel 2's two to an SM (at most 8 warps of 128
+    registers), both within a block's shared memory; G splits Kp into
+    powers of two."""
+    lanes = kernels.WIN_GROUP * B
+    G, nodes_smem, warps, smem = kernels.window_sum4_g1_geometry(Kp, lanes, H100_SMS)
+    assert Kp % G == 0 and (Kp // G) & (Kp // G - 1) == 0
+    ell = (Kp // G).bit_length() - 1
+    padds, point = kernels.COOP_PADDS_PER_WARP[CURVE], kernels.POINT_BYTES[CURVE]
+    scratch = kernels.COOP_SCRATCH_BYTES[CURVE]
+    if ell:
+        assert nodes_smem == padds * (ell * point + scratch)
+        assert kernels.WS4_G1_NODE_BLOCKS * (nodes_smem + 1024) <= kernels.SMEM_SM
+        assert kernels.WS4_G1_NODE_BLOCKS * 32 * 112 <= 65536
+    else:
+        assert (G, nodes_smem) == (Kp, 0)
+    assert 1 <= warps <= kernels.WS4_G1_TOP_WARPS
+    assert smem == (G + 1) // 2 * point + warps * padds * scratch
+    assert 2 * (smem + 1024) <= kernels.SMEM_SM and 2 * warps * 32 * 128 <= 65536
+    if (Kp, lanes) in WS4_G1_PATH_G:
+        assert G == WS4_G1_PATH_G[(Kp, lanes)]
+
+
+def test_window_sum4_g1_geometry_raises():
+    point, per_warp = kernels.POINT_BYTES[CURVE], 5 * kernels.COOP_SCRATCH_BYTES[CURVE]
+    odd = (kernels.SMEM_BLOCK_MAX - per_warp) // point * 2 + 1  # an odd Kp: one node a point
+    with pytest.raises(ValueError, match="shared memory"):
+        kernels.window_sum4_g1_geometry(odd, 4, H100_SMS)
+    assert kernels.window_sum4_g1_geometry(odd - 2, 4, H100_SMS)[0] == odd - 2
+    with pytest.raises(ValueError, match="powers of two"):
+        kernels.window_sum4_g1_geometry(352, 4, H100_SMS, groups=4)
+    with pytest.raises(ValueError, match="points and lanes"):
+        kernels.window_sum4_g1_geometry(0, 4, H100_SMS)

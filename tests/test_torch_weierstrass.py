@@ -344,7 +344,7 @@ class _IntervalField:
 
 def _rcb_padd_intervals(F, eng, P, Q):
     """RCB algorithm 7 on intervals, operation for operation as
-    WeierstrassEngine.padd (and rcb_padd of the CUDA header)."""
+    WeierstrassEngine.padd (and the cooperative padds of csrc/coop_sum.cuh)."""
     r = eng.rows
 
     def mul(a, b):
