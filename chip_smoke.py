@@ -5,11 +5,15 @@
     python3 chip_smoke.py --range      # phases 1, 2 and 4 only, no last line
     python3 chip_smoke.py --groth16    # phases 1, 2, 5 and 6 only, no last line
     python3 chip_smoke.py --g1         # phases 1, 2 and g1_pair only, no last line
+    python3 chip_smoke.py --mont       # phases 1, 2, mont_pair and 10 only, no last line
+    python3 chip_smoke.py --ed-tree    # phases 1, 2 and ed_tree_pair only, no last line
 
 Phases, each printing one JSON line:
 
 1. the card (``nvidia-smi`` and torch's view of it);
-2. the build of the CUDA kernels from ``libzkp_tpu_torch/csrc`` (timed);
+2. the build of the CUDA kernels from ``libzkp_tpu_torch/csrc`` (timed; the
+   ptxas lines, and mont_mul's and tree_sum ed25519's registers, frame and
+   spills);
 3. each kernel instance against its plain PyTorch version on the card at its
    path's shapes, both timed with CUDA events: the ed25519 window_sum,
    horner and pair_add of the range prover; pair_add, window_sum4 and
@@ -19,11 +23,15 @@ Phases, each printing one JSON line:
    points; ed25519 at phase 7's range-basis MSM, 96 points); the probe
    kernels padd_chain and fe_mul, and pair_add at P5's shape; mont_padd,
    the five fold_ablate variants and padd_f32_chain at their probes'
-   shapes; mont_mul at an NTT stage of a 256-statement h batch (twiddles
-   broadcast), with a one-row operand, and at P6's 2^20 rows. The
-   cooperative kernels (window_sum and horner ed25519, window_sum4 G1 and
-   G2, tree_sum G1 and G2, horner G1 and G2, horner4 G1 and G2, pair_add G1
-   and G2) are held limb for limb, also at ragged shapes (window_sum: Kp in {1, 2, 3,
+   shapes; mont_mul, limb for limb, at an NTT stage of a 256-statement h
+   batch (twiddles broadcast), with a one-row operand, at MiMC's 4096 rows
+   (b = a, and one row), at ragged last blocks, at b rows that are no
+   contiguous run of a block, from bases not 16-byte aligned and at P6's
+   2^20 rows, the timed ones also with the card's time a launch from the
+   profiler. The cooperative kernels (window_sum and horner ed25519,
+   window_sum4 G1 and G2, tree_sum on every curve, horner G1 and G2,
+   horner4 G1 and G2, pair_add G1 and G2) are held limb for limb, also at
+   ragged shapes (window_sum: Kp in {1, 2, 3,
    33, 160}, B in {1, 7, 513}, and at 512 lanes with its warps a block
    compared (1, 2, 4, the geometry's choice and every level-1 padd at once,
    also at 1024); horner
@@ -32,7 +40,8 @@ Phases, each printing one JSON line:
    3}, Kp in {1, 8, 32, 33} at every node count G, also against its order
    model, at Kp 512 and 352 (1024 lanes) at the rule's G, its neighbours
    and G = Kp, timed in turns (the ws4_g1_groups line), and at Kp = 8, 128
-   lanes, timed; tree_sum G2:
+   lanes, timed; tree_sum ed25519: B in {1, 127}, k in {1, 2, 3, 95}, and
+   k = 40, 20 at 128 lanes; tree_sum G2:
    B in {1, 127}, k in {1, 2, 3, 191}, and k = 96, 64 at 128 lanes;
    tree_sum G1: B in {1, 127}, k in {1, 2, 3, 255}, and k = 192, 128, 96, 64
    at 128 lanes; horner G1 and G2: B in {1, 5, 6, 127, 129}, B = 1 timed as
@@ -77,7 +86,8 @@ Phases, each printing one JSON line:
    170 and 256 distinct statements, every h equal;
 10. ``mimc_hash_batch`` of 4096 values, cold (332 mont_mul launches) and
     warm, every digest equal to the host's, and again on a one-card dp 2
-    mesh;
+    mesh; one warm batch under ``torch.profiler`` (mont_mul's card time a
+    launch);
 11. the probes (``libzkp_tpu_torch.probes``: P2, P4, P5, P6, P7, P1, P3);
 12. the kernels line (launches summed over the paths), the card's name and
     power limit, and the last line ``{"ok": true, "device": {...}}``.
@@ -113,6 +123,8 @@ H_BATCHES = (1, 16, 64, 170, 256)  # distinct statements per h batch (groth16_h)
 H_MONT_MULS = 43       # mont_mul launches of one h_batch_device call at n = 512
 MIMC_VALUES = 4096     # values per MiMC batch (bench.py's size)
 MIMC_MONT_MULS = 332   # to_mont, 110 rounds x 3, from_mont
+# mont_mul's cases timed in phase 3e (tags of _mont_cases; None: the NTT stage)
+MONT_TIMED = (None, "one-row operand", "MiMC x * x", "MiMC to_mont", "P6")
 PADD_MACS = 9 * ED_MUL_MACS   # Edwards padd: 9 products
 PDOUBLE_MACS = 8 * ED_MUL_MACS
 WPADD_MACS = {"bn254_g1": 12 * MUL_MACS + 2 * 24,  # RCB padd: 12 products + 2 small multiplies
@@ -126,6 +138,12 @@ G16_GROUP_STATEMENTS = 8  # statements of the grouped batch: 32 proofs each
 # they replaced (so the profiles of two checkouts compare)
 WS4_G1_KERNELS = ("window_sum4_g1_nodes_kernel", "window_sum4_g1_top_kernel", "window_sum4_kernel<Bn254G1>")
 PAIR_ADD_G1_KERNELS = ("coop_horner_kernel<G1Coop, 1, 0>", "pair_add_kernel<Bn254G1>")
+# tree_sum's kernels in a profile (ed25519: this tree's and the one-warp
+# kernel it replaced), and in the ptxas log (mangled)
+TREE_SUM_KERNELS = {"ed25519": ("tree_sum_coop_kernel<EdCoop>", "tree_sum_kernel<Ed25519>"),
+                    "bn254_g1": ("tree_sum_coop_kernel<G1Coop>",), "bn254_g2": ("tree_sum_coop_kernel<G2Coop>",)}
+PTXAS_KERNELS = {"mont_mul": ("mont", "mont_mul_kernel"),
+                 "tree_sum_ed25519": ("tree_sum", "tree_sum_coop_kernelI6EdCoop", "tree_sum_kernelI7Ed25519")}
 CURVE_PADD_MACS = {"ed25519": PADD_MACS, **WPADD_MACS}
 SHARD_DP, SHARD_SHARD = 2, 2  # the one-card mesh: four positions, all cuda:0
 SHARD_B_LOCAL = G16_LANES // SHARD_DP
@@ -199,7 +217,51 @@ def busy_summary(busy: list, wall_ms: float, **kernels) -> dict:
     for key, sub in kernels.items():
         subs = sub if isinstance(sub, tuple) else (sub,)
         hits = [b for b in busy if any(x in b[0] for x in subs)]
-        out[key] = {"device_ms": sum(b[1] for b in hits) / 1e3, "calls": sum(b[2] for b in hits)}
+        calls = sum(b[2] for b in hits)
+        out[key] = {"device_ms": sum(b[1] for b in hits) / 1e3, "calls": calls,
+                    "device_us_per_call": sum(b[1] for b in hits) / calls if calls else None}
+    return out
+
+
+def card_time(run, names: tuple, iters: int) -> dict:
+    """The card's time in the kernels whose names hold one of ``names``
+    over ``iters`` calls of ``run()`` under ``torch.profiler``, after one
+    warm-up call: µs a launch, and µs of device-to-device copies a launch
+    (a consts block copied into constant memory before the kernel). A
+    profile of a few short launches can come back without their kernel
+    records (seen on the H100), so it is taken up to three times; raises if
+    none holds a launch."""
+    run()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        _, _, busy = profiled(lambda: [run() for _ in range(iters)])
+        hits = [b for b in busy if any(x in b[0] for x in names)]
+        calls = sum(b[2] for b in hits)
+        if calls:
+            dtod = sum(b[1] for b in busy if "Memcpy DtoD" in b[0])
+            return {"kernel_us": sum(b[1] for b in hits) / calls, "launches": calls, "dtod_us": dtod / calls}
+    raise AssertionError(f"no launch of {names} in three profiles")
+
+
+def ptxas_summary(log: str, names: tuple) -> dict:
+    """Registers, stack frame and spill bytes of the entry functions in an
+    ``nvcc -Xptxas -v`` log whose mangled names hold one of ``names``."""
+    import re
+
+    out, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties for )([\w$]+)", ln)
+        if m:
+            cur = m.group(1) if any(x in m.group(1) for x in names) else None
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            out.setdefault(cur, {}).update(zip(("frame", "spill_stores", "spill_loads"), map(int, m.groups())))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out.setdefault(cur, {})["registers"] = int(m.group(1))
     return out
 
 
@@ -290,25 +352,11 @@ def check_kernels(dev, int_rate: float, tables: dict) -> list:
     compared (:func:`k1_warps`) and at ragged shapes
     (:func:`ragged_window_sum`), horner (K2) also at ragged lane counts
     (:func:`ragged_horner`). Leaves the table in ``tables["ed25519"]``."""
-    import numpy as np
-
-    from libzkp_tpu_torch.ops import curve, ed25519 as ed, kernels
+    from libzkp_tpu_torch.ops import curve, kernels
 
     eng = curve.edwards_engine()
     C, n = eng.coords, eng.n
-    rng = random.Random(20261016)
-    consts = torch.from_numpy(eng.consts_np).to(dev)
-
-    # a relaxed multiples table of KP random curve points, built with the
-    # plain table-add chain (kernel launches here would not be the path's)
-    pts = [ed.from_uniform_bytes(rng.randbytes(64)) for _ in range(KP)]
-    baseT = torch.from_numpy(np.ascontiguousarray(np.transpose(eng.encode_points(pts), (1, 2, 0)))).to(dev)
-    acc = eng.identity(KP, dev)
-    rows = [acc]
-    for _ in range(255):
-        acc = kernels.pair_add_plain(consts, acc, baseT)
-        rows.append(acc)
-    table = torch.stack(rows).permute(3, 0, 1, 2).reshape(KP * 256, C, n).to(torch.int16).contiguous()
+    consts, table = ed_table(dev)
     digits = torch.randint(0, 256, (KP, MSM_LANES), generator=torch.Generator().manual_seed(7),
                            dtype=torch.int32).to(dev)
     tables["ed25519"] = (consts, table, KP)
@@ -827,8 +875,10 @@ def _point_err(curve: str, a, b) -> int:
 # ragged_tree_sum's shapes (B lanes, k points): the ragged edges of a
 # block's tree, then B = 128 at the mesh's other block shapes (G2: the b_g2
 # query's k_local at shard 4 and 8; G1: the a, b_g1, l queries' at shard 2,
-# the h query's at shard 4, the a, b_g1, l queries' at shard 4, both at 8)
+# the h query's at shard 4, the a, b_g1, l queries' at shard 4, both at 8;
+# ed25519: the range basis's at shard 4 and 8)
 RAGGED_TREE_SHAPES = {
+    "ed25519": [(B, k) for B in (1, 127) for k in (1, 2, 3, 95)] + [(SHARD_B_LOCAL, 40), (SHARD_B_LOCAL, 20)],
     "bn254_g2": [(B, k) for B in (1, 127) for k in (1, 2, 3, 191)] + [(SHARD_B_LOCAL, 96), (SHARD_B_LOCAL, 64)],
     "bn254_g1": [(B, k) for B in (1, 127) for k in (1, 2, 3, 255)]
                 + [(SHARD_B_LOCAL, k) for k in (192, 128, 96, 64)],
@@ -836,8 +886,8 @@ RAGGED_TREE_SHAPES = {
 
 
 def ragged_tree_sum(dev, curve: str, consts, table, table_kp: int) -> None:
-    """tree_sum G1 or G2 at RAGGED_TREE_SHAPES[curve], on rows gathered from
-    the path's table, limb for limb and point for point against the plain
+    """tree_sum at RAGGED_TREE_SHAPES[curve], on rows gathered from the
+    path's table, limb for limb and point for point against the plain
     version; one kernel_check line each (not in the kernels line)."""
     from libzkp_tpu_torch.ops import kernels
 
@@ -851,7 +901,7 @@ def ragged_tree_sum(dev, curve: str, consts, table, table_kp: int) -> None:
         want = kernels.tree_sum_plain(consts, pts, curve=curve)
         torch.cuda.synchronize()
         err = _limbs_err(f"tree_sum {curve} at B {B}, k {k}", got, want)
-        if _weierstrass_point_err(curve, got, want) != 0:
+        if _point_err(curve, got, want) != 0:
             raise AssertionError(f"tree_sum {curve} at B {B}, k {k} disagrees with its plain version")
         emit({"phase": "kernel_check", "name": kernels.instance("tree_sum", curve), "ragged": True,
               "max_abs_err": float(err), "tolerance": "exact limbs and point equality",
@@ -896,11 +946,10 @@ def check_sharded_kernels(dev, int_rate: float, tables: dict) -> list:
     (dp = shard = 2: 128 lanes per block; 256 basis points per block for the
     h query, 192 for the 334- and 332-point queries, 96 for phase 7's
     ed25519 MSM over the range basis): tree_sum for every curve on rows
-    gathered from the tables of phases 3 and 3b, held by point equality (the
-    ed25519 instance sums in another order than the plain tree) and for G1
-    and G2, which sum in its order, limb for limb too, here and at ragged
-    shapes (:func:`ragged_tree_sum`); horner for BN254 G1 and G2, limb for
-    limb, here and at ragged lane counts (:func:`ragged_horner`)."""
+    gathered from the tables of phases 3 and 3b, limb for limb and by point
+    equality (a lane of no point fails), here and at ragged shapes
+    (:func:`ragged_tree_sum`); horner for BN254 G1 and G2, limb for limb,
+    here and at ragged lane counts (:func:`ragged_horner`)."""
     from libzkp_tpu_torch.ops import kernels
     from libzkp_tpu_torch.ops.weierstrass import CURVES
 
@@ -916,14 +965,10 @@ def check_sharded_kernels(dev, int_rate: float, tables: dict) -> list:
         ts_k = kernels.tree_sum(consts, pts, curve=curve)
         ts_p = kernels.tree_sum_plain(consts, pts, curve=curve)
         torch.cuda.synchronize()
-        err = _point_err(curve, ts_k, ts_p)
-        if err != 0:
-            raise AssertionError(f"tree_sum {curve} disagrees with its plain version (point err {err})")
-        tolerance = "point equality (cross-products mod p; a lane of no point fails)"
-        if curve != "ed25519":  # summed in the plain tree's order: limb for limb
-            err = _limbs_err(f"tree_sum {curve}", ts_k, ts_p)
-            tolerance = "exact limbs, and point equality"
-            ragged_tree_sum(dev, curve, consts, table, table_kp)
+        if _point_err(curve, ts_k, ts_p) != 0:
+            raise AssertionError(f"tree_sum {curve} disagrees with its plain version")
+        err = _limbs_err(f"tree_sum {curve}", ts_k, ts_p)
+        ragged_tree_sum(dev, curve, consts, table, table_kp)
         t_k = cuda_ms(lambda: kernels.tree_sum(consts, pts, curve=curve), 20)
         t_p = cuda_ms(lambda: kernels.tree_sum_plain(consts, pts, curve=curve), 2)
         padd = CURVE_PADD_MACS[curve]
@@ -932,8 +977,10 @@ def check_sharded_kernels(dev, int_rate: float, tables: dict) -> list:
         results.append(dict(name=kernels.instance("tree_sum", curve), route="cuda",
                             source="libzkp_tpu_torch/csrc/tree_sum.cu",
                             replaces="libzkp_tpu/ops/curve_jax.py:364",
-                            max_abs_err=float(err), tolerance=tolerance,
+                            max_abs_err=float(err), tolerance="exact limbs, and point equality",
                             ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                            card_us=card_time(lambda: kernels.tree_sum(consts, pts, curve=curve),
+                                              TREE_SUM_KERNELS[curve], 20)["kernel_us"],
                             shape=f"pts ({SHARD_B_LOCAL},{k},{C},{n}) i16"))
         if curve == "ed25519":
             continue
@@ -1032,59 +1079,183 @@ def check_probe_kernels(dev, int_rate: float, fp32_rate: float) -> list:
     return results
 
 
-def check_mont_kernels(dev, int_rate: float) -> list:
-    """Phase 3e: mont_mul against its plain version, limb for limb, in BN254
-    Fr at one NTT stage of a 256-statement h batch (3 * 256 polynomials of
-    512 points: 3 * 256 * 256 butterflies, the stage's twiddles broadcast,
-    256 rows) and with a one-row operand (``to_mont`` of the whole batch,
-    R^2 broadcast: the Z^-1, R^2, 1 and R mod p case); then P6's 2^20 rows in
-    2^255 - 19 (emitted, not returned: the kernels line keeps the path's
-    shape)."""
+def _mont_cases(dev) -> list:
+    """mont_mul's checked cases, (a, b, field, tag, shape): an NTT stage of
+    a 256-statement h batch (3 * 256 polynomials of 512 points: 3 * 256 * 256
+    butterflies, the stage's 256 twiddles broadcast; tag None: the kernels
+    line's row); a one-row operand (``to_mont`` of the whole batch, R^2
+    broadcast: the Z^-1, R^2, 1 and R mod p case); the MiMC batch's 4096
+    rows with b = a (x * x) and with one row (``to_mont``); ragged last
+    blocks (M in {1, 127, 129}); b rows that are no contiguous run of a
+    block (Mb = 3, and Mb = 129, whose run wraps to row 0); a and b from row
+    1 of a tensor (bases not 16-byte aligned); P6's 2^20 rows in 2^255 - 19.
+    Limbs in [-4096, 4096) or [0, 4096) (twiddles, constants)."""
     import numpy as np
 
     from libzkp_tpu_torch import probes
-    from libzkp_tpu_torch.ops import kernels
     from libzkp_tpu_torch.ops.field import BN254_FR
     from libzkp_tpu_torch.ops.limb import get_context
     from libzkp_tpu_torch.ops.ntt import _twiddle_table
 
     ctx = get_context(BN254_FR.p, "bn254_fr")
     n = ctx.n
-    consts = ctx.tensor("consts", dev)
     gen = np.random.default_rng(20261018)
-    rows = 3 * G16_LANES * H_N
+
+    def rows(*shape, lo=-4096):
+        return torch.from_numpy(gen.integers(lo, 4096, shape + (n,), dtype=np.int32)).to(dev)
+
     tw = torch.from_numpy(_twiddle_table(ctx.p, H_N, False)[-1]).to(dev)  # (256, n), the last stage
-    cases = [
-        ("mont_mul", torch.from_numpy(gen.integers(-4096, 4096, (3 * G16_LANES, H_N // 2, n),
-                                                   dtype=np.int32)).to(dev), tw, "BN254 Fr", None,
-         f"a ({3 * G16_LANES},{H_N // 2},{n}) i32, b ({H_N // 2},{n}) broadcast"),
-        ("mont_mul", torch.from_numpy(gen.integers(0, 4096, (3 * G16_LANES, H_N, n),
-                                                   dtype=np.int32)).to(dev),
-         ctx.tensor("r2", dev), "BN254 Fr", "one-row operand", f"a ({rows // H_N},{H_N},{n}) i32, b ({n},)"),
-    ]
-    pc, pa, pb = probes.mont_mul_inputs(dev)
-    cases.append(("mont_mul", pa, pb, "2^255-19", "P6", f"a, b ({pa.shape[0]},{n}) i32"))
+    stage = rows(3 * G16_LANES, H_N // 2)
+    mimc = rows(MIMC_VALUES, lo=0)
+    cases = [(stage, tw, "BN254 Fr", None, f"a ({3 * G16_LANES},{H_N // 2},{n}) i32, b ({H_N // 2},{n}) broadcast"),
+             (rows(3 * G16_LANES, H_N, lo=0), ctx.tensor("r2", dev), "BN254 Fr", "one-row operand",
+              f"a ({3 * G16_LANES},{H_N},{n}) i32, b ({n},)"),
+             (mimc, mimc, "BN254 Fr", "MiMC x * x", f"a, b ({MIMC_VALUES},{n}) i32"),
+             (mimc, ctx.tensor("r2", dev), "BN254 Fr", "MiMC to_mont", f"a ({MIMC_VALUES},{n}) i32, b ({n},)")]
+    for M in (1, 127, 129):
+        cases.append((rows(M), rows(M), "BN254 Fr", f"ragged M {M}", f"a, b ({M},{n}) i32"))
+    for Mb, reps in ((3, 100), (129, 4)):
+        cases.append((rows(reps, Mb), rows(Mb, lo=0), "BN254 Fr", f"Mb {Mb}",
+                      f"a ({reps},{Mb},{n}) i32, b ({Mb},{n})"))
+    a1, b1 = rows(1 + 4096), rows(1 + 4096)
+    cases.append((a1[1:], b1[1:], "BN254 Fr", "bases not 16-byte aligned",
+                  f"a, b ({4096},{n}) i32 from row 1"))
+    _, pa, pb = probes.mont_mul_inputs(dev)
+    cases.append((pa, pb, "2^255-19", "P6", f"a, b ({pa.shape[0]},{n}) i32"))
+    return cases
+
+
+def check_mont_kernels(dev, int_rate: float) -> list:
+    """Phase 3e: mont_mul against its plain version, limb for limb, at
+    :func:`_mont_cases` (P6 and every case but the NTT stage emitted, not
+    returned: the kernels line keeps the path's shape); the NTT stage, the
+    one-row operand, MiMC's and P6's cases timed, with the card's time a
+    launch from the profiler."""
+    from libzkp_tpu_torch.ops import ed25519 as ed, kernels
+    from libzkp_tpu_torch.ops.field import BN254_FR
+    from libzkp_tpu_torch.ops.limb import get_context
+
+    consts = get_context(BN254_FR.p, "bn254_fr").tensor("consts", dev)
+    pc = get_context(ed.P).tensor("consts", dev)
+    n = kernels.MONT_N
     results = []
-    for name, a, b, field, tag, shape in cases:
+    for a, b, field, tag, shape in _mont_cases(dev):
         c = pc if tag == "P6" else consts
         out_k = kernels.mont_mul(c, a, b)
         out_p = kernels.mont_mul_plain(c, a, b)
         torch.cuda.synchronize()
-        err = int((out_k - out_p).abs().max())
-        if err != 0:
-            raise AssertionError(f"mont_mul ({field}, {shape}) limbs differ from its plain version (max {err})")
+        err = _limbs_err(f"mont_mul ({field}, {shape})", out_k, out_p)
         M, Mb = a.numel() // n, b.numel() // n
         b_ms, b_by = bound(MONT_MACS * M, (2 * M + Mb) * n * 4, int_rate)
-        row = dict(name=name, route="cuda", source="libzkp_tpu_torch/csrc/mont.cu",
+        row = dict(name="mont_mul", route="cuda", source="libzkp_tpu_torch/csrc/mont.cu",
                    replaces="scripts/bench_pallas_mul.py:96", max_abs_err=float(err),
-                   tolerance="exact limbs", ms=cuda_ms(lambda: kernels.mont_mul(c, a, b), 20),
-                   plain_ms=cuda_ms(lambda: kernels.mont_mul_plain(c, a, b), 2),
-                   bound_ms=b_ms, bound_by=b_by, library_ms=None, shape=shape, field=field)
+                   tolerance="exact limbs", bound_ms=b_ms, bound_by=b_by, library_ms=None, shape=shape,
+                   field=field)
+        if tag in MONT_TIMED:
+            row |= dict(ms=cuda_ms(lambda: kernels.mont_mul(c, a, b), 20),
+                        plain_ms=cuda_ms(lambda: kernels.mont_mul_plain(c, a, b), 2),
+                        card=card_time(lambda: kernels.mont_mul(c, a, b), ("mont_mul_kernel",), 20))
         emit({"phase": "kernel_check", **row, **({"probe": tag} if tag == "P6" else
                                                  {"case": tag} if tag else {})})
         if tag is None:
             results.append(row)
     return results
+
+
+def mont_pair(dev) -> None:
+    """mont_mul alone through its wrapper at the NTT stage, MiMC's two
+    shapes and P6's, each limb for limb against its plain version, timed
+    (CUDA events) with the card's time a launch (profiler); where the tree
+    has ``MONT_ROWS`` (a block of rows staged in shared memory), also at 32,
+    64, 128 and 256 rows a block, each timed in turns, with the card's time
+    a launch; runs on an earlier checkout too (this script copied into it),
+    for timings paired in one call. One mont_pair line."""
+    from libzkp_tpu_torch.ops import ed25519 as ed, kernels
+    from libzkp_tpu_torch.ops.field import BN254_FR
+    from libzkp_tpu_torch.ops.limb import get_context
+
+    consts = get_context(BN254_FR.p, "bn254_fr").tensor("consts", dev)
+    pc = get_context(ed.P).tensor("consts", dev)
+    n = kernels.MONT_N
+    out: dict = {"card": smi("name,power.limit")}
+    for a, b, field, tag, shape in _mont_cases(dev):
+        if tag not in MONT_TIMED or tag == "one-row operand":
+            continue
+        c = pc if tag == "P6" else consts
+        _limbs_err(f"mont_mul ({shape})", kernels.mont_mul(c, a, b), kernels.mont_mul_plain(c, a, b))
+        row = {"shape": shape, "ms": cuda_ms(lambda: kernels.mont_mul(c, a, b), 20),
+               **card_time(lambda: kernels.mont_mul(c, a, b), ("mont_mul_kernel",), 20)}
+        M, Mb = a.numel() // n, b.numel() // n
+        if hasattr(kernels, "MONT_ROWS") and tag != "P6":
+            res = torch.empty_like(a)
+
+            def forced(R):
+                kernels._run("mont_mul", None, dev, c.data_ptr(), a.data_ptr(), b.data_ptr(),
+                             res.data_ptr(), n, M, Mb, R)
+
+            want = kernels.mont_mul_plain(c, a, b)
+            sweep, card = {}, {}
+            for R in (32, 64, 128, 256, 256, 128, 64, 32):
+                forced(R)
+                torch.cuda.synchronize()
+                _limbs_err(f"mont_mul at {R} rows a block ({shape})", res, want)
+                sweep.setdefault(R, []).append(cuda_ms(lambda: forced(R), 20))
+                card.setdefault(R, []).append(card_time(lambda: forced(R), ("mont_mul_kernel",), 20)["kernel_us"])
+            row |= {"rows": kernels.MONT_ROWS, "ms_by_rows": sweep, "card_us_by_rows": card}
+        out[tag or "ntt_stage"] = row
+    emit({"phase": "mont_pair", **out})
+
+
+def ed_table(dev) -> tuple:
+    """Consts and a relaxed (KP * 256, 4, n) int16 multiples table of KP
+    random ed25519 points, built with the plain table-add chain (kernel
+    launches here would not be the path's)."""
+    import numpy as np
+
+    from libzkp_tpu_torch.ops import curve, ed25519 as ed, kernels
+
+    eng = curve.edwards_engine()
+    rng = random.Random(20261016)
+    consts = torch.from_numpy(eng.consts_np).to(dev)
+    pts = [ed.from_uniform_bytes(rng.randbytes(64)) for _ in range(KP)]
+    baseT = torch.from_numpy(np.ascontiguousarray(np.transpose(eng.encode_points(pts), (1, 2, 0)))).to(dev)
+    acc = eng.identity(KP, dev)
+    rows = [acc]
+    for _ in range(255):
+        acc = kernels.pair_add_plain(consts, acc, baseT)
+        rows.append(acc)
+    return consts, torch.stack(rows).permute(3, 0, 1, 2).reshape(KP * 256, eng.coords, eng.n).to(
+        torch.int16).contiguous()
+
+
+def ed_tree_pair(dev) -> None:
+    """tree_sum ed25519 alone through its wrapper at the mesh block's shape
+    (128 lanes, 96 points) and at RAGGED_TREE_SHAPES' B = 128 shapes, held
+    by point equality against its plain version (limbs reported, not
+    required: an earlier checkout summed in another order), timed (CUDA
+    events) with the card's time a launch (profiler); runs on an earlier
+    checkout too (this script copied into it). One ed_tree_pair line."""
+    from libzkp_tpu_torch.ops import kernels
+
+    curve = "ed25519"
+    consts, table = ed_table(dev)
+    C, n = table.shape[1:]
+    out: dict = {"card": smi("name,power.limit")}
+    for k in [SHARD_K_LOCAL[curve]] + [k for B, k in RAGGED_TREE_SHAPES[curve] if B == SHARD_B_LOCAL]:
+        digits = torch.randint(0, 256, (SHARD_B_LOCAL, k), dtype=torch.int32,
+                               generator=torch.Generator().manual_seed(k)).to(dev)
+        pts = table[digits.to(torch.int64) + torch.arange(k, device=dev) * 256].contiguous()
+        got = kernels.tree_sum(consts, pts, curve=curve)
+        want = kernels.tree_sum_plain(consts, pts, curve=curve)
+        torch.cuda.synchronize()
+        if _edwards_point_err(got, want) != 0:
+            raise AssertionError(f"tree_sum {curve} at k {k} disagrees with its plain version")
+        out[f"k{k}"] = {"shape": f"pts ({SHARD_B_LOCAL},{k},{C},{n}) i16",
+                        "limbs_equal": bool(torch.equal(got, want)),
+                        "ms": cuda_ms(lambda: kernels.tree_sum(consts, pts, curve=curve), 20),
+                        **card_time(lambda: kernels.tree_sum(consts, pts, curve=curve),
+                                    TREE_SUM_KERNELS[curve], 20)}
+    emit({"phase": "ed_tree_pair", **out})
 
 
 def groth16_path(dev) -> dict:
@@ -1530,10 +1701,16 @@ def mimc_batch(dev) -> dict:
     mesh = meshmod.get_mesh(dp=2, devices=[dev] * 2)
     if zkp.mimc_hash_batch(values, device=dev, mesh=mesh) != host:
         raise AssertionError("a MiMC digest of the dp 2 mesh batch differs from the host's")
+    # one warm batch under the profiler: the card's busy time and mont_mul's
+    # time a launch
+    prof_got, prof_ms, busy = profiled(lambda: zkp.mimc_hash_batch(values, device=dev))
+    if prof_got != host:
+        raise AssertionError("a MiMC digest of the profiled batch differs from the host's")
     emit({"phase": "mimc_batch", "values": MIMC_VALUES, "cold_ms": cold_ms, "warm_ms": warm,
           "ms_per_batch": sum(warm) / len(warm), "host_ms": host_ms,
           "host_over_device": host_ms / (sum(warm) / len(warm)), "digests_equal": MIMC_VALUES,
-          "mesh": {"dp": 2, "equal": True}, "launches": {k: v for k, v in counts.items() if v}})
+          "mesh": {"dp": 2, "equal": True}, "launches": {k: v for k, v in counts.items() if v},
+          "profile": {"batch_ms_profiled": prof_ms, **busy_summary(busy, prof_ms, mont_mul="mont_mul_kernel")}})
     return {"counts": counts}
 
 
@@ -1646,9 +1823,9 @@ def main_path(dev) -> dict:
 
 
 def main(argv: list) -> int:
-    if argv not in ([], ["--kernels"], ["--range"], ["--groth16"], ["--g1"]):
-        print(f"usage: python3 chip_smoke.py [--kernels | --range | --groth16 | --g1], got {argv}",
-              file=sys.stderr)
+    if argv not in ([], ["--kernels"], ["--range"], ["--groth16"], ["--g1"], ["--mont"], ["--ed-tree"]):
+        print("usage: python3 chip_smoke.py [--kernels | --range | --groth16 | --g1 | --mont | --ed-tree], "
+              f"got {argv}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1676,7 +1853,9 @@ def main(argv: list) -> int:
         for n in kernels.LIBRARIES
         if (kernels.BUILD_DIR / f"{n}.log").exists()
     }
-    emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas})
+    summary = {key: ptxas_summary((kernels.BUILD_DIR / f"{lib}.log").read_text(), names)
+               for key, (lib, *names) in PTXAS_KERNELS.items() if (kernels.BUILD_DIR / f"{lib}.log").exists()}
+    emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas, "ptxas_summary": summary})
 
     from libzkp_tpu_torch.parallel import mesh as meshmod
 
@@ -1693,6 +1872,13 @@ def main(argv: list) -> int:
         return 0
     if argv == ["--g1"]:  # window_sum4 G1 and pair_add G1 alone, likewise
         g1_pair(dev)
+        return 0
+    if argv == ["--mont"]:  # mont_mul alone and the MiMC batch, likewise
+        mont_pair(dev)
+        mimc_batch(dev)
+        return 0
+    if argv == ["--ed-tree"]:  # tree_sum ed25519 alone, likewise
+        ed_tree_pair(dev)
         return 0
     tables: dict = {}
     checks = (check_kernels(dev, int_rate, tables) + check_bn254_kernels(dev, int_rate, tables)

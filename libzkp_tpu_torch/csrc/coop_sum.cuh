@@ -1,8 +1,9 @@
 // Cooperative point additions: a BN254 G1 or G2 padd shared by six threads
 // (or a G2 padd by 18) of a warp, an ed25519 padd or pdouble by four, on
 // int16 operands in shared memory, and the plain version's halving tree over
-// one lane's K points built on them (tree_sum G1 and G2, window_sum4 G1 and
-// G2, window_sum ed25519; the Horner steps chain them, coop_horner.cuh).
+// one lane's K points built on them (tree_sum on every curve, window_sum4
+// G1 and G2, window_sum ed25519; the Horner steps chain them,
+// coop_horner.cuh).
 //
 // Both padds are RCB'15 algorithm 7 as the plain WeierstrassEngine.padd
 // (ops/weierstrass.py, and the JAX package's) orders it: round 1, the six
@@ -745,7 +746,7 @@ struct G2Coop18 {  // horner G2, pair_add G2: one 18-thread padd a warp
   }
 };
 
-struct EdCoop {  // K1 window_sum, K2 horner ed25519: eight four-thread groups a warp
+struct EdCoop {  // K1 window_sum, K2 horner, tree_sum ed25519: eight four-thread groups a warp
   static constexpr int GROUP = 4;
   static constexpr int PER_WARP = 8;
   static constexpr int COORDS = 4;

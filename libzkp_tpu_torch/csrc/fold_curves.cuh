@@ -1,9 +1,9 @@
 // Fold-field arithmetic on 12-bit limbs, the consts blocks of the three
 // curves of the MSM (ed25519, BN254 G1, BN254 G2) and the one-thread
 // Edwards padd, one lane per thread, shared by the one-thread kernels
-// (tree_sum ed25519, pair_add ed25519, the probes) and, for the field
-// product and carries, by the cooperative ones (coop_sum.cuh), which run
-// every BN254 padd.
+// (pair_add ed25519, the probes) and, for the field product and carries, by
+// the cooperative ones (coop_sum.cuh), which run every tree sum and Horner
+// step.
 //
 // The same schedule as the plain PyTorch version (ops/limbfold.py FieldOps,
 // ops/edwards.py, ops/weierstrass.py) and the JAX package's ops/limbfold.py
@@ -223,51 +223,4 @@ __device__ __forceinline__ void pt_store_lanes(int32_t* __restrict__ dst, int32_
   for (int c = 0; c < Cv::COORDS; ++c)
 #pragma unroll
     for (int i = 0; i < fold::N; ++i) dst[(c * fold::N + i) * (size_t)stride + lane] = p[c][i];
-}
-
-// One int16 point of COORDS * N limbs at `row` (16-byte aligned), widened to
-// int32: COORDS * N * 2 bytes (192, 144 or 288) as 16-byte loads.
-template <class Cv>
-__device__ __forceinline__ void load_row(int32_t (*pt)[fold::N], const int16_t* __restrict__ row) {
-  constexpr int WORDS = Cv::COORDS * fold::N / 8;  // 16-byte words per row
-  const int4* src = reinterpret_cast<const int4*>(row);
-#pragma unroll
-  for (int w = 0; w < WORDS; ++w) {
-    const int4 v = __ldg(src + w);
-    const int32_t words[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-    for (int h = 0; h < 4; ++h) {
-      const int f = w * 8 + h * 2;
-      pt[f / fold::N][f % fold::N] = (int32_t)(int16_t)(words[h] & 0xFFFF);
-      pt[(f + 1) / fold::N][(f + 1) % fold::N] = words[h] >> 16;
-    }
-  }
-}
-
-// Sum over k = 0..K-1 of the int16 point at row(k) for one output lane, by
-// one warp: thread s adds the points k = s, s + 32, ..., then the 32 partial
-// sums meet in a shuffle tree (16, 8, 4, 2, 1); lane 0 of the warp holds the
-// sum. Every thread of the warp must call it.
-template <class Cv, class Row>
-__device__ __forceinline__ void warp_point_sum(int32_t (*acc)[fold::N], int32_t (*pt)[fold::N],
-                                               Row row, int K, int s) {
-  bool have = false;
-  for (int k = s; k < K; k += 32) {
-    if (!have) {
-      load_row<Cv>(acc, row(k));
-      have = true;
-    } else {
-      load_row<Cv>(pt, row(k));
-      Cv::padd(acc, acc, pt);
-    }
-  }
-  if (!have) Cv::identity(acc);  // K < 32: this thread's share is the identity
-#pragma unroll 1
-  for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-    for (int c = 0; c < Cv::COORDS; ++c)
-#pragma unroll
-      for (int i = 0; i < fold::N; ++i) pt[c][i] = __shfl_down_sync(0xffffffffu, acc[c][i], off);
-    if (s < off) Cv::padd(acc, acc, pt);
-  }
 }

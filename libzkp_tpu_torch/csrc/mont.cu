@@ -11,61 +11,129 @@
 // Mb rows and broadcasts over a's leading axes: row i of a meets row i % Mb of
 // b, so the twiddles (n/len, half, N), the coset powers (n, N) and a single
 // row (Z^-1, R^2, the integer 1, R mod p) are read as they are, never
-// expanded. One thread per row holds the 2N columns in registers.
+// expanded.
 //
-// Bound: bytes at the path's shapes (2 * 88 bytes read and 88 written per
-// product against about 1000 int32 multiply-adds). Each thread reads its own
-// 88-byte row, so a warp's loads are strided by a row and served through L1;
-// coalesced loads (limbs-major, or staged through shared memory) are left to
-// the redesign.
+// Bound: operations at an NTT stage of the h (990 int32 multiply-adds a
+// row, 11.6 us at 196,608 rows), bytes close behind (88 bytes of a read and
+// 88 written a row, 10.3 us); at the MiMC batch's 4096 rows, bytes.
+//
+// Design: one thread a row holds the 2N columns in registers (mont.cuh
+// mont_mul, the same integer operations as before, so the same limbs), and
+// a block of R rows (R threads: 128 from the wrapper, ops/kernels.py
+// MONT_ROWS, the fastest of 32 to 256 at the path's shapes) stages its rows
+// through shared memory, so every global load and store is coalesced:
+// * the block's R * N words of a are copied to shared memory, consecutive
+//   threads on consecutive words (16-byte words where the addresses allow);
+// * b likewise: all Mb rows when Mb <= R (a one-row operand, read once a
+//   block), else the block's run of R rows from row r0 % Mb, which wraps to
+//   row 0 at most once (a stage's 256 twiddles: two runs of 128; Mb = M,
+//   the pointwise products, never wraps);
+// * the consts block (p, R mod p, ninv) is copied to shared memory too, so
+//   a launch is one device operation (the first version copied it into
+//   __constant__ memory before every launch, a second operation);
+// * thread t reads its row as 8-byte words: rows are 88 bytes apart, and the
+//   16 rows of a half warp, 22 words apart, start on 16 distinct even banks,
+//   so the reads are free of bank conflicts with no padding;
+// * the product overwrites the thread's row of a, and the block stores its
+//   rows as it loaded them.
+// The first version read each row straight from global memory, one 4-byte
+// word at a time a thread: a warp's load touched 32 rows 88 bytes apart,
+// about 22 cache lines, where a coalesced load touches one.
 
 #include "mont.cuh"
 
 namespace {
 
-constexpr int THREADS = 128;
+constexpr int MAX_ROWS = 256;  // rows (threads) a block: the launch bounds
 
-template <int N>
-__global__ void __launch_bounds__(THREADS)
-mont_mul_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
-                int32_t* __restrict__ out, long long M, long long Mb) {
-  const long long row = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (row >= M) return;
-  const int32_t* pa = a + row * N;
-  const int32_t* pb = b + (row % Mb) * N;
-  int32_t x[N], y[N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    x[i] = pa[i];
-    y[i] = __ldg(pb + i);
+// Copy `words` int32 from src to dst, consecutive threads of the block on
+// consecutive words: 16 bytes a thread where both addresses are 16-byte
+// aligned, 4 bytes otherwise. Every thread of the block calls it.
+__device__ __forceinline__ void copy_words(int32_t* __restrict__ dst, const int32_t* __restrict__ src,
+                                           int words) {
+  int w = threadIdx.x;
+  if (((reinterpret_cast<uintptr_t>(dst) | reinterpret_cast<uintptr_t>(src)) & 15) == 0) {
+    const int quads = words >> 2;
+    for (; w < quads; w += blockDim.x)
+      reinterpret_cast<int4*>(dst)[w] = reinterpret_cast<const int4*>(src)[w];
+    w = (quads << 2) + threadIdx.x;
   }
-  mont_mul<N>(x, x, y);
-  int32_t* po = out + row * N;
+  for (; w < words; w += blockDim.x) dst[w] = src[w];
+}
+
+// Block b multiplies rows b * R .. b * R + R - 1 of a (R = blockDim.x);
+// dynamic shared memory (2 * R + 3) * N int32: a's rows (then the products),
+// b's rows, the consts.
+template <int N>
+__global__ void __launch_bounds__(MAX_ROWS)
+mont_mul_kernel(const int32_t* __restrict__ consts, const int32_t* __restrict__ a,
+                const int32_t* __restrict__ b, int32_t* __restrict__ out, long long M, long long Mb) {
+  static_assert(N % 2 == 0, "rows are read as 8-byte words");
+  extern __shared__ int4 mont_smem[];
+  const int R = blockDim.x, t = threadIdx.x;
+  int32_t* sa = reinterpret_cast<int32_t*>(mont_smem);
+  int32_t* sb = sa + R * N;
+  int32_t* sc = sb + R * N;
+  const long long r0 = (long long)blockIdx.x * R;
+  const int rows = (int)min((long long)R, M - r0);
+  copy_words(sa, a + r0 * N, rows * N);
+  int brow = t;  // this thread's row of b in sb
+  if (Mb <= R) {
+    copy_words(sb, b, (int)Mb * N);
+    brow = (int)((r0 + t) % Mb);
+  } else {
+    const long long s = r0 % Mb;
+    const int run = (int)min((long long)rows, Mb - s);
+    copy_words(sb, b + s * N, run * N);
+    copy_words(sb + run * N, b, (rows - run) * N);
+  }
+  for (int w = t; w < 3 * N; w += R) sc[w] = consts[w];
+  __syncthreads();
+  if (t < rows) {
+    int32_t x[N], y[N];
+    const int2* ra = reinterpret_cast<const int2*>(sa + t * N);
+    const int2* rb = reinterpret_cast<const int2*>(sb + brow * N);
 #pragma unroll
-  for (int i = 0; i < N; ++i) po[i] = x[i];
+    for (int k = 0; k < N / 2; ++k) {
+      const int2 u = ra[k], v = rb[k];
+      x[2 * k] = u.x;
+      x[2 * k + 1] = u.y;
+      y[2 * k] = v.x;
+      y[2 * k + 1] = v.y;
+    }
+    mont_mul<N>(x, x, y, MontShared<N>{sc});
+    int2* wa = reinterpret_cast<int2*>(sa + t * N);
+#pragma unroll
+    for (int k = 0; k < N / 2; ++k) wa[k] = make_int2(x[2 * k], x[2 * k + 1]);
+  }
+  __syncthreads();
+  copy_words(out + r0 * N, sa, rows * N);
 }
 
 template <int N>
 int launch(const int32_t* consts, const int32_t* a, const int32_t* b, int32_t* out, long long M,
-           long long Mb, cudaStream_t st) {
-  cudaError_t err = mont_load_consts(consts, 3, N, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long blocks = (M + THREADS - 1) / THREADS;
-  mont_mul_kernel<N><<<(unsigned)blocks, THREADS, 0, st>>>(a, b, out, M, Mb);
+           long long Mb, int R, cudaStream_t st) {
+  const long long blocks = (M + R - 1) / R;
+  const size_t smem = sizeof(int32_t) * (2 * R + 3) * N;
+  mont_mul_kernel<N><<<(unsigned)blocks, R, smem, st>>>(consts, a, b, out, M, Mb);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // consts: (3, n) int32 (p, R mod p, ninv); a, out: (M, n) int32; b: (Mb, n)
-// int32 with M % Mb == 0. Instantiated at n = 22 (BN254 Fr, 2^255 - 19).
-// Returns the CUDA error of the launch (0 on success).
+// int32 with M % Mb == 0; rows: rows (threads) a block, 1 to 256.
+// Instantiated at n = 22 (BN254 Fr, 2^255 - 19). Returns the CUDA error of
+// the launch (0 on success).
 extern "C" int mont_mul_launch(const int32_t* consts, const int32_t* a, const int32_t* b,
-                               int32_t* out, int n, long long M, long long Mb, void* stream) {
+                               int32_t* out, int n, long long M, long long Mb, int rows,
+                               void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (M <= 0) return 0;
+  if (Mb < 1 || M % Mb != 0 || rows < 1 || rows > MAX_ROWS)
+    return static_cast<int>(cudaErrorInvalidValue);
   switch (n) {
-    case 22: return launch<22>(consts, a, b, out, M, Mb, st);
+    case 22: return launch<22>(consts, a, b, out, M, Mb, rows, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

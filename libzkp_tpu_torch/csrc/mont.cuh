@@ -12,10 +12,12 @@
 // R mod p. Every step is the plain version's integer operation on the same
 // operands, so the limbs equal it (ops/kernels.py mont_mul_plain) exactly.
 //
-// Consts block (rows of N int32, in __constant__ memory): p, R mod p, ninv in
-// word 0 of row 2, then the probe's curve constant (2d * R mod p for the
-// Edwards addition). The field enters only through this block, so one
-// instance serves BN254 Fr and 2^255 - 19.
+// Consts block (rows of N int32): p, R mod p, ninv in word 0 of row 2, then
+// the probe's curve constant (2d * R mod p for the Edwards addition). The
+// field enters only through this block, so one instance serves BN254 Fr and
+// 2^255 - 19. A product reads it through an accessor: MontConstBank, the
+// __constant__ copy c_mont that mont_load_consts fills before a launch (the
+// probe), or MontShared, a copy in the block's shared memory (mont_mul).
 //
 // int32 headroom (signed overflow is undefined in C++, so it must not occur):
 // a column is a sum of at most N limb products, REDC adds at most
@@ -52,17 +54,30 @@ static inline cudaError_t mont_load_consts(const int32_t* consts, int rows, int 
                                  cudaMemcpyDeviceToDevice, stream);
 }
 
+// Word i of consts row `row`: from c_mont (every lane reads the same word,
+// which the constant cache broadcasts), or from a block's shared copy.
+template <int N>
+struct MontConstBank {
+  __device__ __forceinline__ int32_t operator()(int row, int i) const { return c_mont[row * N + i]; }
+};
+
+template <int N>
+struct MontShared {
+  const int32_t* c;  // (rows, N) int32 in shared memory
+  __device__ __forceinline__ int32_t operator()(int row, int i) const { return c[row * N + i]; }
+};
+
 // One wrap-carry pass: lo + (hi shifted up one limb) + hi_top * (R mod p).
 // >> on a negative int32 is arithmetic (floor), as in torch and jnp.
-template <int N>
-__device__ __forceinline__ void mont_carry(int32_t* x) {
+template <int N, class Cs = MontConstBank<N>>
+__device__ __forceinline__ void mont_carry(int32_t* x, Cs cs = Cs()) {
   using namespace mont;
   const int32_t top = x[N - 1] >> LIMB_BITS;
 #pragma unroll
   for (int i = N - 1; i > 0; --i) x[i] = (x[i] & MASK) + (x[i - 1] >> LIMB_BITS);
   x[0] &= MASK;
 #pragma unroll
-  for (int i = 0; i < N; ++i) x[i] += top * c_mont[ROW_ONE * N + i];
+  for (int i = 0; i < N; ++i) x[i] += top * cs(ROW_ONE, i);
 }
 
 template <int N>
@@ -82,8 +97,8 @@ __device__ __forceinline__ void mont_sub(int32_t* r, const int32_t* a, const int
 // r = a * b * R^-1. r may alias a or b: every read of a and b comes before
 // the first write of r. With constant indices throughout, the 2N columns
 // stay in registers.
-template <int N>
-__device__ __forceinline__ void mont_mul(int32_t* r, const int32_t* a, const int32_t* b) {
+template <int N, class Cs = MontConstBank<N>>
+__device__ __forceinline__ void mont_mul(int32_t* r, const int32_t* a, const int32_t* b, Cs cs = Cs()) {
   using namespace mont;
   int32_t T[2 * N];
 #pragma unroll
@@ -94,17 +109,17 @@ __device__ __forceinline__ void mont_mul(int32_t* r, const int32_t* a, const int
 #pragma unroll
     for (int i = 0; i < N; ++i) T[i + j] += a[i] * bj;
   }
-  const int32_t ninv = c_mont[ROW_NINV * N];
+  const int32_t ninv = cs(ROW_NINV, 0);
 #pragma unroll
   for (int i = 0; i < N; ++i) {
     const int32_t m = ((T[i] & MASK) * ninv) & MASK;
 #pragma unroll
-    for (int j = 0; j < N; ++j) T[i + j] += m * c_mont[ROW_P * N + j];
+    for (int j = 0; j < N; ++j) T[i + j] += m * cs(ROW_P, j);
     T[i + 1] += T[i] >> LIMB_BITS;
   }
-  mont_carry<N>(T + N);
-  mont_carry<N>(T + N);
-  mont_carry<N>(T + N);
+  mont_carry<N>(T + N, cs);
+  mont_carry<N>(T + N, cs);
+  mont_carry<N>(T + N, cs);
 #pragma unroll
   for (int k = 0; k < N; ++k) r[k] = T[N + k];
 }

@@ -6,7 +6,7 @@ and bound with ``ctypes``; the field and curve code they share is
 ``csrc/fold_curves.cuh``, the Montgomery field code ``csrc/mont.cuh``, the
 cooperative padds (BN254 G1 and G2, the Edwards padd and pdouble of
 ed25519) and tree sum ``csrc/coop_sum.cuh`` (window_sum ed25519,
-window_sum4 G1 and G2, tree_sum G1 and G2) and the Horner chain on them
+window_sum4 G1 and G2, tree_sum on every curve) and the Horner chain on them
 ``csrc/coop_horner.cuh`` (horner on every curve, horner4 G1 and G2,
 pair_add G1 and G2). Each kernel is instantiated for the curves its path runs,
 and each instance is a kernel of its own, named ``<kernel>`` for ed25519
@@ -116,17 +116,15 @@ _ARGTYPES = {
     "pair_add": [_P, _P, _P, _P, _I, _P],
     "window_sum4": [_P, _P, _P, _P, _I, _I, _I, _I, _P],  # G2: warps, shared bytes
     "horner4": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "tree_sum": [_P, _P, _P, _I, _I, _P],
+    "tree_sum": [_P, _P, _P, _I, _I, _I, _I, _P],  # cooperative: warps, shared bytes
     "padd_chain": [_P, _P, _P, _P, _I, _I, _P],
     "fe_mul": [_P, _P, _P, _P, _I, _P],
-    "mont_mul": [_P, _P, _P, _P, _I, _L, _L, _P],
+    "mont_mul": [_P, _P, _P, _P, _I, _L, _L, _I, _P],  # + rows a block
     "mont_padd": [_P, _P, _P, _P, _I, _P],
     "fold_ablate": [_P, _P, _P, _P, _I, _I, _P],
     "padd_f32_chain": [_P, _P, _P, _P, _I, _I, _P],
     # the other cooperative instances also take their geometry
     "window_sum4_bn254_g1": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],  # + partials
-    "tree_sum_bn254_g1": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "tree_sum_bn254_g2": [_P, _P, _P, _I, _I, _I, _I, _P],
     "pair_add_bn254_g1": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "pair_add_bn254_g2": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
@@ -135,8 +133,8 @@ _ARGTYPES = {
 # a BN254 padd, five padds a warp, four an ed25519 padd or pdouble, eight a
 # warp, each with its int32 scratch rows (horner G2's and pair_add G2's
 # padd: 18 threads, one a warp); the tree sums (window_sum ed25519,
-# window_sum4 G2, tree_sum G1 and G2) run one block per output lane with a
-# level store of ceil(K/2) int16 points; window_sum4 G1 first gives each of
+# window_sum4 G2, tree_sum on every curve) run one block per output lane with
+# a level store of ceil(K/2) int16 points; window_sum4 G1 first gives each of
 # a lane's G nodes of the same tree to one group (window_sum4_g1_geometry);
 # the Horner steps (horner on every curve, horner4 G1 and G2) and pair_add
 # G1 and G2 one group per lane, holding its accumulator and its window sums
@@ -146,10 +144,11 @@ COOP_MAX_WARPS = 12        # 384 threads a block (the kernels' launch bounds)
 POINT_BYTES = {"ed25519": 4 * 24 * 2, "bn254_g1": 3 * 24 * 2, "bn254_g2": 6 * 24 * 2}
 COOP_SCRATCH_BYTES = {"ed25519": 4 * 24 * 4, "bn254_g1": 15 * 24 * 4, "bn254_g2": 32 * 24 * 4}
 COOP_HORNER_WARPS = 1      # one warp a block, each alone on its SM at the paths' lane counts
-# K1 (the ed25519 tree sum): at most this many warps an SM over all lanes.
-# The four-thread padd keeps the card's integer pipes busy from about 8
-# warps an SM on; more warps a lane then only lengthen the tree's tail
-# (chip_smoke's k1_warps line: 1 warp a lane fastest at 1024 lanes, 2 at 512).
+# The ed25519 tree sums (K1, tree_sum): at most this many warps an SM over
+# all lanes. The four-thread padd keeps the card's integer pipes busy from
+# about 8 warps an SM on; more warps a lane then only lengthen the tree's
+# tail (chip_smoke's k1_warps line: 1 warp a lane fastest at 1024 lanes, 2
+# at 512).
 ED_SUM_WARPS_PER_SM = 8
 G2_HORNER_PER_WARP = 1     # horner G2, pair_add G2: one 18-thread group a warp
 # window_sum4 G1 (csrc/window_sum4.cu): kernel 1's one-warp blocks an SM and
@@ -170,7 +169,7 @@ def coop_sum_geometry(curve: str, K: int, lanes: int, sms: int) -> tuple:
     over ``K`` points of ``curve`` for ``lanes`` output lanes on a card of
     ``sms`` SMs: enough warps for level 1's K // 2 padds at once, up to what
     shared memory holds; when the lanes outnumber twice the SMs, few enough
-    that two blocks share an SM; for ed25519 (K1), no more than
+    that two blocks share an SM; for ed25519 (K1, tree_sum), no more than
     ED_SUM_WARPS_PER_SM warps an SM over all lanes. Raises where the level
     store and one warp's scratch exceed a block's shared memory."""
     if K < 1:
@@ -676,7 +675,9 @@ def tree_sum(consts: torch.Tensor, pts: torch.Tensor, *, curve: str) -> torch.Te
     """Sum over k of the points ``pts[b, k]`` for every lane b.
 
     ``pts``: (B, Kp, C, n) int16, lane-major (``csrc/tree_sum.cu`` says why).
-    Returns (C, n, B) int32."""
+    Returns (C, n, B) int32. The kernels sum in the plain version's tree
+    order (one block a lane on the curve's cooperative padd), so their limbs
+    equal ``tree_sum_plain``'s."""
     if pts.device.type == "cpu":
         return tree_sum_plain(consts, pts, curve=curve)
     eng = _engine("tree_sum", curve)
@@ -685,8 +686,8 @@ def tree_sum(consts: torch.Tensor, pts: torch.Tensor, *, curve: str) -> torch.Te
         raise ValueError(f"pts must be (B, Kp, {eng.coords}, {eng.n}) int16")
     B, Kp = pts.shape[:2]
     out = torch.empty((eng.coords, eng.n, B), dtype=torch.int32, device=pts.device)
-    geometry = _coop_geometry(dev, curve, Kp, B) if curve != "ed25519" else ()
-    _run("tree_sum", curve, dev, consts.data_ptr(), pts.data_ptr(), out.data_ptr(), Kp, B, *geometry)
+    _run("tree_sum", curve, dev, consts.data_ptr(), pts.data_ptr(), out.data_ptr(), Kp, B,
+         *_coop_geometry(dev, curve, Kp, B))
     return out
 
 
@@ -746,6 +747,13 @@ def fe_mul(consts: torch.Tensor, a: torch.Tensor, b: torch.Tensor, *, curve: str
 # ---------------------------------------------------------------------------
 
 MONT_N = 22  # limbs of the mont_mul instance (BN254 Fr, 2^255 - 19)
+# rows (threads) a mont_mul block (csrc/mont.cu: 128 rows of a and of b,
+# 22.8 KB of shared memory): of 32, 64, 128 and 256, the fastest on the card
+# both at an NTT stage of the h (196,608 rows) and at the MiMC batch's 4096,
+# where 128-row blocks fill only 32 SMs (chip_smoke's mont_pair line: four
+# warps a block share an SM's four schedulers, so a row's latency is the
+# same, and fewer blocks stage the consts fewer times)
+MONT_ROWS = 128
 
 
 def mont_carry(x: torch.Tensor, one_mont: torch.Tensor) -> torch.Tensor:
@@ -794,24 +802,35 @@ def _check_mont(consts: torch.Tensor, rows: int, **tensors) -> torch.device:
     return dev
 
 
+def mont_rows(a: torch.Tensor, b: torch.Tensor, n: int) -> tuple:
+    """(M, Mb): the rows of ``a`` and of ``b`` that the kernel takes, a as
+    (M, n) and b as (Mb, n) with row i of a meeting row i % Mb of b. Raises
+    unless a is (..., n) and b's shape, leading 1s aside, is a suffix of
+    a's. Any int32 address will do: the kernel takes 16-byte copies only
+    where the addresses allow them."""
+    bshape = list(b.shape)
+    while len(bshape) > 1 and bshape[0] == 1:
+        bshape.pop(0)
+    if a.dim() < 1 or a.shape[-1] != n or list(a.shape[a.dim() - len(bshape):]) != bshape:
+        raise ValueError(f"mont_mul takes (..., {n}) limbs with b's shape a suffix of a's, "
+                         f"got {tuple(a.shape)} and {tuple(b.shape)}")
+    return a.numel() // n, b.numel() // n
+
+
 def mont_mul(consts: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a * b * R^-1 over (..., n) int32 limbs; ``b`` broadcasts over
     ``a``'s leading axes (its shape, leading 1s aside, is ``a``'s trailing
-    shape)."""
+    shape). The kernel stages a block's MONT_ROWS rows of ``a`` and ``b``
+    and the consts block through shared memory (``csrc/mont.cu``)."""
     if a.device.type == "cpu":
         return mont_mul_plain(consts, a, b)
     dev = _check_mont(consts, 3, a=a, b=b)
     n = consts.shape[1]
-    bshape = list(b.shape)
-    while len(bshape) > 1 and bshape[0] == 1:
-        bshape.pop(0)
-    if a.shape[-1] != n or list(a.shape[a.dim() - len(bshape):]) != bshape:
-        raise ValueError(f"mont_mul takes (..., {n}) limbs with b's shape a suffix of a's, "
-                         f"got {tuple(a.shape)} and {tuple(b.shape)}")
+    M, Mb = mont_rows(a, b, n)
     out = torch.empty_like(a)
-    if a.numel():
+    if M:
         _run("mont_mul", None, dev, consts.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(),
-             n, a.numel() // n, b.numel() // n)
+             n, M, Mb, MONT_ROWS)
     return out
 
 

@@ -12,7 +12,10 @@ small sizes against the plain versions:
 * the halving tree on that schedule, every level narrowed to int16 as the
   kernel's level store holds it, over rows gathered by digits from a real
   multiples table, gives ``window_sum_plain``'s limbs (and so the JAX
-  ``_window_fused_call``'s, tests/test_torch_curve.py);
+  ``_window_fused_call``'s, tests/test_torch_curve.py), and over lane-major
+  rows gathered from the range basis's table, as the mesh's ``tree_sum``
+  reads them, ``tree_sum_plain``'s (and so the JAX ``_window_sum_call``'s,
+  tests/test_torch_sharded_msm.py);
 * the Horner chain on those schedules (``coop_horner_kernel<EdCoop, 1,
   8>``: 8 pdoubles and one padd), the accumulator and the window sum
   narrowed to int16 once and every step's output as the kernel's shared
@@ -35,6 +38,7 @@ import pytest
 import torch
 from test_torch_weierstrass import _MASK, _IntervalField, _Iv
 
+from libzkp_tpu_torch.models import bp_device
 from libzkp_tpu_torch.ops import curve as tc
 from libzkp_tpu_torch.ops import ed25519 as ed
 from libzkp_tpu_torch.ops import kernels
@@ -62,6 +66,15 @@ def ed_table():
     rng = random.Random(9)
     pts = [ed.from_uniform_bytes(rng.randbytes(64)) for _ in range(6)]
     table = tc.DeviceTable(eng.encode_points(pts), device="cpu")
+    return torch.from_numpy(eng.consts_np), table.table, table.Kp
+
+
+@pytest.fixture(scope="module")
+def range_table():
+    """Consts and the (Kp * 256, 4, n) int16 multiples table of the range
+    prover's first 8 basis points (B_blinding, G_0 .. G_6)."""
+    eng = tc.edwards_engine()
+    table = tc.DeviceTable(eng.encode_points(bp_device._basis_points(64)[:8]), device="cpu")
     return torch.from_numpy(eng.consts_np), table.table, table.Kp
 
 
@@ -242,14 +255,11 @@ def _narrowed(x: torch.Tensor) -> torch.Tensor:
     return n16
 
 
-def _narrowed_window_sum(f: FieldOps, table: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
-    """window_sum_kernel's order and storage: level 1 from the table rows at
-    k * 256 + digit[k, b], every level's outputs (and the carried odd point)
-    narrowed to int16 in the level store, the last one widened.
-    (Kp, B) digits -> (4, n, B)."""
-    K, B = digits.shape
-    n = table.shape[-1]
-    v = table[torch.arange(K)[:, None] * 256 + digits.to(torch.int64)]  # (K, B, 4, n) int16
+def _narrowed_tree(f: FieldOps, v: torch.Tensor) -> torch.Tensor:
+    """coop_tree_sum's order and storage: level 1 from the (K, B, 4, n)
+    int16 rows, every level's outputs (and the carried odd point) narrowed
+    to int16 in the level store, the last one widened. -> (4, n, B)."""
+    B, n = v.shape[1], v.shape[-1]
     while v.shape[0] > 1:
         K, half = v.shape[0], v.shape[0] // 2
 
@@ -262,6 +272,13 @@ def _narrowed_window_sum(f: FieldOps, table: torch.Tensor, digits: torch.Tensor)
     return v[0].to(torch.int32).permute(1, 2, 0)
 
 
+def _narrowed_window_sum(f: FieldOps, table: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
+    """window_sum_kernel: the tree over the table rows at k * 256 +
+    digit[k, b]. (Kp, B) digits -> (4, n, B)."""
+    K = digits.shape[0]
+    return _narrowed_tree(f, table[torch.arange(K)[:, None] * 256 + digits.to(torch.int64)])
+
+
 @pytest.mark.parametrize("K", [1, 2, 3, 33, 96, 160])
 def test_narrowed_ed_tree_gives_window_sum_plain_limbs(ed_table, K):
     consts, table, kp = ed_table
@@ -270,6 +287,20 @@ def test_narrowed_ed_tree_gives_window_sum_plain_limbs(ed_table, K):
     got = _narrowed_window_sum(FieldOps(tc.edwards_engine().n, consts), basis, digits)
     assert got.shape == (4, tc.edwards_engine().n, 3)
     assert torch.equal(got, kernels.window_sum_plain(consts, basis, digits))
+
+
+@pytest.mark.parametrize("K", [1, 2, 3, 33, 96])
+def test_narrowed_ed_tree_gives_tree_sum_plain_limbs(range_table, K):
+    """tree_sum ed25519 (tree_sum_coop_kernel<EdCoop>): the tree over each
+    lane's rows as the mesh's window walk gathers them (``_gather``:
+    lane-major (B, K, 4, n) int16, basis point k the range basis's k % 8),
+    at K up to the range basis's k_local at shard 2 (96)."""
+    consts, table, kp = range_table
+    basis = _basis(table, kp, K)
+    pts = kernels._gather(basis, _digits(K, 5, seed=100 + K))
+    assert pts.shape == (5, K, 4, tc.edwards_engine().n) and pts.dtype == torch.int16
+    got = _narrowed_tree(FieldOps(tc.edwards_engine().n, consts), pts.transpose(0, 1))
+    assert torch.equal(got, kernels.tree_sum_plain(consts, pts, curve="ed25519"))
 
 
 # ---------------------------------------------------------------------------
@@ -375,9 +406,12 @@ def test_ed_horner_geometry_fits_every_lane_count(B):
     assert smem == lanes * (2 * 192 + 384) == 6144
 
 
-@pytest.mark.parametrize("lanes", [1, 128, 512, 1024])
-@pytest.mark.parametrize("K", [1, 96, 160])
+@pytest.mark.parametrize("lanes", [1, 127, 128, 512, 1024])
+@pytest.mark.parametrize("K", [1, 2, 3, 20, 40, 95, 96, 160])
 def test_ed_sum_geometry_fits_every_path_shape(K, lanes):
+    """K1 at the range basis (160) and ragged K, tree_sum at the range
+    basis's k_local at shard 2, 4 and 8 (96, 40, 20) and at ragged K and
+    lane counts."""
     warps, smem = kernels.coop_sum_geometry(CURVE, K, lanes, H100_SMS)
     assert 1 <= warps <= kernels.COOP_MAX_WARPS
     store = (K + 1) // 2 * kernels.POINT_BYTES[CURVE]
@@ -388,7 +422,9 @@ def test_ed_sum_geometry_fits_every_path_shape(K, lanes):
     assert warps == max(1, min(kernels.COOP_MAX_WARPS, -(-(K // 2) // kernels.COOP_PADDS_PER_WARP[CURVE]),
                                kernels.ED_SUM_WARPS_PER_SM * H100_SMS // lanes))
     if K == 160:  # the range basis: 1 warp a lane at T1||T2's and L||R's 1024 lanes, 2 at V, A, S's 512
-        assert warps == {1: 10, 128: 8, 512: 2, 1024: 1}[lanes]
+        assert warps == {1: 10, 127: 8, 128: 8, 512: 2, 1024: 1}[lanes]
+    if (K, lanes) == (96, 128):  # the mesh block: level 1's 48 padds in one pass, 128 blocks
+        assert (warps, smem) == (6, 48 * 192 + 6 * 8 * 384)
 
 
 def test_ed_geometry_raises_without_lanes_or_points():

@@ -105,6 +105,40 @@ def test_mont_mul_broadcasts_b():
         assert torch.equal(tc.mont_mul(a, b), tc.mont_mul(a, b.expand_as(a).contiguous()))
 
 
+def test_mont_rows_of_the_paths_shapes():
+    """(M, Mb) as the kernel reads them: the twiddles of a stage, a
+    one-row operand with or without leading 1s, b = a, and a contiguous
+    slice from row 1 (a base 88 bytes past an aligned one)."""
+    n = kernels.MONT_N
+
+    def z(*shape):
+        return torch.zeros(shape + (n,), dtype=torch.int32)
+
+    a = z(6, 4, 8)
+    assert kernels.mont_rows(a, z(4, 8), n) == (192, 32)
+    assert kernels.mont_rows(a, z(1, 1, 8), n) == (192, 8)
+    assert kernels.mont_rows(a, torch.zeros(n, dtype=torch.int32), n) == (192, 1)
+    assert kernels.mont_rows(a, z(1, 1), n) == (192, 1)
+    assert kernels.mont_rows(a, a, n) == (192, 192)
+    big = z(4097)
+    assert big[1:].is_contiguous() and big[1:].data_ptr() % 16 == 8
+    assert kernels.mont_rows(big[1:], big[1:], n) == (4096, 4096)
+
+
+@pytest.mark.parametrize("a_shape, b_shape", [
+    ((4, 21), (4, 21)),      # not n limbs
+    ((4, 5, 22), (3, 22)),   # b's rows do not divide a's leading axes as a suffix
+    ((4, 5, 22), (4, 1, 22)),
+    ((5, 22), (2, 5, 22)),   # b longer than a
+    ((22,), (2, 22)),
+])
+def test_mont_rows_raise_on_shapes_the_kernel_cannot_take(a_shape, b_shape):
+    a = torch.zeros(a_shape, dtype=torch.int32)
+    b = torch.zeros(b_shape, dtype=torch.int32)
+    with pytest.raises(ValueError, match="suffix"):
+        kernels.mont_rows(a, b, kernels.MONT_N)
+
+
 def test_mont_wrappers_take_cpu_or_cuda_only():
     consts = torch.empty((3, kernels.MONT_N), dtype=torch.int32, device="meta")
     rows = torch.empty((8, kernels.MONT_N), dtype=torch.int32, device="meta")
