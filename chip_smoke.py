@@ -7,13 +7,15 @@
     python3 chip_smoke.py --g1         # phases 1, 2 and g1_pair only, no last line
     python3 chip_smoke.py --mont       # phases 1, 2, mont_pair and 10 only, no last line
     python3 chip_smoke.py --ed-tree    # phases 1, 2 and ed_tree_pair only, no last line
+    python3 chip_smoke.py --ed-pair    # phases 1, 2 and ed_pair only, no last line
+    python3 chip_smoke.py --f32-chain  # phases 1, 2 and f32_chain only, no last line
 
 Phases, each printing one JSON line:
 
 1. the card (``nvidia-smi`` and torch's view of it);
 2. the build of the CUDA kernels from ``libzkp_tpu_torch/csrc`` (timed; the
-   ptxas lines, and mont_mul's and tree_sum ed25519's registers, frame and
-   spills);
+   ptxas lines, and the registers, frame and spills of mont_mul, tree_sum
+   ed25519, pair_add ed25519 and padd_f32_chain);
 3. each kernel instance against its plain PyTorch version on the card at its
    path's shapes, both timed with CUDA events: the ed25519 window_sum,
    horner and pair_add of the range prover; pair_add, window_sum4 and
@@ -23,7 +25,8 @@ Phases, each printing one JSON line:
    points; ed25519 at phase 7's range-basis MSM, 96 points); the probe
    kernels padd_chain and fe_mul, and pair_add at P5's shape; mont_padd,
    the five fold_ablate variants and padd_f32_chain at their probes'
-   shapes; mont_mul, limb for limb, at an NTT stage of a 256-statement h
+   shapes (pair_add ed25519 at both shapes and padd_f32_chain also with
+   the card's time a launch from the profiler); mont_mul, limb for limb, at an NTT stage of a 256-statement h
    batch (twiddles broadcast), with a one-row operand, at MiMC's 4096 rows
    (b = a, and one row), at ragged last blocks, at b rows that are no
    contiguous run of a block, from bases not 16-byte aligned and at P6's
@@ -47,7 +50,8 @@ Phases, each printing one JSON line:
    at 128 lanes; horner G1 and G2: B in {1, 5, 6, 127, 129}, B = 1 timed as
    9 chained padds; horner4 G1 and G2: B in {1, 5, 6, 257}, B = 1 timed as
    36 chained padds; pair_add G2: K in {1, 5, 6, 128, 353}, K = 1 timed;
-   pair_add G1: K in {1, 5, 6, 8, 128, 512}, K = 8 and 512 timed);
+   pair_add G1: K in {1, 5, 6, 8, 128, 512}, K = 8 and 512 timed;
+   pair_add ed25519: K in {1, 7, 8, 9, 161});
 4. (phases 4 to 6 run with the seam pinned to the single-device route, a
    one-position mesh, on any number of cards) the main path: ``prove_range_batch`` of 256 range proofs (512 prover
    lanes; T1/T2 and the L/R MSMs at 1024 lanes) with the launch counters
@@ -118,6 +122,8 @@ MUL_MACS = 24 * 24 + 26 * 24  # one field product: 576 conv + 624 fold multiply-
 # p = 2^255 - 19: 576 conv + the 52 fold multiply-adds whose constant is not 0
 ED_MUL_MACS = 24 * 24 + 52
 MONT_MACS = 2 * 22 * 22 + 22  # one Montgomery product: 484 conv + 484 REDC + 22 m
+# P3's float32 product: 841 conv FMAs + the 62 fold FMAs whose constant is not 0
+F32_MUL_FMAS = 29 * 29 + 62
 H_N = 512              # the equality circuit's domain
 H_BATCHES = (1, 16, 64, 170, 256)  # distinct statements per h batch (groth16_h)
 H_MONT_MULS = 43       # mont_mul launches of one h_batch_device call at n = 512
@@ -143,7 +149,14 @@ PAIR_ADD_G1_KERNELS = ("coop_horner_kernel<G1Coop, 1, 0>", "pair_add_kernel<Bn25
 TREE_SUM_KERNELS = {"ed25519": ("tree_sum_coop_kernel<EdCoop>", "tree_sum_kernel<Ed25519>"),
                     "bn254_g1": ("tree_sum_coop_kernel<G1Coop>",), "bn254_g2": ("tree_sum_coop_kernel<G2Coop>",)}
 PTXAS_KERNELS = {"mont_mul": ("mont", "mont_mul_kernel"),
-                 "tree_sum_ed25519": ("tree_sum", "tree_sum_coop_kernelI6EdCoop", "tree_sum_kernelI7Ed25519")}
+                 "tree_sum_ed25519": ("tree_sum", "tree_sum_coop_kernelI6EdCoop", "tree_sum_kernelI7Ed25519"),
+                 "pair_add_ed25519": ("pair_add", "coop_horner_kernelI6EdCoopLi1ELi0E", "pair_add_kernelI7Ed25519"),
+                 "padd_f32_chain": ("probes", "padd_f32_coop_kernel", "padd_f32_chain_kernel")}
+# K3 pair_add ed25519's and P3's kernels in a profile: this tree's and the
+# one-thread kernels they replaced
+PAIR_ADD_ED_KERNELS = ("coop_horner_kernel<EdCoop, 1, 0>", "pair_add_kernel<Ed25519>")
+F32_CHAIN_KERNELS = ("padd_f32_coop_kernel", "padd_f32_chain_kernel")
+ED_PAIR_WARPS = (1, 4, 8, 8, 4, 1)  # warps a block, timed in turns (ed_pair)
 CURVE_PADD_MACS = {"ed25519": PADD_MACS, **WPADD_MACS}
 SHARD_DP, SHARD_SHARD = 2, 2  # the one-card mesh: four positions, all cuda:0
 SHARD_B_LOCAL = G16_LANES // SHARD_DP
@@ -350,8 +363,8 @@ def check_kernels(dev, int_rate: float, tables: dict) -> list:
     """Phase 3: each kernel against its plain version at the path's shapes,
     limb for limb: window_sum (K1) also at 512 lanes, at its warps a block
     compared (:func:`k1_warps`) and at ragged shapes
-    (:func:`ragged_window_sum`), horner (K2) also at ragged lane counts
-    (:func:`ragged_horner`). Leaves the table in ``tables["ed25519"]``."""
+    (:func:`ragged_window_sum`), horner (K2) and pair_add (K3) also at
+    ragged lane counts (:func:`ragged_horner`, :func:`ragged_pair_add`). Leaves the table in ``tables["ed25519"]``."""
     from libzkp_tpu_torch.ops import curve, kernels
 
     eng = curve.edwards_engine()
@@ -416,7 +429,10 @@ def check_kernels(dev, int_rate: float, tables: dict) -> list:
                         replaces="libzkp_tpu/ops/curve_jax.py:482",
                         max_abs_err=float(err), tolerance="exact limbs",
                         ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                        shape=f"p, q ({C},{n},{KP}) i32"))
+                        shape=f"p, q ({C},{n},{KP}) i32",
+                        card=card_time(lambda: kernels.pair_add(consts, p, q), PAIR_ADD_ED_KERNELS, 50)))
+    ragged_pair_add(dev, "ed25519", consts, table, table.view(KP, 256, C, n)[:, 1].permute(1, 2, 0).to(torch.int32),
+                    h_k)
     for r in results:
         emit({"phase": "kernel_check", **r})
     return results
@@ -645,11 +661,12 @@ def ragged_horner4(dev, curve: str, consts, sums) -> None:
 # ragged_pair_add's lane counts (timed ones): G2, one 18-thread group a
 # one-warp block, 353 one lane past the b_g2 table's basis; G1, five groups
 # a warp, 8 the grouped route's statement tables, 512 the h query's table
-RAGGED_PAIR_ADD = {"bn254_g2": ((1, 5, 6, 128, 353), (1,)), "bn254_g1": ((1, 5, 6, 8, 128, 512), (8, 512))}
+RAGGED_PAIR_ADD = {"bn254_g2": ((1, 5, 6, 128, 353), (1,)), "bn254_g1": ((1, 5, 6, 8, 128, 512), (8, 512)),
+                   "ed25519": ((1, 7, 8, 9, KP + 1), ())}
 
 
 def ragged_pair_add(dev, curve: str, consts, table, baseT, horners) -> None:
-    """pair_add G1 or G2 at ragged lane counts (RAGGED_PAIR_ADD), limb for
+    """pair_add at ragged lane counts (RAGGED_PAIR_ADD), limb for
     limb against the plain version, on the operands the paths give it: a
     table build step, row d of basis point k % Kp of ``table`` plus its base
     point from ``baseT`` (lane 0: the identity plus the base; lane 1: row 1
@@ -1018,13 +1035,16 @@ def check_probe_kernels(dev, int_rate: float, fp32_rate: float) -> list:
     from libzkp_tpu_torch import probes
     from libzkp_tpu_torch.ops import kernels
 
-    def check(name, source, replaces, run, plain, iters, macs, nbytes, shape, rate=int_rate, **extra):
+    def check(name, source, replaces, run, plain, iters, macs, nbytes, shape, rate=int_rate, card=None,
+              **extra):
         out_k, out_p = run(), plain()
         torch.cuda.synchronize()
         err = float((out_k - out_p).abs().max())
         if err != 0:
             raise AssertionError(f"{name} limbs differ from its plain version (max {err})")
         b_ms, b_by = bound(macs, nbytes, rate)
+        if card:  # the card's time a launch (profiler)
+            extra["card"] = card_time(run, card, iters)
         row = dict(name=name, route="cuda", source=source, replaces=replaces, max_abs_err=float(err),
                    tolerance="exact limbs", ms=cuda_ms(run, iters), plain_ms=cuda_ms(plain, 1),
                    bound_ms=b_ms, bound_by=b_by, library_ms=None, shape=shape, **extra)
@@ -1050,7 +1070,8 @@ def check_probe_kernels(dev, int_rate: float, fp32_rate: float) -> list:
     consts, p, q, _, _ = probes.add_inputs(dev)
     check("pair_add", "libzkp_tpu_torch/csrc/pair_add.cu", "scripts/bench_fold.py:185",
           lambda: kernels.pair_add(consts, p, q), lambda: kernels.pair_add_plain(consts, p, q), 20,
-          PADD_MACS * p.shape[-1], 3 * p.numel() * 4, f"p, q (4,24,{p.shape[-1]}) i32", probe="P5")
+          PADD_MACS * p.shape[-1], 3 * p.numel() * 4, f"p, q (4,24,{p.shape[-1]}) i32",
+          card=PAIR_ADD_ED_KERNELS, probe="P5")
     # P7, P1, P3
     mc, mp, mq, _, _ = probes.mont_padd_inputs(dev)
     E = mp.shape[-1]
@@ -1074,8 +1095,8 @@ def check_probe_kernels(dev, int_rate: float, fp32_rate: float) -> list:
                          "scripts/bench_pallas_padd.py:220",
                          lambda: kernels.padd_f32_chain(fc, fp, fq, R),
                          lambda: kernels.padd_f32_chain_plain(fc, fp, fq, R), 10,
-                         R * 9 * probes.F32_FMAS * B, 3 * fp.numel() * 4,
-                         f"p, q (4,29,{B}) f32, chain {R}", rate=fp32_rate))
+                         R * 9 * F32_MUL_FMAS * B, 3 * fp.numel() * 4,
+                         f"p, q (4,29,{B}) f32, chain {R}", rate=fp32_rate, card=F32_CHAIN_KERNELS))
     return results
 
 
@@ -1256,6 +1277,98 @@ def ed_tree_pair(dev) -> None:
                         **card_time(lambda: kernels.tree_sum(consts, pts, curve=curve),
                                     TREE_SUM_KERNELS[curve], 20)}
     emit({"phase": "ed_tree_pair", **out})
+
+
+def ed_pair(dev) -> None:
+    """K3 pair_add ed25519 alone through its wrapper: at the range table's
+    K = 160 (rows 7 and 200 of each basis point's multiples), at
+    RAGGED_PAIR_ADD's K and at P5's 2^18 lanes, each limb for limb against
+    its plain version, timed (CUDA events) with the card's time a launch
+    (profiler); the range basis's table build (255 launches) timed, wall
+    and card; where the kernel is cooperative (this tree), K = 160 and P5
+    also at ED_PAIR_WARPS warps a block, in turns, each limb for limb.
+    Runs on an earlier checkout too (this script copied into it). One
+    ed_pair line."""
+    from libzkp_tpu_torch import probes
+    from libzkp_tpu_torch.models import bp_device
+    from libzkp_tpu_torch.ops import curve, kernels
+
+    consts, table = ed_table(dev)
+    C, n = table.shape[1:]
+    rows = table.view(KP, 256, C, n)
+
+    def lanes(K, row):  # basis point k % KP's multiple `row`, (C, n, K) int32
+        return rows[torch.arange(K, device=dev) % KP, row].permute(1, 2, 0).to(torch.int32).contiguous()
+
+    _, pp, pq, _, _ = probes.add_inputs(dev)
+    shapes = {KP: (lanes(KP, 7), lanes(KP, 200)), "P5": (pp, pq)}
+    ragged = RAGGED_PAIR_ADD["ed25519"][0]
+    shapes |= {K: (lanes(K, 3 + K % 200), lanes(K, 250 - K % 200)) for K in ragged}
+    out: dict = {"card": smi("name,power.limit")}
+    for key, (p, q) in shapes.items():
+        want = kernels.pair_add_plain(consts, p, q)
+        _limbs_err(f"pair_add ed25519 at K {p.shape[-1]}", kernels.pair_add(consts, p, q), want)
+        if key in (KP, "P5"):
+            out[f"K{p.shape[-1]}"] = {"ms": cuda_ms(lambda: kernels.pair_add(consts, p, q), 50),
+                                      **card_time(lambda: kernels.pair_add(consts, p, q), PAIR_ADD_ED_KERNELS, 20)}
+    out["ragged_limbs_equal"] = list(ragged)
+
+    base = curve.edwards_engine().encode_points(bp_device._basis_points(64))
+    build = lambda: curve.DeviceTable(base, device=dev)  # noqa: E731
+    build_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        build()
+        torch.cuda.synchronize()
+        build_ms.append((time.perf_counter() - t0) * 1e3)
+    out["table_build"] = {"wall_ms": build_ms, **card_time(build, PAIR_ADD_ED_KERNELS, 1)}
+
+    if len(kernels._ARGTYPES["pair_add"]) > 6:  # cooperative: blocks, warps and shared bytes
+        sweep: dict = {}
+        for key in (KP, "P5"):
+            p, q = shapes[key]
+            K = p.shape[-1]
+            res, want = torch.empty_like(p), kernels.pair_add_plain(consts, p, q)
+            per_warp = kernels.COOP_PADDS_PER_WARP["ed25519"]
+
+            def forced(w):  # per group: p and q as int16 points and the padd's scratch
+                smem = w * per_warp * (2 * kernels.POINT_BYTES["ed25519"] + kernels.COOP_SCRATCH_BYTES["ed25519"])
+                kernels._run("pair_add", "ed25519", dev, consts.data_ptr(), p.data_ptr(), q.data_ptr(),
+                             res.data_ptr(), K, -(-K // (per_warp * w)), w, smem)
+
+            for w in ED_PAIR_WARPS:
+                forced(w)
+                torch.cuda.synchronize()
+                _limbs_err(f"pair_add ed25519 at K {K}, {w} warps a block", res, want)
+                cell = sweep.setdefault(f"K{K}", {}).setdefault(w, {"ms": [], "card_us": []})
+                cell["ms"].append(cuda_ms(lambda: forced(w), 50))
+                cell["card_us"].append(card_time(lambda: forced(w), PAIR_ADD_ED_KERNELS, 20)["kernel_us"])
+        out["warps"] = sweep
+    emit({"phase": "ed_pair", **out})
+
+
+def f32_chain(dev) -> None:
+    """P3 padd_f32_chain alone through its wrapper at its probe's shape (64
+    chained additions over 512 lanes), limb for limb against its plain
+    version, its largest limb within F32_HALF + 32, timed (CUDA events) with
+    the card's time a launch (profiler). Runs on an earlier checkout too.
+    One f32_chain line."""
+    from libzkp_tpu_torch import probes
+    from libzkp_tpu_torch.ops import kernels
+
+    R = probes.CHAIN_R
+    fc, fp, fq, _, _ = probes.f32_chain_inputs(dev)
+    got = kernels.padd_f32_chain(fc, fp, fq, R)
+    want = kernels.padd_f32_chain_plain(fc, fp, fq, R)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    top = float(got.abs().max())
+    if err != 0 or top > probes.F32_HALF + 32:
+        raise AssertionError(f"padd_f32_chain: limbs differ by {err}, largest limb {top}")
+    run = lambda: kernels.padd_f32_chain(fc, fp, fq, R)  # noqa: E731
+    emit({"phase": "f32_chain", "card": smi("name,power.limit"), "shape": f"p, q (4,29,{fp.shape[-1]}) f32, chain {R}",
+          "max_abs_err": err, "max_abs_limb": top, "ms": [cuda_ms(run, 10) for _ in range(3)],
+          **card_time(run, F32_CHAIN_KERNELS, 10)})
 
 
 def groth16_path(dev) -> dict:
@@ -1823,9 +1936,9 @@ def main_path(dev) -> dict:
 
 
 def main(argv: list) -> int:
-    if argv not in ([], ["--kernels"], ["--range"], ["--groth16"], ["--g1"], ["--mont"], ["--ed-tree"]):
-        print("usage: python3 chip_smoke.py [--kernels | --range | --groth16 | --g1 | --mont | --ed-tree], "
-              f"got {argv}", file=sys.stderr)
+    flags = ("--kernels", "--range", "--groth16", "--g1", "--mont", "--ed-tree", "--ed-pair", "--f32-chain")
+    if len(argv) > 1 or (argv and argv[0] not in flags):
+        print(f"usage: python3 chip_smoke.py [{' | '.join(flags)}], got {argv}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1879,6 +1992,12 @@ def main(argv: list) -> int:
         return 0
     if argv == ["--ed-tree"]:  # tree_sum ed25519 alone, likewise
         ed_tree_pair(dev)
+        return 0
+    if argv == ["--ed-pair"]:  # pair_add ed25519 alone, likewise
+        ed_pair(dev)
+        return 0
+    if argv == ["--f32-chain"]:  # padd_f32_chain alone, likewise
+        f32_chain(dev)
         return 0
     tables: dict = {}
     checks = (check_kernels(dev, int_rate, tables) + check_bn254_kernels(dev, int_rate, tables)

@@ -6,16 +6,17 @@
 // is one addition a lane, acc_in + wsums. Instances: horner ed25519 =
 // <EdCoop, 1, 8>, horner G1 = <G1Coop, 1, 8> and horner G2 = <G2Coop18, 1,
 // 8> (horner.cu), horner4 G1 = <G1Coop, 4, 8> and horner4 G2 = <G2Coop, 4,
-// 8> (horner4.cu), pair_add G1 = <G1Coop, 1, 0> and pair_add G2 =
-// <G2Coop18, 1, 0> (pair_add.cu).
+// 8> (horner4.cu), pair_add ed25519 = <EdCoop, 1, 0>, pair_add G1 =
+// <G1Coop, 1, 0> and pair_add G2 = <G2Coop18, 1, 0> (pair_add.cu).
 //
 // A padd's latency is the products of one thread (EdCoop: 3, a pdouble 2,
 // against 9 and 8 in one thread; G1Coop: 2, against 12; G2Coop: 7 and
 // G2Coop18: 3, against 42) plus its rows and __syncwarp stages. The chain
 // is a latency chain: the padds of a lane depend on each other, and the
 // paths give 8 (pair_add G1, a statement's table on the grouped route), 128
-// (horner, a mesh block), 256 (horner4), 352 or 512 (pair_add, the query
-// tables), 512 or 1024 lanes (horner ed25519, the range prover),
+// (horner, a mesh block), 160 (pair_add ed25519, the range basis's table),
+// 256 (horner4), 352 or 512 (pair_add, the query tables), 512 or 1024 lanes
+// (horner ed25519, the range prover),
 // too few to fill the card with independent work. A warp holds Cp::PER_WARP
 // groups (four-thread groups: eight; six-thread groups: five, lanes 30 and
 // 31 idle; 18-thread groups: one, lanes 18 to 31 idle); blocks of one warp

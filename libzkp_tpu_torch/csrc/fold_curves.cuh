@@ -1,9 +1,8 @@
 // Fold-field arithmetic on 12-bit limbs, the consts blocks of the three
 // curves of the MSM (ed25519, BN254 G1, BN254 G2) and the one-thread
-// Edwards padd, one lane per thread, shared by the one-thread kernels
-// (pair_add ed25519, the probes) and, for the field product and carries, by
-// the cooperative ones (coop_sum.cuh), which run every tree sum and Horner
-// step.
+// Edwards padd, one lane per thread, shared by the one-thread kernels (the
+// probes) and, for the field product and carries, by the cooperative ones
+// (coop_sum.cuh), which run every tree sum, Horner step and table add.
 //
 // The same schedule as the plain PyTorch version (ops/limbfold.py FieldOps,
 // ops/edwards.py, ops/weierstrass.py) and the JAX package's ops/limbfold.py

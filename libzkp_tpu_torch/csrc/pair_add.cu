@@ -10,24 +10,26 @@
 // Bound: integer multiply-adds per lane, against 3 * COORDS * N * 4 bytes
 // moved: an Edwards padd is 9 field products, a G1 padd (RCB) 12 products
 // and 2 small multiplies, a G2 padd 42 products (14 Fq2 products of 3), each
-// product N^2 + (N + 2) * N = 576 + 624 = 1200 multiply-adds. At the table
-// builds' K of a few hundred lanes one launch is one padd's latency.
+// BN254 product N^2 + (N + 2) * N = 576 + 624 = 1200 multiply-adds, each
+// ed25519 product (ed_mul) 576 + 52. At the table builds' K of a few hundred
+// lanes one launch is one padd's latency.
 //
-// ed25519: one thread per lane, coalesced over the lane axis (the table
-// build of the range prover's basis, run once a process).
-//
-// BN254 G1 and G2: one cooperative group per lane on the Horner template
+// Every curve runs one cooperative group per lane on the Horner template
 // with no doublings and one window (coop_horner_kernel<Cp, 1, 0>,
-// coop_horner.cuh: acc_in = p, wsums = q). G1 runs five six-thread groups a
-// warp on G1Coop, so a launch's latency is 2 products of one thread where one
-// thread per lane ran all 12 with its two 3 x 24 int32 points in 255
-// registers; G2 one group of 18 threads a warp on G2Coop18, 3 Fq products of
-// one thread against 42, its two 6 x 24 int32 points spilled to local memory.
-// Blocks of one warp spread the lanes over the SMs: the grouped route's
-// statement tables have K = 8 lanes (two blocks), the query tables 352 or 512.
-// p and q are narrowed to int16 in shared memory: each is a table row, the
-// base point, the identity or a mesh partial sum (a Horner or padd output),
-// whose limbs lie in int16 (coop_horner.cuh states the precondition).
+// coop_horner.cuh: acc_in = p, wsums = q). ed25519 runs eight four-thread
+// groups a warp on EdCoop (the range prover's table build, run once a
+// process, and the mesh fold of its MSM), 3 products of one thread where one
+// thread per lane ran all 9; G1 five six-thread groups a warp on G1Coop, so
+// a launch's latency is 2 products of one thread where one thread per lane
+// ran all 12 with its two 3 x 24 int32 points in 255 registers; G2 one group
+// of 18 threads a warp on G2Coop18, 3 Fq products of one thread against 42,
+// its two 6 x 24 int32 points spilled to local memory. Blocks of one warp
+// spread the lanes over the SMs: the range basis's table has K = 160 lanes
+// (20 blocks), the grouped route's statement tables K = 8 (two blocks), the
+// query tables 352 or 512. p and q are narrowed to int16
+// in shared memory: each is a table row, the base point, the identity or a
+// mesh partial sum (a Horner or padd output), whose limbs lie in int16
+// (coop_horner.cuh states the precondition).
 //
 // Every formula is the plain version's, step for step, so the limbs are
 // identical to it. Fusing the 255-step chain into one launch is left for
@@ -35,45 +37,15 @@
 
 #include "coop_horner.cuh"
 
-namespace {
-
-constexpr int THREADS = 128;
-
-template <class Cv>
-__global__ void __launch_bounds__(THREADS)
-pair_add_kernel(const int32_t* __restrict__ p, const int32_t* __restrict__ q,
-                int32_t* __restrict__ out, int K) {
-  const int b = blockIdx.x * THREADS + threadIdx.x;
-  if (b >= K) return;
-  int32_t a[Cv::COORDS][fold::N];
-  int32_t c[Cv::COORDS][fold::N];
-  pt_load_lanes<Cv>(a, p, b, K);
-  pt_load_lanes<Cv>(c, q, b, K);
-  Cv::padd(a, a, c);
-  pt_store_lanes<Cv>(out, a, b, K);
-}
-
-template <class Cv>
-int launch(const int32_t* consts, const int32_t* p, const int32_t* q, int32_t* out, int K,
-           void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = fold_load_consts(consts, Cv::NCONST, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (K + THREADS - 1) / THREADS;
-  pair_add_kernel<Cv><<<blocks, THREADS, 0, st>>>(p, q, out, K);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
-
 // consts: the curve's (NCONST, N) int32 block; p, q, out: (COORDS, N, K)
-// int32; BN254 only: blocks, warps per block (blocks * warps * lanes a warp
-// >= K: 5 for G1, 1 for G2) and dynamic shared bytes (at least
+// int32; blocks, warps per block (blocks * warps * lanes a warp >= K: 8 for
+// ed25519, 5 for G1, 1 for G2) and dynamic shared bytes (at least
 // coop_horner_smem_bytes<Cp, 1>(warps)). Each returns the CUDA error of the
 // launch (0 on success).
 extern "C" int pair_add_ed25519_launch(const int32_t* consts, const int32_t* p, const int32_t* q,
-                                       int32_t* out, int K, void* stream) {
-  return launch<Ed25519>(consts, p, q, out, K, stream);
+                                       int32_t* out, int K, int blocks, int warps, int smem,
+                                       void* stream) {
+  return coop_horner_launch<Ed25519, EdCoop, 1, 0>(consts, p, q, out, K, blocks, warps, smem, stream);
 }
 
 extern "C" int pair_add_bn254_g1_launch(const int32_t* consts, const int32_t* p, const int32_t* q,

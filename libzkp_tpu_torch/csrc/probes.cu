@@ -31,14 +31,18 @@
 //   Pallas kernel: R chained Edwards padds on float32 balanced 9-bit limbs
 //   (29 limbs, 261 bits), p <- p + q over (4, 29, B). The TPU ran the
 //   convolution, the fold and the carry shift as MXU dots; here they are FFMA
-//   loops in the thread, as K1 replaced A1's one-hot matmul with a gather.
-//   Exact because every partial sum is an integer below 2^24 (checked by
-//   tests/test_torch_probes.py); the rounding carry (x + RND) - RND needs
-//   IEEE float addition, so this source is built without --use_fast_math.
-//   Bound: R * 9 products of 841 + 899 FMAs per lane at the FP32 rate.
+//   loops on register arrays (f32_mul, inlined once), the fold's 62 nonzero
+//   constants and ONE written into the code. Four threads share a padd, as
+//   EdCoop does (coop_sum.cuh): two rounds, three products of one thread a
+//   padd, eight lanes a one-warp block, P, Q and the scratch rows in shared
+//   memory. Exact because every partial sum is an integer below 2^24
+//   (checked by tests/test_torch_probes.py), so the FMAs may run in any
+//   order; the rounding carry (x + RND) - RND needs IEEE float addition, so
+//   this source is built without --use_fast_math. Bound: R * 9 products of
+//   841 + 62 FMAs per lane at the FP32 rate.
 //
 // P5 (scripts/bench_fold.py main.pl_add, one padd per lane) is exactly K3
-// pair_add (pair_add.cu) at its shape, so it has no kernel here.
+// pair_add (pair_add.cu, on EdCoop) at its shape, so it has no kernel here.
 
 #include "fold_curves.cuh"
 #include "mont.cuh"
@@ -207,15 +211,13 @@ fold_ablate_kernel(int variant, const int32_t* __restrict__ a, const int32_t* __
 namespace f32p {
 constexpr int NF = 29;              // limbs
 constexpr int NC = 2 * NF + 2;      // convolution columns
-constexpr int ROW_ONE = 0;          // consts rows: ONE, FOLD[NF + 2], 2d
-constexpr int ROW_FOLD = 1;
-constexpr int ROW_TWOD = NF + 3;
-constexpr int NCONST = NF + 4;
+constexpr int ROW_TWOD = NF + 3;    // consts rows: ONE, FOLD[NF + 2], 2d
 constexpr float RND = 6442450944.0f;  // 3 * 2^31: ulp 2^9 = 2^W
 constexpr float ITW = 1.0f / 512.0f;
+constexpr int GROUP = 4;            // threads of one padd
+constexpr int PER_WARP = 8;         // padds a warp
+constexpr int ROWS = 12;            // float rows of a group: P, Q, then A, B, C, D
 }  // namespace f32p
-
-__constant__ float c_f32[f32p::NCONST * f32p::NF];
 
 namespace {
 
@@ -224,10 +226,20 @@ __device__ __forceinline__ float round_w(float x) {
   return (x + f32p::RND) - f32p::RND;
 }
 
-// r = a * b on balanced limbs: convolution, two no-wrap carries, the fold of
-// the NF + 2 high columns, three wrap carries (ONE folds the top carry back).
-// r may alias a or b. Out of line, so a padd is nine calls.
-__device__ __noinline__ void f32_mul(float* r, const float* a, const float* b) {
+// r = a * b on balanced limbs, in registers: the convolution (FMAs in the
+// order i, then j), two no-wrap carries, the fold of the NF + 2 high
+// columns, three wrap carries (ONE folds the top carry back). The fold and
+// ONE are p = 2^255 - 19's (tests/test_torch_probes.py pins them against
+// the consts block): FOLD[k] is 192 at limb k and 2 at limb k + 1 for k <
+// 28, -184 at limb k - 28 and 6 at limb k - 27 for k = 28, 29, 30; ONE is
+// 192, 2 at limbs 0, 1. The 62 nonzero fold terms are summed in the dense
+// fold's order of k, the 837 zero terms left out (read as constant-memory
+// operands, the dense fold made the chain 3.9x slower on the card). r may
+// alias a or b. Every partial sum is an integer below 2^24, so each float
+// operation is exact and the limbs equal padd_f32_chain_plain's matrix
+// products'.
+__device__ __forceinline__ void f32_mul(float (&r)[f32p::NF], const float (&a)[f32p::NF],
+                                        const float (&b)[f32p::NF]) {
   using namespace f32p;
   float T[NC];
 #pragma unroll
@@ -237,93 +249,126 @@ __device__ __noinline__ void f32_mul(float* r, const float* a, const float* b) {
 #pragma unroll
     for (int j = 0; j < NF; ++j) T[i + j] = fmaf(a[i], b[j], T[i + j]);
 #pragma unroll
-  for (int pass = 0; pass < 2; ++pass) {
-    float h[NC];
+  for (int pass = 0; pass < 2; ++pass) {  // T[k] - h[k] + h[k - 1] / 2^W, the last carry dropped
+    float in = 0.0f;
 #pragma unroll
     for (int k = 0; k < NC; ++k) {
-      h[k] = round_w(T[k]);
-      T[k] -= h[k];
+      const float h = round_w(T[k]);
+      T[k] = (T[k] - h) + in;
+      in = h * ITW;
     }
-#pragma unroll
-    for (int k = 1; k < NC; ++k) T[k] += h[k - 1] * ITW;
   }
-  float acc[NF];
 #pragma unroll
-  for (int i = 0; i < NF; ++i) {
+  for (int i = 0; i < NF; ++i) {  // T[i] + sum over k of FOLD[k][i] T[NF + k], nonzero terms
     float s = 0.0f;
-#pragma unroll
-    for (int k = 0; k < NF + 2; ++k) s = fmaf(c_f32[(ROW_FOLD + k) * NF + i], T[NF + k], s);
-    acc[i] = T[i] + s;
+    if (i >= 1) s = fmaf(2.0f, T[NF + i - 1], s);        // k = i - 1 < 28
+    if (i <= 27) s = fmaf(192.0f, T[NF + i], s);         // k = i < 28
+    if (i >= 1 && i <= 3) s = fmaf(6.0f, T[NF + i + 27], s);  // k = i + 27 >= 28
+    if (i <= 2) s = fmaf(-184.0f, T[NF + i + 28], s);    // k = i + 28
+    r[i] = T[i] + s;
   }
 #pragma unroll 1
-  for (int pass = 0; pass < 3; ++pass) {
-    float h[NF];
+  for (int pass = 0; pass < 3; ++pass) {  // r[i] - h[i] 2^W + h[i - 1] + ONE[i] top
+    const float top = round_w(r[NF - 1]) * ITW;
+    float in = 0.0f;
 #pragma unroll
     for (int i = 0; i < NF; ++i) {
-      h[i] = round_w(acc[i]) * ITW;
-      acc[i] -= h[i] * (1 << 9);
+      const float h = round_w(r[i]) * ITW;
+      const float c = i == 0 ? 192.0f * top : i == 1 ? fmaf(2.0f, top, in) : in;
+      r[i] = (r[i] - h * (1 << 9)) + c;
+      in = h;
     }
-    const float top = h[NF - 1];
-#pragma unroll
-    for (int i = 0; i < NF; ++i)
-      acc[i] += (i > 0 ? h[i - 1] : 0.0f) + c_f32[ROW_ONE * NF + i] * top;
   }
-#pragma unroll
-  for (int i = 0; i < NF; ++i) r[i] = acc[i];
 }
 
-__global__ void __launch_bounds__(CHAIN_THREADS)
-padd_f32_chain_kernel(const float* __restrict__ p, const float* __restrict__ q,
-                      float* __restrict__ out, int R, int B) {
+// Row v of round 2's operands from the rows A, B, C, D of S: v = 0, E =
+// B - A; 1, F = D - C; 2, G = D + C; 3, H = B + A.
+__device__ __forceinline__ void f32_row(float (&x)[f32p::NF], const float (*S)[f32p::NF], int v) {
+  const int hi = (v == 1 || v == 2) ? 3 : 1;
+  const float sign = v >= 2 ? 1.0f : -1.0f;
+#pragma unroll
+  for (int i = 0; i < f32p::NF; ++i) x[i] = S[hi][i] + sign * S[hi - 1][i];
+}
+
+// R chained padds p <- p + q per lane, four threads a lane, eight lanes a
+// one-warp block. Group grp's rows in shared memory: P (the accumulator), Q,
+// and the scratch rows A, B, C, D; the block's 2d row (read once from the
+// consts block). A padd is three steps through one product call site:
+// step 0 (round 1), thread g's product of (Y1 - X1, Y2 - X2), (Y1 + X1,
+// Y2 + X2), (T1, T2), (Z1, Z2), thread 3 then doubling its zz into D; step
+// 1, thread 2's C = (T1 T2) 2d, the others idle; rows A, B, C, D stored;
+// step 2 (round 2), thread g's (E, F), (G, H), (F, G), (E, H) into
+// coordinate g of P: X3, Y3, Z3, T3. Three products of one thread a padd,
+// against nine; one inlined product (three inlined copies ran 1.4x slower
+// on the card: the loop's code outgrew the instruction cache). P and
+// Q are read in step 0 only, P written in step 2, rounds closed by
+// __syncwarp; groups past B pass act = false and meet every __syncwarp.
+__global__ void __launch_bounds__(32)
+padd_f32_coop_kernel(const float* __restrict__ consts, const float* __restrict__ p,
+                     const float* __restrict__ q, float* __restrict__ out, int R, int B) {
   using namespace f32p;
-  const int b = blockIdx.x * CHAIN_THREADS + threadIdx.x;
-  if (b >= B) return;
-  float P[4][NF], Q[4][NF], twod[NF];
-#pragma unroll
-  for (int c = 0; c < 4; ++c)
-#pragma unroll
+  __shared__ float rows[PER_WARP][ROWS][NF];
+  __shared__ float twod[NF];
+  const int grp = threadIdx.x / GROUP, g = threadIdx.x % GROUP;
+  const int b = blockIdx.x * PER_WARP + grp;
+  const bool act = b < B;
+  float (*P)[NF] = rows[grp];
+  float (*Q)[NF] = rows[grp] + 4;
+  float (*S)[NF] = rows[grp] + 8;
+  if (threadIdx.x < NF) twod[threadIdx.x] = consts[ROW_TWOD * NF + threadIdx.x];
+  if (act) {  // thread g loads coordinate g of both points
+#pragma unroll 1
     for (int i = 0; i < NF; ++i) {
-      P[c][i] = p[(size_t)(c * NF + i) * B + b];
-      Q[c][i] = q[(size_t)(c * NF + i) * B + b];
+      P[g][i] = p[(size_t)(g * NF + i) * B + b];
+      Q[g][i] = q[(size_t)(g * NF + i) * B + b];
     }
-#pragma unroll
-  for (int i = 0; i < NF; ++i) twod[i] = c_f32[ROW_TWOD * NF + i];
+  }
+  __syncwarp();
 #pragma unroll 1
   for (int r = 0; r < R; ++r) {
-    float u[NF], v[NF], A[NF], Bv[NF], C[NF], D[NF];
+    float x[NF], y[NF];
+#pragma unroll 1
+    for (int step = 0; step < 3; ++step) {
+      if (act) {
+        if (step == 0 && g < 2) {
+          const float sign = g ? 1.0f : -1.0f;
 #pragma unroll
-    for (int i = 0; i < NF; ++i) {
-      u[i] = P[1][i] - P[0][i];
-      v[i] = Q[1][i] - Q[0][i];
-    }
-    f32_mul(A, u, v);
+          for (int i = 0; i < NF; ++i) {
+            x[i] = P[1][i] + sign * P[0][i];
+            y[i] = Q[1][i] + sign * Q[0][i];
+          }
+        } else if (step == 0) {
+          const int c = g == 2 ? 3 : 2;
 #pragma unroll
-    for (int i = 0; i < NF; ++i) {
-      u[i] = P[1][i] + P[0][i];
-      v[i] = Q[1][i] + Q[0][i];
-    }
-    f32_mul(Bv, u, v);
-    f32_mul(u, P[3], Q[3]);
-    f32_mul(C, u, twod);
-    f32_mul(u, P[2], Q[2]);
-    float Ev[NF], F[NF], G[NF], H[NF];
+          for (int i = 0; i < NF; ++i) {
+            x[i] = P[c][i];
+            y[i] = Q[c][i];
+          }
+        } else if (step == 1) {
 #pragma unroll
-    for (int i = 0; i < NF; ++i) {
-      D[i] = u[i] + u[i];
-      Ev[i] = Bv[i] - A[i];
-      F[i] = D[i] - C[i];
-      G[i] = D[i] + C[i];
-      H[i] = Bv[i] + A[i];
+          for (int i = 0; i < NF; ++i) y[i] = twod[i];
+        } else {
+          f32_row(x, S, (0x0120 >> (4 * g)) & 15);
+          f32_row(y, S, (0x3231 >> (4 * g)) & 15);
+        }
+        if (step != 1 || g == 2) f32_mul(x, x, y);
+        if (step == 0 && g == 3) {
+#pragma unroll
+          for (int i = 0; i < NF; ++i) x[i] = x[i] + x[i];
+        }
+        if (step > 0 || g != 2) {  // row g of A, B, C, D after step 0 (C after step 1), P[g] after step 2
+          float* row = step == 2 ? P[g] : S[g];
+#pragma unroll
+          for (int i = 0; i < NF; ++i) row[i] = x[i];
+        }
+      }
+      if (step > 0) __syncwarp();
     }
-    f32_mul(P[0], Ev, F);
-    f32_mul(P[1], G, H);
-    f32_mul(P[2], F, G);
-    f32_mul(P[3], Ev, H);
   }
-#pragma unroll
-  for (int c = 0; c < 4; ++c)
-#pragma unroll
-    for (int i = 0; i < NF; ++i) out[(size_t)(c * NF + i) * B + b] = P[c][i];
+  if (act) {
+#pragma unroll 1
+    for (int i = 0; i < NF; ++i) out[(size_t)(g * NF + i) * B + b] = P[g][i];
+  }
 }
 
 template <class Cv>
@@ -405,15 +450,13 @@ FOLD_ABLATE_ENTRY(fold, FOLD)
 FOLD_ABLATE_ENTRY(mac, MAC)
 #undef FOLD_ABLATE_ENTRY
 
-// consts: (NF + 4, NF) float32 (ONE, FOLD[NF + 2], 2d); p, q, out:
+// consts: (NF + 4, NF) float32 (ONE, FOLD[NF + 2], 2d: the kernel reads 2d;
+// its ONE and FOLD are p = 2^255 - 19's, in the code); p, q, out:
 // (4, NF, B) float32 balanced limbs. Returns the CUDA error of the launch.
 extern "C" int padd_f32_chain_launch(const float* consts, const float* p, const float* q,
                                      float* out, int R, int B, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemcpyToSymbolAsync(c_f32, consts, sizeof(float) * f32p::NCONST * f32p::NF,
-                                            0, cudaMemcpyDeviceToDevice, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (B + CHAIN_THREADS - 1) / CHAIN_THREADS;
-  padd_f32_chain_kernel<<<blocks, CHAIN_THREADS, 0, st>>>(p, q, out, R, B);
+  const int blocks = (B + f32p::PER_WARP - 1) / f32p::PER_WARP;
+  padd_f32_coop_kernel<<<blocks, 32, 0, st>>>(consts, p, q, out, R, B);
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,8 +7,8 @@ and bound with ``ctypes``; the field and curve code they share is
 cooperative padds (BN254 G1 and G2, the Edwards padd and pdouble of
 ed25519) and tree sum ``csrc/coop_sum.cuh`` (window_sum ed25519,
 window_sum4 G1 and G2, tree_sum on every curve) and the Horner chain on them
-``csrc/coop_horner.cuh`` (horner on every curve, horner4 G1 and G2,
-pair_add G1 and G2). Each kernel is instantiated for the curves its path runs,
+``csrc/coop_horner.cuh`` (horner and pair_add on every curve, horner4 G1
+and G2). Each kernel is instantiated for the curves its path runs,
 and each instance is a kernel of its own, named ``<kernel>`` for ed25519
 or a field-generic kernel and
 ``<kernel>_<curve>`` for BN254 or ``<kernel>_<variant>`` for a probe's
@@ -113,7 +113,7 @@ _L = ctypes.c_longlong
 _ARGTYPES = {
     "window_sum": [_P, _P, _P, _P, _I, _I, _I, _I, _P],  # cooperative: (blocks,) warps, shared bytes
     "horner": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "pair_add": [_P, _P, _P, _P, _I, _P],
+    "pair_add": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "window_sum4": [_P, _P, _P, _P, _I, _I, _I, _I, _P],  # G2: warps, shared bytes
     "horner4": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "tree_sum": [_P, _P, _P, _I, _I, _I, _I, _P],  # cooperative: warps, shared bytes
@@ -125,8 +125,6 @@ _ARGTYPES = {
     "padd_f32_chain": [_P, _P, _P, _P, _I, _I, _P],
     # the other cooperative instances also take their geometry
     "window_sum4_bn254_g1": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],  # + partials
-    "pair_add_bn254_g1": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "pair_add_bn254_g2": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 # Geometry of the cooperative kernels (csrc/coop_sum.cuh): six threads share
@@ -137,8 +135,8 @@ _ARGTYPES = {
 # a level store of ceil(K/2) int16 points; window_sum4 G1 first gives each of
 # a lane's G nodes of the same tree to one group (window_sum4_g1_geometry);
 # the Horner steps (horner on every curve, horner4 G1 and G2) and pair_add
-# G1 and G2 one group per lane, holding its accumulator and its window sums
-# (pair_add: p and q) as int16 points.
+# on every curve one group per lane, holding its accumulator and its window
+# sums (pair_add: p and q) as int16 points.
 COOP_PADDS_PER_WARP = {"ed25519": 8, "bn254_g1": 5, "bn254_g2": 5}
 COOP_MAX_WARPS = 12        # 384 threads a block (the kernels' launch bounds)
 POINT_BYTES = {"ed25519": 4 * 24 * 2, "bn254_g1": 3 * 24 * 2, "bn254_g2": 6 * 24 * 2}
@@ -190,7 +188,7 @@ def coop_sum_geometry(curve: str, K: int, lanes: int, sms: int) -> tuple:
 
 def coop_horner_geometry(curve: str, lanes: int, windows: int) -> tuple:
     """(blocks, warps per block, dynamic shared bytes) of a cooperative
-    Horner step of ``windows`` windows (1: horner, or pair_add G2, one
+    Horner step of ``windows`` windows (1: horner, or pair_add, one
     addition over ``lanes`` = K lanes; WIN_GROUP: horner4) over ``lanes``
     lanes of ``curve``: eight lanes a warp on four-thread Edwards steps,
     five on six-thread padds, one on the 18-thread G2 padd of horner G2 and
@@ -498,12 +496,14 @@ def pair_add(consts: torch.Tensor, p: torch.Tensor, q: torch.Tensor, *,
              curve: str = "ed25519") -> torch.Tensor:
     """p + q per lane over (C, n, K) int32.
 
-    The BN254 G1 and G2 kernels narrow ``p`` and ``q`` to int16 (their
-    precondition): every limb must lie in int16. Their callers meet it:
-    ``DeviceTable``'s build adds a table row (the identity or a padd output)
-    and the encoded base point, and the mesh fold (``reduce_points``) adds
-    partial sums, each a ``horner`` or ``pair_add`` output; every padd
-    output limb lies in [-7643, 11737] (``csrc/fold_curves.cuh``)."""
+    The kernels narrow ``p`` and ``q`` to int16 (their precondition): every
+    limb must lie in int16. Their callers meet it: ``DeviceTable``'s build
+    adds a table row (the identity or a padd output) and the encoded base
+    point (canonical limbs in [0, 4095]); the mesh fold (``reduce_points``)
+    adds partial sums, each a ``horner`` or ``pair_add`` output; P5's
+    inputs (``probes.add_inputs``) are encoded points. Every padd output limb
+    lies in [-7643, 11737] (BN254, ``csrc/fold_curves.cuh``) or [-1536,
+    5631] (ed25519, ``csrc/coop_sum.cuh``)."""
     if p.device.type == "cpu":
         return pair_add_plain(consts, p, q, curve=curve)
     eng = _engine("pair_add", curve)
@@ -512,9 +512,8 @@ def pair_add(consts: torch.Tensor, p: torch.Tensor, q: torch.Tensor, *,
     _check_points(eng, "p", p, K)
     _check_points(eng, "q", q, K)
     out = torch.empty_like(p)
-    geometry = coop_horner_geometry(curve, K, 1) if curve != "ed25519" else ()
     _run("pair_add", curve, dev, consts.data_ptr(), p.data_ptr(), q.data_ptr(), out.data_ptr(), K,
-         *geometry)
+         *coop_horner_geometry(curve, K, 1))
     return out
 
 

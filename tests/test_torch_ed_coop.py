@@ -21,6 +21,11 @@ small sizes against the plain versions:
   narrowed to int16 once and every step's output as the kernel's shared
   memory holds it, gives ``horner_plain``'s limbs (and so the JAX
   ``_horner_call``'s, tests/test_torch_curve.py);
+* the table-add step on the padd (``coop_horner_kernel<EdCoop, 1, 0>``:
+  one padd), p and q narrowed to int16 once, gives ``pair_add_plain``'s
+  limbs (and so the JAX ``_pair_add_call``'s, tests/test_torch_curve.py)
+  over the range basis's 255-step table build, the mesh fold's partial
+  sums, P5's inputs, a doubling and the identity on either side;
 * the kernels' product (``ed_mul``: p = 2^255 - 19's ONE and FOLD limbs
   written into the code, zeros left out) uses exactly the nonzero limbs of
   the consts block, and its sums give the fold product's limbs;
@@ -38,6 +43,7 @@ import pytest
 import torch
 from test_torch_weierstrass import _MASK, _IntervalField, _Iv
 
+from libzkp_tpu_torch import probes
 from libzkp_tpu_torch.models import bp_device
 from libzkp_tpu_torch.ops import curve as tc
 from libzkp_tpu_torch.ops import ed25519 as ed
@@ -336,6 +342,68 @@ def test_narrowed_ed_horner_chain_gives_horner_plain_limbs(ed_table, B):
 
 
 # ---------------------------------------------------------------------------
+# the narrowed pair_add (coop_horner_kernel<EdCoop, 1, 0>, pair_add.cu)
+# ---------------------------------------------------------------------------
+
+
+def _narrowed_pair_add(f: FieldOps, p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """K3's kernel: p and q narrowed to int16 once, one cooperative padd,
+    its output as the kernel's shared memory holds it (int16), widened."""
+    P, Q = _narrowed(p).to(torch.int32), _narrowed(q).to(torch.int32)
+    return _narrowed(_coop_padd(f, P, Q)).to(torch.int32)
+
+
+def _encoded_lanes(pts) -> torch.Tensor:
+    """Host points -> (4, n, K) int32 canonical limbs, as DeviceTable's base."""
+    enc = tc.edwards_engine().encode_points(pts)
+    return torch.from_numpy(np.ascontiguousarray(np.transpose(enc, (1, 2, 0))))
+
+
+def _pair_add_operands(case: str, ed_table):
+    """(consts, [(p, q), ...]) of one caller of pair_add ed25519."""
+    consts, table, kp = ed_table
+    eng = tc.edwards_engine()
+    if case == "mesh_fold":  # reduce_points over partial sums: Horner outputs, then a padd output
+        sums = kernels.window_sum_plain(consts, _basis(table, kp, 33), _digits(33, 24, seed=91))
+        h = [kernels.horner_plain(consts, sums[..., 6 * i : 6 * i + 6], sums[..., 6 * i + 6 : 6 * i + 12])
+             for i in (0, 2)]
+        first = kernels.pair_add_plain(consts, h[0], h[1])
+        return consts, [(h[0], h[1]), (first, sums[..., 18:24].contiguous())]
+    if case == "p5":  # the probe's encoded points, at 64 lanes
+        pc, p, q, _, _ = probes.add_inputs("cpu", lanes=64)
+        return pc, [(p, q)]
+    P, Q = _operands(table, kp, 8, seed=5)  # a doubling, the identity as q, as p
+    Q[..., 3] = P[..., 3] = eng.identity(1, "cpu")[..., 0]  # and on both sides
+    return consts, [(P, Q), (kernels.pair_add_plain(consts, P, Q), P)]
+
+
+@pytest.mark.parametrize("case", ["mesh_fold", "p5", "edges"])
+def test_narrowed_ed_pair_add_gives_pair_add_plain_limbs(ed_table, case):
+    """The mesh fold's partial sums (Horner outputs and a padd output), P5's
+    inputs, and a doubling and the identity on either side: every limb of
+    the narrowed cooperative padd equals pair_add_plain's."""
+    consts, pairs = _pair_add_operands(case, ed_table)
+    f = FieldOps(tc.edwards_engine().n, consts)
+    for p, q in pairs:
+        assert torch.equal(_narrowed_pair_add(f, p, q), kernels.pair_add_plain(consts, p, q))
+
+
+def test_narrowed_ed_pair_add_builds_the_range_table(range_table):
+    """DeviceTable's build over four range basis points (B_blinding, G_0 ..
+    G_2): 255 steps from the identity, each adding the encoded base point
+    to the previous row, every row equal to the plain chain's limb for
+    limb."""
+    consts, _, _ = range_table
+    f = FieldOps(tc.edwards_engine().n, consts)
+    base = _encoded_lanes(bp_device._basis_points(64)[:4])
+    acc = tc.edwards_engine().identity(4, "cpu")
+    for _ in range(255):
+        got = _narrowed_pair_add(f, acc, base)
+        acc = kernels.pair_add_plain(consts, acc, base)
+        assert torch.equal(got, acc)
+
+
+# ---------------------------------------------------------------------------
 # int32 headroom and the int16 interval at p = 2^255 - 19
 # ---------------------------------------------------------------------------
 
@@ -395,14 +463,18 @@ def test_edwards_int32_headroom():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("B", [1, 7, 8, 9, 512, 1024])
+@pytest.mark.parametrize("B", [1, 7, 8, 9, 160, 512, 1024, 1 << 18])
 def test_ed_horner_geometry_fits_every_lane_count(B):
+    """horner ed25519 at the range prover's lanes and pair_add ed25519 (the
+    same geometry: one window) at the range table's K = 160 (20 one-warp
+    blocks, one an SM) and P5's 2^18 lanes, and both at ragged counts."""
     blocks, warps, smem = kernels.coop_horner_geometry(CURVE, B, 1)
     assert warps == kernels.COOP_HORNER_WARPS
     lanes = warps * kernels.COOP_PADDS_PER_WARP[CURVE]
     assert lanes == 8
     assert (blocks - 1) * lanes < B <= blocks * lanes  # every lane has a group, no block is idle
-    # per group: the accumulator and the window sum as int16, 4 int32 rows of scratch
+    assert {160: 20, 1 << 18: 32768}.get(B, blocks) == blocks
+    # per group: the accumulator and the window sum (p and q) as int16, 4 int32 rows of scratch
     assert smem == lanes * (2 * 192 + 384) == 6144
 
 

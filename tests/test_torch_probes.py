@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from libzkp_tpu.ops import curve_jax as cj
 from libzkp_tpu.ops import limbfold as jlimbfold
@@ -259,3 +260,111 @@ def test_padd_f32_chain_plain_matches_bench_mxu_and_stays_exact():
     np.testing.assert_array_equal(got.numpy(), np.asarray(jnp.stack(P_)))
     assert worst[0] < 2**24, worst[0]
     assert float(got.abs().max()) <= probes.F32_HALF + 32
+
+
+# ---------------------------------------------------------------------------
+# P3's cooperative schedule (csrc/probes.cu padd_f32_coop_kernel)
+# ---------------------------------------------------------------------------
+
+
+def _f32_round_w(x: torch.Tensor) -> torch.Tensor:
+    return (x + kernels.F32_RND) - kernels.F32_RND
+
+
+F32_ONE_LIMBS = {0: 192, 1: 2}  # f32_mul's wrap constant (csrc/probes.cu)
+
+
+def _f32_fold_limbs(k: int) -> dict:
+    """f32_mul's nonzero limbs of FOLD row k."""
+    return {k: 192, k + 1: 2} if k < 28 else {k - 28: -184, k - 27: 6}
+
+
+def test_f32_mul_constants_are_the_nonzero_fold_limbs():
+    """The fold and ONE written into P3's product are exactly the nonzero
+    limbs of the consts block's (p = 2^255 - 19 in balanced 9-bit limbs)."""
+    consts = probes.f32_consts()
+    NF = kernels.F32_NF
+    assert {i: int(v) for i, v in enumerate(consts[0]) if v} == F32_ONE_LIMBS
+    for k, row in enumerate(consts[1:NF + 3]):
+        assert {i: int(v) for i, v in enumerate(row) if v} == _f32_fold_limbs(k)
+    assert sum(len(_f32_fold_limbs(k)) for k in range(NF + 2)) == 62
+
+
+def _f32_mul_kernel_order(consts: torch.Tensor, a: torch.Tensor, b: torch.Tensor, peak: list) -> torch.Tensor:
+    """f32_mul's float operations on (NF, L) float32, in the kernel's
+    order: the convolution's FMAs i by i (column i + j gets term (i, j)
+    after every term of a smaller i), two no-wrap carries (T[k] - h[k]) +
+    h[k - 1] / 2^W, the fold's nonzero FMAs k by k into s, then T[i] + s,
+    three wrap carries (r[i] - h[i] 2^W) + (h[i - 1] + ONE[i] top).
+    ``peak`` keeps the largest magnitude of every value on the way: below
+    2^24, every FMA is exact and any order gives the same floats."""
+    NF, NC = kernels.F32_NF, kernels.F32_NC
+    one, fold = consts[0][:, None], consts[1:NF + 3]
+    T = torch.zeros((NC, a.shape[1]), dtype=torch.float32)
+
+    def note(x):
+        peak[0] = max(peak[0], float(x.abs().max()))
+        return x
+
+    for i in range(NF):
+        T[i:i + NF] = note(T[i:i + NF] + a[i] * b)
+    for _ in range(2):
+        h = _f32_round_w(T)
+        T = note((T - h) + F.pad((h * kernels.F32_ITW)[:-1], (0, 0, 1, 0)))
+    s = torch.zeros_like(a)
+    for k in range(NF + 2):
+        nz = list(_f32_fold_limbs(k))
+        s[nz] = note(s[nz] + fold[k][nz][:, None] * T[NF + k])
+    r = note(T[:NF] + s)
+    for _ in range(3):
+        top = _f32_round_w(r[NF - 1]) * kernels.F32_ITW
+        h = _f32_round_w(r) * kernels.F32_ITW
+        r = note((r - h * (1 << kernels.F32_W)) + (F.pad(h[:-1], (0, 0, 1, 0)) + one * top))
+    return r
+
+
+def _f32_coop_padd(consts: torch.Tensor, P: torch.Tensor, Q: torch.Tensor, peak: list) -> torch.Tensor:
+    """padd_f32_coop_kernel's two rounds, thread by thread: round 1, thread
+    g's product of (Y1 - X1, Y2 - X2), (Y1 + X1, Y2 + X2), (T1, T2), (Z1,
+    Z2), then thread 2's C = (T1 T2) 2d and thread 3's D = zz + zz into
+    scratch rows A, B, C, D; round 2, thread g's (E, F), (G, H), (F, G), (E,
+    H) from the rows (E = B - A, F = D - C, G = D + C, H = B + A) into
+    coordinate g."""
+    NF = kernels.F32_NF
+    twod = consts[NF + 3][:, None].expand(NF, P.shape[-1])
+    rows = []
+    for g in range(4):
+        if g < 2:
+            sign = 1.0 if g else -1.0
+            x, y = P[1] + sign * P[0], Q[1] + sign * Q[0]
+        else:
+            x, y = P[3 if g == 2 else 2], Q[3 if g == 2 else 2]
+        x = _f32_mul_kernel_order(consts, x, y, peak)
+        if g == 2:
+            x = _f32_mul_kernel_order(consts, x, twod, peak)
+        elif g == 3:
+            x = x + x
+        rows.append(x)
+
+    def operand(v):
+        hi = 3 if v in (1, 2) else 1
+        return rows[hi] + (1.0 if v >= 2 else -1.0) * rows[hi - 1]
+
+    return torch.stack([_f32_mul_kernel_order(consts, operand((0x0120 >> 4 * g) & 15),
+                                              operand((0x3231 >> 4 * g) & 15), peak) for g in range(4)])
+
+
+def test_padd_f32_coop_schedule_gives_plain_limbs_and_stays_exact():
+    """P3's kernel schedule over R = 64 chained additions at 8 lanes: every
+    limb equals padd_f32_chain_plain's bit for bit, every value on the way
+    stays below 2^24 (so the float32 FMAs are exact in the kernel's order),
+    and the output limbs stay within F32_HALF + 32."""
+    consts, p, q, _, _ = probes.f32_chain_inputs("cpu", lanes=8)
+    peak = [0.0]
+    acc = p
+    for _ in range(probes.CHAIN_R):
+        acc = _f32_coop_padd(consts, acc, q, peak)
+    want = kernels.padd_f32_chain_plain(consts, p, q, probes.CHAIN_R)
+    assert torch.equal(acc.view(torch.int32), want.view(torch.int32))
+    assert peak[0] < 2**24, peak[0]
+    assert float(acc.abs().max()) <= probes.F32_HALF + 32
