@@ -9,13 +9,15 @@
     python3 chip_smoke.py --ed-tree    # phases 1, 2 and ed_tree_pair only, no last line
     python3 chip_smoke.py --ed-pair    # phases 1, 2 and ed_pair only, no last line
     python3 chip_smoke.py --f32-chain  # phases 1, 2 and f32_chain only, no last line
+    python3 chip_smoke.py --ed-chain   # phases 1, 2 and ed_chain only, no last line
+    python3 chip_smoke.py --mont-padd  # phases 1, 2 and mont_padd only, no last line
 
 Phases, each printing one JSON line:
 
 1. the card (``nvidia-smi`` and torch's view of it);
 2. the build of the CUDA kernels from ``libzkp_tpu_torch/csrc`` (timed; the
    ptxas lines, and the registers, frame and spills of mont_mul, tree_sum
-   ed25519, pair_add ed25519 and padd_f32_chain);
+   ed25519, pair_add ed25519, padd_f32_chain, padd_chain and mont_padd);
 3. each kernel instance against its plain PyTorch version on the card at its
    path's shapes, both timed with CUDA events: the ed25519 window_sum,
    horner and pair_add of the range prover; pair_add, window_sum4 and
@@ -25,8 +27,8 @@ Phases, each printing one JSON line:
    points; ed25519 at phase 7's range-basis MSM, 96 points); the probe
    kernels padd_chain and fe_mul, and pair_add at P5's shape; mont_padd,
    the five fold_ablate variants and padd_f32_chain at their probes'
-   shapes (pair_add ed25519 at both shapes and padd_f32_chain also with
-   the card's time a launch from the profiler); mont_mul, limb for limb, at an NTT stage of a 256-statement h
+   shapes (pair_add ed25519 at both shapes, padd_chain, mont_padd and
+   padd_f32_chain also with the card's time a launch from the profiler); mont_mul, limb for limb, at an NTT stage of a 256-statement h
    batch (twiddles broadcast), with a one-row operand, at MiMC's 4096 rows
    (b = a, and one row), at ragged last blocks, at b rows that are no
    contiguous run of a block, from bases not 16-byte aligned and at P6's
@@ -151,11 +153,19 @@ TREE_SUM_KERNELS = {"ed25519": ("tree_sum_coop_kernel<EdCoop>", "tree_sum_kernel
 PTXAS_KERNELS = {"mont_mul": ("mont", "mont_mul_kernel"),
                  "tree_sum_ed25519": ("tree_sum", "tree_sum_coop_kernelI6EdCoop", "tree_sum_kernelI7Ed25519"),
                  "pair_add_ed25519": ("pair_add", "coop_horner_kernelI6EdCoopLi1ELi0E", "pair_add_kernelI7Ed25519"),
-                 "padd_f32_chain": ("probes", "padd_f32_coop_kernel", "padd_f32_chain_kernel")}
+                 "padd_f32_chain": ("probes", "padd_f32_coop_kernel", "padd_f32_chain_kernel"),
+                 "padd_chain": ("probes", "coop_chain_kernelI6EdCoop", "padd_chain_kernel", "_Z6fe_mul"),
+                 "mont_padd": ("probes", "mont_padd_kernel", "mont_mul22")}
 # K3 pair_add ed25519's and P3's kernels in a profile: this tree's and the
 # one-thread kernels they replaced
 PAIR_ADD_ED_KERNELS = ("coop_horner_kernel<EdCoop, 1, 0>", "pair_add_kernel<Ed25519>")
 F32_CHAIN_KERNELS = ("padd_f32_coop_kernel", "padd_f32_chain_kernel")
+# P2's and P7's kernels in a profile: this tree's and the one-thread P2
+# kernel it replaced (P7's kept its name)
+CHAIN_KERNELS = ("coop_chain_kernel<EdCoop>", "padd_chain_kernel")
+MONT_PADD_KERNELS = ("mont_padd_kernel",)
+ED_CHAIN_WARPS = (1, 2, 4, 8, 8, 4, 2, 1)  # warps a block, timed in turns (ed_chain)
+MONT_PADD_SWEEP = (64, 128, 256, 256, 128, 64)  # lanes a block, timed in turns (mont_padd)
 ED_PAIR_WARPS = (1, 4, 8, 8, 4, 1)  # warps a block, timed in turns (ed_pair)
 CURVE_PADD_MACS = {"ed25519": PADD_MACS, **WPADD_MACS}
 SHARD_DP, SHARD_SHARD = 2, 2  # the one-card mesh: four positions, all cuda:0
@@ -1057,7 +1067,8 @@ def check_probe_kernels(dev, int_rate: float, fp32_rate: float) -> list:
     results = [check("padd_chain", "libzkp_tpu_torch/csrc/probes.cu", "scripts/bench_pallas_padd.py:65",
                      lambda: kernels.padd_chain(consts, p, q, R),
                      lambda: kernels.padd_chain_plain(consts, p, q, R), 20,
-                     R * PADD_MACS * lanes, 3 * p.numel() * 4, f"p, q (4,24,{lanes}) i32, chain {R}")]
+                     R * PADD_MACS * lanes, 3 * p.numel() * 4, f"p, q (4,24,{lanes}) i32, chain {R}",
+                     card=CHAIN_KERNELS)]
     for curve in ("ed25519", "bn254_g1"):
         mc, a, b, _, _ = probes.mul_inputs(dev, curve)
         results.append(check(
@@ -1077,7 +1088,8 @@ def check_probe_kernels(dev, int_rate: float, fp32_rate: float) -> list:
     E = mp.shape[-1]
     results.append(check("mont_padd", "libzkp_tpu_torch/csrc/probes.cu", "scripts/bench_pallas_mul.py:149",
                          lambda: kernels.mont_padd(mc, mp, mq), lambda: kernels.mont_padd_plain(mc, mp, mq),
-                         20, 9 * MONT_MACS * E, 3 * mp.numel() * 4, f"p, q (4,22,{E}) i32, 2^255-19"))
+                         20, 9 * MONT_MACS * E, 3 * mp.numel() * 4, f"p, q (4,22,{E}) i32, 2^255-19",
+                         card=MONT_PADD_KERNELS))
     for v in kernels.ABLATE_VARIANTS:
         ac, aa, ab = probes.ablate_inputs(dev, v)
         L = aa.shape[-1]
@@ -1369,6 +1381,82 @@ def f32_chain(dev) -> None:
     emit({"phase": "f32_chain", "card": smi("name,power.limit"), "shape": f"p, q (4,29,{fp.shape[-1]}) f32, chain {R}",
           "max_abs_err": err, "max_abs_limb": top, "ms": [cuda_ms(run, 10) for _ in range(3)],
           **card_time(run, F32_CHAIN_KERNELS, 10)})
+
+
+def ed_chain(dev) -> None:
+    """P2 padd_chain alone through its wrapper at its probe's shape (64
+    chained additions over 512 lanes), limb for limb against its plain
+    version, timed (CUDA events) with the card's time a launch (profiler);
+    where the chain is cooperative (this tree), also at ED_CHAIN_WARPS warps
+    a block (the wrapper's CHAIN_WARPS among them), in turns, each limb for
+    limb. Runs on an earlier checkout too.
+    One ed_chain line."""
+    from libzkp_tpu_torch import probes
+    from libzkp_tpu_torch.ops import kernels
+
+    R = probes.CHAIN_R
+    consts, p, q, _, _ = probes.chain_inputs(dev)
+    B = p.shape[-1]
+    want = kernels.padd_chain_plain(consts, p, q, R)
+    _limbs_err("padd_chain", kernels.padd_chain(consts, p, q, R), want)
+    run = lambda: kernels.padd_chain(consts, p, q, R)  # noqa: E731
+    out: dict = {"card": smi("name,power.limit"), "shape": f"p, q (4,24,{B}) i32, chain {R}",
+                 "ms": [cuda_ms(run, 20) for _ in range(3)], **card_time(run, CHAIN_KERNELS, 20)}
+    if len(kernels._ARGTYPES["padd_chain"]) > 7:  # cooperative: blocks, warps and shared bytes
+        res = torch.empty_like(p)
+        per_warp = kernels.COOP_PADDS_PER_WARP["ed25519"]
+        group = 2 * kernels.POINT_BYTES["ed25519"] + kernels.COOP_SCRATCH_BYTES["ed25519"]
+
+        def forced(w):  # per group: the accumulator and q as int16 points and the padd's scratch
+            kernels._run("padd_chain", "ed25519", dev, consts.data_ptr(), p.data_ptr(), q.data_ptr(),
+                         res.data_ptr(), R, B, -(-B // (per_warp * w)), w, w * per_warp * group)
+
+        sweep: dict = {}
+        for w in ED_CHAIN_WARPS:
+            forced(w)
+            torch.cuda.synchronize()
+            _limbs_err(f"padd_chain at {w} warps a block", res, want)
+            cell = sweep.setdefault(w, {"ms": [], "card_us": []})
+            cell["ms"].append(cuda_ms(lambda: forced(w), 20))
+            cell["card_us"].append(card_time(lambda: forced(w), CHAIN_KERNELS, 20)["kernel_us"])
+        out["warps"] = sweep
+    emit({"phase": "ed_chain", **out})
+
+
+def mont_padd_pair(dev) -> None:
+    """P7 mont_padd alone through its wrapper at its probe's shape (2^18
+    lanes), limb for limb against its plain version, timed (CUDA events)
+    with the card's time a launch (profiler); where the kernel takes its
+    block size (this tree), also at MONT_PADD_SWEEP lanes a block, in
+    turns, each limb for limb. Runs on an earlier checkout too. One
+    mont_padd line."""
+    from libzkp_tpu_torch import probes
+    from libzkp_tpu_torch.ops import kernels
+
+    mc, mp, mq, _, _ = probes.mont_padd_inputs(dev)
+    E = mp.shape[-1]
+    want = kernels.mont_padd_plain(mc, mp, mq)
+    _limbs_err("mont_padd", kernels.mont_padd(mc, mp, mq), want)
+    run = lambda: kernels.mont_padd(mc, mp, mq)  # noqa: E731
+    out: dict = {"card": smi("name,power.limit"), "shape": f"p, q (4,22,{E}) i32",
+                 "ms": [cuda_ms(run, 20) for _ in range(3)], **card_time(run, MONT_PADD_KERNELS, 20)}
+    if len(kernels._ARGTYPES["mont_padd"]) > 6:  # + lanes a block
+        res = torch.empty_like(mp)
+
+        def forced(threads):
+            kernels._run("mont_padd", None, dev, mc.data_ptr(), mp.data_ptr(), mq.data_ptr(), res.data_ptr(),
+                         E, threads)
+
+        sweep: dict = {}
+        for threads in MONT_PADD_SWEEP:
+            forced(threads)
+            torch.cuda.synchronize()
+            _limbs_err(f"mont_padd at {threads} lanes a block", res, want)
+            cell = sweep.setdefault(threads, {"ms": [], "card_us": []})
+            cell["ms"].append(cuda_ms(lambda: forced(threads), 20))
+            cell["card_us"].append(card_time(lambda: forced(threads), MONT_PADD_KERNELS, 20)["kernel_us"])
+        out |= {"threads": kernels.MONT_PADD_THREADS, "by_threads": sweep}
+    emit({"phase": "mont_padd", **out})
 
 
 def groth16_path(dev) -> dict:
@@ -1936,7 +2024,8 @@ def main_path(dev) -> dict:
 
 
 def main(argv: list) -> int:
-    flags = ("--kernels", "--range", "--groth16", "--g1", "--mont", "--ed-tree", "--ed-pair", "--f32-chain")
+    flags = ("--kernels", "--range", "--groth16", "--g1", "--mont", "--ed-tree", "--ed-pair", "--f32-chain",
+             "--ed-chain", "--mont-padd")
     if len(argv) > 1 or (argv and argv[0] not in flags):
         print(f"usage: python3 chip_smoke.py [{' | '.join(flags)}], got {argv}", file=sys.stderr)
         return 2
@@ -1998,6 +2087,12 @@ def main(argv: list) -> int:
         return 0
     if argv == ["--f32-chain"]:  # padd_f32_chain alone, likewise
         f32_chain(dev)
+        return 0
+    if argv == ["--ed-chain"]:  # padd_chain alone, likewise
+        ed_chain(dev)
+        return 0
+    if argv == ["--mont-padd"]:  # mont_padd alone, likewise
+        mont_padd_pair(dev)
         return 0
     tables: dict = {}
     checks = (check_kernels(dev, int_rate, tables) + check_bn254_kernels(dev, int_rate, tables)

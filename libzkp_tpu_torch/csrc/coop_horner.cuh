@@ -7,7 +7,9 @@
 // <EdCoop, 1, 8>, horner G1 = <G1Coop, 1, 8> and horner G2 = <G2Coop18, 1,
 // 8> (horner.cu), horner4 G1 = <G1Coop, 4, 8> and horner4 G2 = <G2Coop, 4,
 // 8> (horner4.cu), pair_add ed25519 = <EdCoop, 1, 0>, pair_add G1 =
-// <G1Coop, 1, 0> and pair_add G2 = <G2Coop18, 1, 0> (pair_add.cu).
+// <G1Coop, 1, 0> and pair_add G2 = <G2Coop18, 1, 0> (pair_add.cu). The P2
+// probe's chain, R padds acc <- acc + q a lane in one launch, is
+// coop_chain_kernel<EdCoop> (below; probes.cu) on the same layout.
 //
 // A padd's latency is the products of one thread (EdCoop: 3, a pdouble 2,
 // against 9 and 8 in one thread; G1Coop: 2, against 12; G2Coop: 7 and
@@ -21,14 +23,15 @@
 // groups (four-thread groups: eight; six-thread groups: five, lanes 30 and
 // 31 idle; 18-thread groups: one, lanes 18 to 31 idle); blocks of one warp
 // (the wrapper's choice, ops/kernels.py coop_horner_geometry) spread the
-// lanes' warps over the SMs.
+// lanes' warps over the SMs (P2's chain: blocks of four, CHAIN_WARPS).
 //
 // Narrowing precondition: every limb of the accumulator and of the window
 // sums lies in int16. They are narrowed once into shared memory as int16
 // points: the accumulator is the identity (the MSM's start, a table's first
 // row), an earlier Horner output or a table row, each window sum a tree
 // sum's or window sum's output, a table's base point or a mesh partial sum
-// (a padd output, or one int16 table row), and every padd or pdouble output
+// (a padd output, or one int16 table row), P2's p and q encoded points
+// (canonical limbs in [0, 4096)), and every padd or pdouble output
 // limb lies in [-7643, 11737] (BN254, fold_curves.cuh) or [-1536, 5631]
 // (ed25519, coop_sum.cuh), so the narrowing is exact and every step of the
 // chain writes an int16 point exactly. A curve whose pdouble is its padd
@@ -125,5 +128,68 @@ int coop_horner_launch(const int32_t* consts, const int32_t* acc, const int32_t*
   err = fold_load_consts(consts, Cv::NCONST, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   coop_horner_kernel<Cp, WG, D><<<blocks, warps * 32, smem, st>>>(acc, wsums, out, B);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// R chained padds acc <- acc + q a lane, out = p + R q (the P2 probe): one
+// group of Cp::GROUP threads a lane, laid out as coop_horner_kernel<Cp, 1,
+// 0> lays out pair_add (shared memory coop_horner_smem_bytes<Cp, 1>: per
+// group the accumulator and the addend as int16 points, then its scratch).
+// p and q are narrowed once, the R padds run in place on the accumulator,
+// and it is widened to out at the end: one launch a chain, where R
+// pair_add launches would write every step to global memory.
+template <class Cp>
+__global__ void __launch_bounds__(coop::MAX_WARPS * 32)
+coop_chain_kernel(const int32_t* __restrict__ p, const int32_t* __restrict__ q, int32_t* __restrict__ out,
+                  int R, int B) {
+  using fold::N;
+  constexpr int POINT = Cp::POINT, GROUP = Cp::GROUP, PER_WARP = Cp::PER_WARP;
+  const int slots = (blockDim.x >> 5) * PER_WARP;
+  const int grp = (threadIdx.x & 31) / GROUP;
+  const int g = (threadIdx.x & 31) - grp * GROUP;
+  const int slot = (threadIdx.x >> 5) * PER_WARP + (grp < PER_WARP ? grp : 0);
+  const int b = blockIdx.x * slots + slot;
+  const bool act = grp < PER_WARP && b < B;
+  int16_t* pts = reinterpret_cast<int16_t*>(coop_smem());
+  int16_t* acc = pts + (size_t)slot * 2 * POINT;
+  int16_t* add = acc + POINT;
+  int32_t* scr = reinterpret_cast<int32_t*>(pts + (size_t)slots * 2 * POINT) + slot * Cp::SCRATCH;
+  if (act) {  // thread g narrows rows g, g + GROUP, ... of p and q
+#pragma unroll 1
+    for (int c = g; c < Cp::COORDS; c += GROUP) {
+#pragma unroll 1
+      for (int i = 0; i < N; ++i) {
+        const size_t r = (size_t)c * N + i;
+        acc[r] = (int16_t)p[r * B + b];
+        add[r] = (int16_t)q[r * B + b];
+      }
+    }
+  }
+  __syncwarp();
+#pragma unroll 1
+  for (int r = 0; r < R; ++r) Cp::padd(acc, acc, add, scr, g, act);
+  if (act) {  // the padd's last __syncwarp has passed: acc is whole
+#pragma unroll 1
+    for (int c = g; c < Cp::COORDS; c += GROUP) {
+#pragma unroll 1
+      for (int i = 0; i < N; ++i) out[((size_t)c * N + i) * B + b] = acc[c * N + i];
+    }
+  }
+}
+
+// Host side of the chain: coop_horner_launch's checks (and R >= 0), then
+// the launch. Returns the CUDA error (cudaErrorInvalidValue for a bad
+// geometry).
+template <class Cv, class Cp>
+int coop_chain_launch(const int32_t* consts, const int32_t* p, const int32_t* q, int32_t* out, int R, int B,
+                      int blocks, int warps, int smem, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (R < 0 || B < 1 || blocks < 1 || (long long)blocks * warps * Cp::PER_WARP < B)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = coop_prepare(coop_chain_kernel<Cp>, coop_horner_smem_bytes<Cp, 1>(warps), warps, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = fold_load_consts(consts, Cv::NCONST, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  coop_chain_kernel<Cp><<<blocks, warps * 32, smem, st>>>(p, q, out, R, B);
   return static_cast<int>(cudaGetLastError());
 }

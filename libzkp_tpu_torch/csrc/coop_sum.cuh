@@ -60,20 +60,19 @@
 // (BN254, fold_curves.cuh) or [-1536, 5631] (ed25519, below), so int16 holds
 // them exactly. A block runs Cp::PER_WARP padds a warp.
 //
-// ed25519 (ed_padd_coop, ed_pdouble_coop). add-2008-hwcd-3 (as
-// Ed25519::padd, fold_curves.cuh) and dbl-2008-hwcd as the plain
-// EdwardsEngine.padd and pdouble order them fall in rounds of four
-// independent products, so four threads share one: eight groups fill a warp
-// with no idle lane. padd: round 1, thread g computes product g of A =
-// carry(Y1 - X1) carry(Y2 - X2), B = carry(Y1 + X1) carry(Y2 + X2), T1 T2,
-// Z1 Z2 in registers; thread 2 goes on to C = (T1 T2) 2d, thread 3 to D =
-// carry(Z1Z2 + Z1Z2); each stores its row. Round 3: thread g builds the two
-// operands of its product X3 = E F, Y3 = G H, Z3 = F G, T3 = E H from the
-// rows (E = carry(B - A), F = carry(D - C), G = carry(D + C), H = carry(B +
-// A): each value computed by two threads from the same integers, as
-// g1_padd_coop does with b3 t2), multiplies and stores coordinate g. A
-// padd's latency is three products (thread 2's chain), against nine in one
-// thread. pdouble: round 1, X^2, Y^2, Z^2 (then C = carry(Z^2 + Z^2)) and
+// ed25519 (ed_padd_coop, ed_pdouble_coop). add-2008-hwcd-3 and
+// dbl-2008-hwcd as the plain EdwardsEngine.padd and pdouble order them
+// fall in rounds of four independent products, so four threads share one:
+// eight groups fill a warp with no idle lane. padd: round 1, thread g
+// computes product g of A = carry(Y1 - X1) carry(Y2 - X2), B = carry(Y1 +
+// X1) carry(Y2 + X2), T1 T2, Z1 Z2 in registers; thread 2 goes on to C =
+// (T1 T2) 2d, thread 3 to D = carry(Z1Z2 + Z1Z2); each stores its row.
+// Round 3: thread g builds the two operands of its product X3 = E F, Y3 =
+// G H, Z3 = F G, T3 = E H from the rows (E = carry(B - A), F = carry(D -
+// C), G = carry(D + C), H = carry(B + A): each value computed by two
+// threads from the same integers, as g1_padd_coop does with b3 t2),
+// multiplies and stores coordinate g. A padd's latency is three products
+// (thread 2's chain), against nine in one thread. pdouble: round 1, X^2, Y^2, Z^2 (then C = carry(Z^2 + Z^2)) and
 // carry(X + Y)^2; round 2 from the rows, H = carry(A + B), G = carry(A - B),
 // E = carry(H - (X + Y)^2), F = carry(G + C), the same four products: two
 // products against eight. Scratch, 4 int32 rows (384 bytes): padd A, B, C,

@@ -1,8 +1,9 @@
-// Fold-field arithmetic on 12-bit limbs, the consts blocks of the three
-// curves of the MSM (ed25519, BN254 G1, BN254 G2) and the one-thread
-// Edwards padd, one lane per thread, shared by the one-thread kernels (the
-// probes) and, for the field product and carries, by the cooperative ones
-// (coop_sum.cuh), which run every tree sum, Horner step and table add.
+// Fold-field arithmetic on 12-bit limbs and the consts blocks of the three
+// curves of the MSM (ed25519, BN254 G1, BN254 G2), one field element per
+// thread: the field product and carries of the cooperative padds
+// (coop_sum.cuh), which run every tree sum, Horner step, table add and the
+// P2 chain, and the out-of-line product of the P4 probe (probes.cu). No
+// point formula runs whole in one thread: the padds are coop_sum.cuh's.
 //
 // The same schedule as the plain PyTorch version (ops/limbfold.py FieldOps,
 // ops/edwards.py, ops/weierstrass.py) and the JAX package's ops/limbfold.py
@@ -79,18 +80,6 @@ __device__ __forceinline__ void fe_carry(int32_t* x) {
   for (int i = 0; i < N; ++i) x[i] += top * c_consts[ROW_ONE * N + i];
 }
 
-__device__ __forceinline__ void fe_add(int32_t* r, const int32_t* a, const int32_t* b) {
-#pragma unroll
-  for (int i = 0; i < fold::N; ++i) r[i] = a[i] + b[i];
-  fe_carry(r);
-}
-
-__device__ __forceinline__ void fe_sub(int32_t* r, const int32_t* a, const int32_t* b) {
-#pragma unroll
-  for (int i = 0; i < fold::N; ++i) r[i] = a[i] - b[i];
-  fe_carry(r);
-}
-
 // r = a * k for a small k (|k| <= ~2^16): two wrap carries.
 __device__ __forceinline__ void fe_smul(int32_t* r, const int32_t* a, int32_t k) {
 #pragma unroll
@@ -133,59 +122,20 @@ __device__ __forceinline__ void fe_mul_inline(int32_t* r, const int32_t* a, cons
   fe_carry(r);
 }
 
-// Kept out of line so each point formula is a handful of calls and the
-// kernels compile in seconds.
+// The same code out of line: the P4 probe's product (probes.cu fe_mul_kernel).
 __device__ __noinline__ void fe_mul(int32_t* r, const int32_t* a, const int32_t* b) {
   fe_mul_inline(r, a, b);
 }
 
 // ---------------------------------------------------------------------------
-// Curves: coordinates, consts rows, padd, identity
+// Curves: coordinates and consts rows
 // ---------------------------------------------------------------------------
 
-// Extended twisted Edwards a = -1 (Curve25519 / Ristretto255), (X, Y, Z, T).
+// Extended twisted Edwards a = -1 (Curve25519 / Ristretto255), (X, Y, Z, T);
+// its padd and pdouble are EdCoop's (coop_sum.cuh).
 struct Ed25519 {
   static constexpr int COORDS = 4;
   static constexpr int NCONST = fold::N + 4;  // ONE, FOLD[N + 2], 2d
-
-  // add-2008-hwcd-3, unified and complete for Ristretto points. r may alias
-  // p or q.
-  static __device__ __forceinline__ void padd(int32_t (*r)[fold::N], int32_t (*p)[fold::N],
-                                              int32_t (*q)[fold::N]) {
-    using namespace fold;
-    int32_t u[N], v[N], A[N], B[N], C[N], D[N], two_d[N];
-#pragma unroll
-    for (int i = 0; i < N; ++i) two_d[i] = c_consts[ROW_CURVE * N + i];
-    fe_sub(u, p[1], p[0]);
-    fe_sub(v, q[1], q[0]);
-    fe_mul(A, u, v);
-    fe_add(u, p[1], p[0]);
-    fe_add(v, q[1], q[0]);
-    fe_mul(B, u, v);
-    fe_mul(u, p[3], q[3]);
-    fe_mul(C, u, two_d);
-    fe_mul(u, p[2], q[2]);
-#pragma unroll
-    for (int i = 0; i < N; ++i) D[i] = u[i] + u[i];
-    fe_carry(D);
-    int32_t E[N], F[N], G[N], H[N];
-    fe_sub(E, B, A);
-    fe_sub(F, D, C);
-    fe_add(G, D, C);
-    fe_add(H, B, A);
-    fe_mul(r[0], E, F);
-    fe_mul(r[1], G, H);
-    fe_mul(r[2], F, G);
-    fe_mul(r[3], E, H);
-  }
-
-  // (0 : 1 : 1 : 0)
-  static __device__ __forceinline__ void identity(int32_t (*r)[fold::N]) {
-#pragma unroll
-    for (int c = 0; c < COORDS; ++c)
-#pragma unroll
-      for (int i = 0; i < fold::N; ++i) r[c][i] = (i == 0 && (c == 1 || c == 2)) ? 1 : 0;
-  }
 };
 
 // BN254 G1 over Fq, (X, Y, Z), and G2 over Fq2, (X, Y, Z) each (c0, c1):
@@ -200,26 +150,3 @@ struct Bn254G2 {
   static constexpr int COORDS = 6;
   static constexpr int NCONST = fold::N + 5;  // ONE, FOLD[N + 2], b3.c0, b3.c1
 };
-
-// ---------------------------------------------------------------------------
-// Lane loads and stores
-// ---------------------------------------------------------------------------
-
-// Load / store lane `lane` of a (COORDS, N, stride) int32 tensor.
-template <class Cv>
-__device__ __forceinline__ void pt_load_lanes(int32_t (*r)[fold::N], const int32_t* __restrict__ src,
-                                              int lane, int stride) {
-#pragma unroll
-  for (int c = 0; c < Cv::COORDS; ++c)
-#pragma unroll
-    for (int i = 0; i < fold::N; ++i) r[c][i] = src[(c * fold::N + i) * (size_t)stride + lane];
-}
-
-template <class Cv>
-__device__ __forceinline__ void pt_store_lanes(int32_t* __restrict__ dst, int32_t (*p)[fold::N],
-                                               int lane, int stride) {
-#pragma unroll
-  for (int c = 0; c < Cv::COORDS; ++c)
-#pragma unroll
-    for (int i = 0; i < fold::N; ++i) dst[(c * fold::N + i) * (size_t)stride + lane] = p[c][i];
-}

@@ -1,7 +1,7 @@
 // 12-bit Montgomery limb arithmetic, one field element per thread: the
 // device side of ops/limb.py LimbContext (and of the JAX package's
 // ops/limb.py), shared by the mont_mul kernel (mont.cu) and the Montgomery
-// point-addition probe (probes.cu).
+// point-addition probe P7 (probes.cu).
 //
 // A field element is N relaxed signed 12-bit limbs in int32, least
 // significant first. The product a * b * R^-1 (R = 2^(12N)) is the schoolbook
@@ -13,11 +13,11 @@
 // operands, so the limbs equal it (ops/kernels.py mont_mul_plain) exactly.
 //
 // Consts block (rows of N int32): p, R mod p, ninv in word 0 of row 2, then
-// the probe's curve constant (2d * R mod p for the Edwards addition). The
-// field enters only through this block, so one instance serves BN254 Fr and
-// 2^255 - 19. A product reads it through an accessor: MontConstBank, the
-// __constant__ copy c_mont that mont_load_consts fills before a launch (the
-// probe), or MontShared, a copy in the block's shared memory (mont_mul).
+// the probe's curve constant (2d * R mod p for the Edwards addition). A
+// product reads p, R mod p and ninv through an accessor: MontShared, the
+// block's copy of the consts block in shared memory (mont_mul: the field
+// enters only through the block, so one instance serves BN254 Fr and
+// 2^255 - 19), or Mont25519, p = 2^255 - 19's written into the code (P7).
 //
 // int32 headroom (signed overflow is undefined in C++, so it must not occur):
 // a column is a sum of at most N limb products, REDC adds at most
@@ -33,8 +33,6 @@
 
 namespace mont {
 
-constexpr int N_MAX = 24;     // limbs of the widest instance
-constexpr int ROWS_MAX = 4;   // p, R mod p, ninv, one curve constant
 constexpr int LIMB_BITS = 12;
 constexpr int32_t MASK = (1 << LIMB_BITS) - 1;
 constexpr int ROW_P = 0;
@@ -44,33 +42,37 @@ constexpr int ROW_CURVE = 3;
 
 }  // namespace mont
 
-__constant__ int32_t c_mont[mont::ROWS_MAX * mont::N_MAX];
-
-// Copy a (rows, n) int32 consts block, a device tensor, into constant
-// memory, ordered on the launch stream before the kernel that reads it.
-static inline cudaError_t mont_load_consts(const int32_t* consts, int rows, int n,
-                                           cudaStream_t stream) {
-  return cudaMemcpyToSymbolAsync(c_mont, consts, sizeof(int32_t) * rows * n, 0,
-                                 cudaMemcpyDeviceToDevice, stream);
-}
-
-// Word i of consts row `row`: from c_mont (every lane reads the same word,
-// which the constant cache broadcasts), or from a block's shared copy.
-template <int N>
-struct MontConstBank {
-  __device__ __forceinline__ int32_t operator()(int row, int i) const { return c_mont[row * N + i]; }
-};
-
+// Word i of consts row `row` (ROW_P, ROW_ONE or ROW_NINV), i a constant
+// after unrolling: from a block's shared copy of the consts block, or
+// p = 2^255 - 19's in the code.
 template <int N>
 struct MontShared {
   const int32_t* c;  // (rows, N) int32 in shared memory
   __device__ __forceinline__ int32_t operator()(int row, int i) const { return c[row * N + i]; }
 };
 
+// p = 2^255 - 19 at N = 22: p = [4077, 4095 x 20, 7], R mod p = 2^264 mod p
+// = 9728 = [1536, 2, 0 x 20], ninv = -p^-1 mod 2^12 = 2587 (pinned against
+// LimbContext by tests/test_torch_probes.py). As immediates, a wrap carry's
+// 20 products by zero limbs of R mod p fold away and the REDC's 20 products
+// m * 4095 are one value the compiler may compute once; every nonzero term
+// is kept, so the limbs are those of the consts block's product.
+struct Mont25519 {
+  static constexpr int32_t P0 = 4077, P_MID = 4095, P_TOP = 7;  // p's limbs 0, 1..20, 21
+  static constexpr int32_t ONE0 = 1536, ONE1 = 2;                // R mod p's limbs 0, 1
+  static constexpr int32_t NINV = 2587;
+  __device__ __forceinline__ int32_t operator()(int row, int i) const {
+    using namespace mont;
+    if (row == ROW_P) return i == 0 ? P0 : i == 21 ? P_TOP : P_MID;
+    if (row == ROW_ONE) return i == 0 ? ONE0 : i == 1 ? ONE1 : 0;
+    return NINV;
+  }
+};
+
 // One wrap-carry pass: lo + (hi shifted up one limb) + hi_top * (R mod p).
 // >> on a negative int32 is arithmetic (floor), as in torch and jnp.
-template <int N, class Cs = MontConstBank<N>>
-__device__ __forceinline__ void mont_carry(int32_t* x, Cs cs = Cs()) {
+template <int N, class Cs>
+__device__ __forceinline__ void mont_carry(int32_t* x, Cs cs) {
   using namespace mont;
   const int32_t top = x[N - 1] >> LIMB_BITS;
 #pragma unroll
@@ -80,25 +82,11 @@ __device__ __forceinline__ void mont_carry(int32_t* x, Cs cs = Cs()) {
   for (int i = 0; i < N; ++i) x[i] += top * cs(ROW_ONE, i);
 }
 
-template <int N>
-__device__ __forceinline__ void mont_add(int32_t* r, const int32_t* a, const int32_t* b) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) r[i] = a[i] + b[i];
-  mont_carry<N>(r);
-}
-
-template <int N>
-__device__ __forceinline__ void mont_sub(int32_t* r, const int32_t* a, const int32_t* b) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) r[i] = a[i] - b[i];
-  mont_carry<N>(r);
-}
-
 // r = a * b * R^-1. r may alias a or b: every read of a and b comes before
 // the first write of r. With constant indices throughout, the 2N columns
 // stay in registers.
-template <int N, class Cs = MontConstBank<N>>
-__device__ __forceinline__ void mont_mul(int32_t* r, const int32_t* a, const int32_t* b, Cs cs = Cs()) {
+template <int N, class Cs>
+__device__ __forceinline__ void mont_mul(int32_t* r, const int32_t* a, const int32_t* b, Cs cs) {
   using namespace mont;
   int32_t T[2 * N];
 #pragma unroll

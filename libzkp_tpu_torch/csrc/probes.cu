@@ -1,13 +1,18 @@
-// Probes of the field product and point addition every kernel inlines,
-// run on the production device functions of fold_curves.cuh, so each
-// measures what the kernels run.
+// Probes of the field products and point additions the kernels inline,
+// run on the production device functions of fold_curves.cuh, coop_sum.cuh
+// and mont.cuh, so each measures what the kernels run.
 //
 // * padd_chain (P2) replaces scripts/bench_pallas_padd.py bench_current's
 //   Pallas kernel: R chained Edwards padds per lane, p <- p + q, over
-//   (4, N, B) int32. One warp per block, one lane per thread: at B = 512 the
-//   chains of 16 warps run on 16 SMs, one warp each, so the time is the
-//   latency of a chain of dependent padds, not the card's throughput.
-//   Bound: R * 9 field products of 1200 multiply-adds per lane.
+//   (4, N, B) int32, in one launch. Four threads share each padd (EdCoop,
+//   coop_sum.cuh: three products of one thread a padd, against nine), on
+//   coop_horner.cuh's chain kernel: p and q narrowed once to int16 points
+//   in shared memory (encoded points, and every padd output limb lies in
+//   [-1536, 5631]), eight lanes a warp, four-warp blocks (the wrapper's
+//   CHAIN_WARPS): at B = 512 the 64 warps run on 16 SMs, one a scheduler,
+//   so the time is the latency of a chain of 64 dependent padds, not the
+//   card's throughput. Bound: R * 9 products of 576 + 52 multiply-adds per
+//   lane.
 // * fe_mul (P4) replaces scripts/bench_fold.py bench_field's Pallas kernel:
 //   one fold product per lane, out = a * b over (N, E) int32, for the field
 //   of the consts block it is given (p = 2^255 - 19 or BN254 Fq). One lane
@@ -19,7 +24,12 @@
 //   Edwards addition per lane in the Montgomery domain (point_add_val, 9
 //   products of mont.cuh's mont_mul, the h pipeline's product) over
 //   (4, 22, E) int32 limbs-major, p = 2^255 - 19, one lane per thread.
-//   Bound: bytes at E = 2^18 against 9 * ~1000 multiply-adds per lane.
+//   Bound: operations at E = 2^18, 9 * 990 multiply-adds per lane. Each
+//   product is one inlined mont_mul on register arrays with p's constants
+//   in the code (Mont25519), in a loop over the padd's 9 product steps
+//   whose operands are rows of the lane's int16 points in shared memory:
+//   no array has its address taken, so nothing lives in local memory (nine
+//   out-of-line calls on pointer operands cost a 1584-byte frame a thread).
 // * fold_ablate (P1) replaces scripts/bench_ablate.py run's Pallas kernel:
 //   one part of the fold product alone per lane (the convolution as shifted
 //   pads or grouped by j mod 8, 5 wrap carries, the fold of the 26 high
@@ -44,27 +54,12 @@
 // P5 (scripts/bench_fold.py main.pl_add, one padd per lane) is exactly K3
 // pair_add (pair_add.cu, on EdCoop) at its shape, so it has no kernel here.
 
-#include "fold_curves.cuh"
+#include "coop_horner.cuh"
 #include "mont.cuh"
 
 namespace {
 
-constexpr int CHAIN_THREADS = 32;
 constexpr int MUL_THREADS = 256;
-
-__global__ void __launch_bounds__(CHAIN_THREADS)
-padd_chain_kernel(const int32_t* __restrict__ p, const int32_t* __restrict__ q,
-                  int32_t* __restrict__ out, int R, int B) {
-  const int b = blockIdx.x * CHAIN_THREADS + threadIdx.x;
-  if (b >= B) return;
-  int32_t acc[Ed25519::COORDS][fold::N];
-  int32_t add[Ed25519::COORDS][fold::N];
-  pt_load_lanes<Ed25519>(acc, p, b, B);
-  pt_load_lanes<Ed25519>(add, q, b, B);
-#pragma unroll 1
-  for (int r = 0; r < R; ++r) Ed25519::padd(acc, acc, add);
-  pt_store_lanes<Ed25519>(out, acc, b, B);
-}
 
 __global__ void __launch_bounds__(MUL_THREADS)
 fe_mul_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
@@ -85,53 +80,115 @@ fe_mul_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
 
 // ---- P7: Edwards addition in the Montgomery domain -----------------------
 
-constexpr int MN = 22;  // Montgomery limbs of 2^255 - 19
+}  // namespace
 
-// Out of line, so the nine products are nine calls on local arrays.
-__device__ __noinline__ void mont_mul22(int32_t* r, const int32_t* a, const int32_t* b) {
-  mont_mul<MN>(r, a, b);
+namespace mp {
+constexpr int N = 22;            // Montgomery limbs of 2^255 - 19
+constexpr int W = N / 2;         // int32 words of a row of int16 limbs
+constexpr int ROWS = 8;          // a lane's int16 rows
+constexpr int MAX_THREADS = 256; // threads (lanes) a block
+constexpr int STEPS = 9;         // the padd's products
+constexpr int TWOD = 8;          // operand row 8: the block's 2d * R mod p
+// Step s multiplies row (A_ROWS >> 4s) & 15 by row (B_ROWS >> 4s) & 15 into
+// row (O_ROWS >> 4s) & 15 (s < 5) or coordinate s - 5 of out.
+constexpr uint64_t A_ROWS = 0x032023310ull;
+constexpr uint64_t B_ROWS = 0x121368754ull;
+constexpr uint32_t O_ROWS = 0x23310u;
+}  // namespace mp
+
+namespace {
+
+__device__ __forceinline__ uint32_t pack16(int32_t lo, int32_t hi) {
+  return ((uint32_t)lo & 0xFFFFu) | ((uint32_t)hi << 16);
 }
 
-__global__ void __launch_bounds__(MUL_THREADS)
-mont_padd_kernel(const int32_t* __restrict__ p, const int32_t* __restrict__ q,
-                 int32_t* __restrict__ out, int E) {
-  using namespace mont;
-  const int e = blockIdx.x * MUL_THREADS + threadIdx.x;
+// Row `row` of int16 limbs, word w at row[w * stride], widened into r.
+__device__ __forceinline__ void mp_ld(int32_t* r, const uint32_t* row, int stride) {
+#pragma unroll
+  for (int w = 0; w < mp::W; ++w) {
+    const uint32_t v = row[w * stride];
+    r[2 * w] = (int32_t)(int16_t)(v & 0xFFFFu);
+    r[2 * w + 1] = (int32_t)v >> 16;
+  }
+}
+
+__device__ __forceinline__ void mp_st(uint32_t* row, const int32_t* r, int stride) {
+#pragma unroll
+  for (int w = 0; w < mp::W; ++w) row[w * stride] = pack16(r[2 * w], r[2 * w + 1]);
+}
+
+// One Edwards addition per lane in mont_padd_plain's operations, one lane a
+// thread. The lane's int16 rows in shared memory (word w of row r at
+// rows[(r * W + w) * T + t], consecutive threads on consecutive words, so
+// free of bank conflicts): X1, Y1, Z1, T1, X2, Y2, Z2, T2 as loaded, then
+// (x, y) <- (carry(y - x), carry(y + x)) on rows (0, 1) and (4, 5): Y1 - X1,
+// Y1 + X1, Z1, T1, Y2 - X2, Y2 + X2, Z2, T2. The nine product steps through
+// one inlined product: A = 0 * 4 into row 0, B = 1 * 5 into 1, T1 T2 = 3 * 7
+// into 3, C = 3 * 2d into 3, zz = 2 * 6 and D = carry(zz + zz) into 2; then
+// the same pair step gives E = B - A, H = B + A in rows 0, 1 and F = D - C,
+// G = D + C in rows 3, 2; X3 = E F = 0 * 3, Y3 = G H = 2 * 1, Z3 = F G =
+// 3 * 2, T3 = E H = 0 * 1 go to out. Each sum, carry and product is the
+// plain version's integer operation on the same operands, so the limbs
+// equal mont_padd_plain's. int16 rows: the inputs' limbs lie in int16 (the
+// wrapper's precondition; P7's are canonical Montgomery limbs) and every
+// stored row's limbs do too, in [-1536, 7167] from canonical inputs
+// (tests/test_torch_limb.py::test_int32_headroom): 352 bytes a lane.
+__global__ void __launch_bounds__(mp::MAX_THREADS)
+mont_padd_kernel(const int32_t* __restrict__ consts, const int32_t* __restrict__ p,
+                 const int32_t* __restrict__ q, int32_t* __restrict__ out, int E) {
+  using namespace mp;
+  extern __shared__ uint32_t mp_smem[];
+  const int T = blockDim.x, t = threadIdx.x;
+  const int e = blockIdx.x * T + t;
+  uint32_t* twod = mp_smem;         // W words, read once a block
+  uint32_t* rows = mp_smem + W + t;  // this lane's word 0 of row 0
+  if (t < W) twod[t] = pack16(consts[mont::ROW_CURVE * N + 2 * t], consts[mont::ROW_CURVE * N + 2 * t + 1]);
+  __syncthreads();
   if (e >= E) return;
-  int32_t P[4][MN], Q[4][MN], two_d[MN];
+#pragma unroll 1
+  for (int r = 0; r < ROWS; ++r) {  // coordinate r % 4 of p (r < 4) or q
+    const int32_t* src = (r < 4 ? p : q) + (size_t)(r % 4) * N * E + e;
 #pragma unroll
-  for (int c = 0; c < 4; ++c)
+    for (int w = 0; w < W; ++w) rows[(r * W + w) * T] = pack16(src[(size_t)2 * w * E], src[(size_t)(2 * w + 1) * E]);
+  }
+#pragma unroll 1
+  for (int s = 0; s < STEPS; ++s) {
+    int32_t x[N], y[N];
+    if (s == 0 || s == 5) {  // (x, y) <- (carry(y - x), carry(y + x)): X, Y of p, q; then A, B and C, D
+#pragma unroll 1
+      for (int k = 0; k < 2; ++k) {
+        const int xr = s == 0 ? 4 * k : 3 * k;
+        const int yr = s == 0 ? 4 * k + 1 : (k ? 2 : 1);
+        mp_ld(x, rows + xr * W * T, T);
+        mp_ld(y, rows + yr * W * T, T);
 #pragma unroll
-    for (int i = 0; i < MN; ++i) {
-      P[c][i] = p[(size_t)(c * MN + i) * E + e];
-      Q[c][i] = q[(size_t)(c * MN + i) * E + e];
+        for (int i = 0; i < N; ++i) {
+          const int32_t d = y[i] - x[i];
+          y[i] = y[i] + x[i];
+          x[i] = d;
+        }
+        mont_carry<N>(x, Mont25519{});
+        mont_carry<N>(y, Mont25519{});
+        mp_st(rows + xr * W * T, x, T);
+        mp_st(rows + yr * W * T, y, T);
+      }
     }
+    const int ra = (A_ROWS >> (4 * s)) & 15, rb = (B_ROWS >> (4 * s)) & 15;
+    mp_ld(x, rows + ra * W * T, T);
+    mp_ld(y, rb == TWOD ? twod : rows + rb * W * T, rb == TWOD ? 1 : T);
+    mont_mul<N>(x, x, y, Mont25519{});
+    if (s == 4) {  // D = carry(zz + zz)
 #pragma unroll
-  for (int i = 0; i < MN; ++i) two_d[i] = c_mont[ROW_CURVE * MN + i];
-  int32_t u[MN], v[MN], A[MN], B[MN], C[MN], D[MN];
-  mont_sub<MN>(u, P[1], P[0]);
-  mont_sub<MN>(v, Q[1], Q[0]);
-  mont_mul22(A, u, v);
-  mont_add<MN>(u, P[1], P[0]);
-  mont_add<MN>(v, Q[1], Q[0]);
-  mont_mul22(B, u, v);
-  mont_mul22(u, P[3], Q[3]);
-  mont_mul22(C, u, two_d);
-  mont_mul22(u, P[2], Q[2]);
-  mont_add<MN>(D, u, u);
-  int32_t Ev[MN], F[MN], G[MN], H[MN];
-  mont_sub<MN>(Ev, B, A);
-  mont_sub<MN>(F, D, C);
-  mont_add<MN>(G, D, C);
-  mont_add<MN>(H, B, A);
-  mont_mul22(P[0], Ev, F);
-  mont_mul22(P[1], G, H);
-  mont_mul22(P[2], F, G);
-  mont_mul22(P[3], Ev, H);
+      for (int i = 0; i < N; ++i) x[i] = x[i] + x[i];
+      mont_carry<N>(x, Mont25519{});
+    }
+    if (s < 5) {
+      mp_st(rows + ((O_ROWS >> (4 * s)) & 15) * W * T, x, T);
+    } else {
 #pragma unroll
-  for (int c = 0; c < 4; ++c)
-#pragma unroll
-    for (int i = 0; i < MN; ++i) out[(size_t)(c * MN + i) * E + e] = P[c][i];
+      for (int i = 0; i < N; ++i) out[(size_t)((s - 5) * N + i) * E + e] = x[i];
+    }
+  }
 }
 
 // ---- P1: the parts of the fold product alone ------------------------------
@@ -383,16 +440,14 @@ int fe_mul_launch(const int32_t* consts, const int32_t* a, const int32_t* b, int
 
 }  // namespace
 
-// consts: (N + 4, N) int32; p, q, out: (4, N, B) int32. Returns the CUDA
-// error of the launch (0 on success).
+// consts: (N + 4, N) int32; p, q, out: (4, N, B) int32; blocks, warps per
+// block (blocks * warps * 8 >= B) and dynamic shared bytes (at least
+// coop_horner_smem_bytes<EdCoop, 1>(warps)). Returns the CUDA error of the
+// launch (0 on success).
 extern "C" int padd_chain_ed25519_launch(const int32_t* consts, const int32_t* p, const int32_t* q,
-                                         int32_t* out, int R, int B, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = fold_load_consts(consts, Ed25519::NCONST, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (B + CHAIN_THREADS - 1) / CHAIN_THREADS;
-  padd_chain_kernel<<<blocks, CHAIN_THREADS, 0, st>>>(p, q, out, R, B);
-  return static_cast<int>(cudaGetLastError());
+                                         int32_t* out, int R, int B, int blocks, int warps, int smem,
+                                         void* stream) {
+  return coop_chain_launch<Ed25519, EdCoop>(consts, p, q, out, R, B, blocks, warps, smem, stream);
 }
 
 // consts: the curve's consts block (its first N + 3 rows, ONE and FOLD, are
@@ -408,14 +463,20 @@ extern "C" int fe_mul_bn254_g1_launch(const int32_t* consts, const int32_t* a, c
   return fe_mul_launch<Bn254G1>(consts, a, b, out, E, stream);
 }
 
-// consts: (4, 22) int32 (p, R mod p, ninv, 2d * R mod p); p, q, out:
-// (4, 22, E) int32 Montgomery limbs. Returns the CUDA error of the launch.
+// consts: (4, 22) int32 (p, R mod p, ninv, 2d * R mod p: the kernel reads
+// 2d; p, R mod p and ninv are 2^255 - 19's, in the code); p, q, out:
+// (4, 22, E) int32 Montgomery limbs, p's and q's in int16; threads (lanes)
+// a block, a multiple of 32 up to 256. Returns the CUDA error of the
+// launch.
 extern "C" int mont_padd_launch(const int32_t* consts, const int32_t* p, const int32_t* q,
-                                int32_t* out, int E, void* stream) {
+                                int32_t* out, int E, int threads, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = mont_load_consts(consts, 4, MN, st);
+  if (E < 1 || threads < 32 || threads > mp::MAX_THREADS || threads % 32)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = (int)sizeof(uint32_t) * mp::W * (1 + mp::ROWS * threads);
+  cudaError_t err = cudaFuncSetAttribute(mont_padd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  mont_padd_kernel<<<(E + MUL_THREADS - 1) / MUL_THREADS, MUL_THREADS, 0, st>>>(p, q, out, E);
+  mont_padd_kernel<<<(E + threads - 1) / threads, threads, smem, st>>>(consts, p, q, out, E);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -8,9 +8,9 @@ cooperative padds (BN254 G1 and G2, the Edwards padd and pdouble of
 ed25519) and tree sum ``csrc/coop_sum.cuh`` (window_sum ed25519,
 window_sum4 G1 and G2, tree_sum on every curve) and the Horner chain on them
 ``csrc/coop_horner.cuh`` (horner and pair_add on every curve, horner4 G1
-and G2). Each kernel is instantiated for the curves its path runs,
-and each instance is a kernel of its own, named ``<kernel>`` for ed25519
-or a field-generic kernel and
+and G2, and the P2 chain ``padd_chain``). Each kernel is instantiated
+for the curves its path runs, and each instance is a kernel of its own,
+named ``<kernel>`` for ed25519 or a field-generic kernel and
 ``<kernel>_<curve>`` for BN254 or ``<kernel>_<variant>`` for a probe's
 variant (:data:`INSTANCES`):
 
@@ -117,10 +117,10 @@ _ARGTYPES = {
     "window_sum4": [_P, _P, _P, _P, _I, _I, _I, _I, _P],  # G2: warps, shared bytes
     "horner4": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "tree_sum": [_P, _P, _P, _I, _I, _I, _I, _P],  # cooperative: warps, shared bytes
-    "padd_chain": [_P, _P, _P, _P, _I, _I, _P],
+    "padd_chain": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],  # + blocks, warps, shared bytes
     "fe_mul": [_P, _P, _P, _P, _I, _P],
     "mont_mul": [_P, _P, _P, _P, _I, _L, _L, _I, _P],  # + rows a block
-    "mont_padd": [_P, _P, _P, _P, _I, _P],
+    "mont_padd": [_P, _P, _P, _P, _I, _I, _P],  # + threads a block
     "fold_ablate": [_P, _P, _P, _P, _I, _I, _P],
     "padd_f32_chain": [_P, _P, _P, _P, _I, _I, _P],
     # the other cooperative instances also take their geometry
@@ -142,6 +142,9 @@ COOP_MAX_WARPS = 12        # 384 threads a block (the kernels' launch bounds)
 POINT_BYTES = {"ed25519": 4 * 24 * 2, "bn254_g1": 3 * 24 * 2, "bn254_g2": 6 * 24 * 2}
 COOP_SCRATCH_BYTES = {"ed25519": 4 * 24 * 4, "bn254_g1": 15 * 24 * 4, "bn254_g2": 32 * 24 * 4}
 COOP_HORNER_WARPS = 1      # one warp a block, each alone on its SM at the paths' lane counts
+# P2's chain (padd_chain): four warps a block, 16 blocks at its 512 lanes
+# (chip_smoke's ed_chain line: 9 % faster than one or two warps a block)
+CHAIN_WARPS = 4
 # The ed25519 tree sums (K1, tree_sum): at most this many warps an SM over
 # all lanes. The four-thread padd keeps the card's integer pipes busy from
 # about 8 warps an SM on; more warps a lane then only lengthen the tree's
@@ -186,20 +189,20 @@ def coop_sum_geometry(curve: str, K: int, lanes: int, sms: int) -> tuple:
     return warps, store + warps * per_warp
 
 
-def coop_horner_geometry(curve: str, lanes: int, windows: int) -> tuple:
+def coop_horner_geometry(curve: str, lanes: int, windows: int, warps: int = COOP_HORNER_WARPS) -> tuple:
     """(blocks, warps per block, dynamic shared bytes) of a cooperative
     Horner step of ``windows`` windows (1: horner, or pair_add, one
-    addition over ``lanes`` = K lanes; WIN_GROUP: horner4) over ``lanes``
-    lanes of ``curve``: eight lanes a warp on four-thread Edwards steps,
-    five on six-thread padds, one on the 18-thread G2 padd of horner G2 and
-    pair_add G2. Each lane's group holds its accumulator, its window sums
-    and its padd scratch."""
+    addition over ``lanes`` = K lanes, or P2's chain; WIN_GROUP: horner4)
+    over ``lanes`` lanes of ``curve``, ``warps`` warps a block: eight lanes
+    a warp on four-thread Edwards steps, five on six-thread padds, one on
+    the 18-thread G2 padd of horner G2 and pair_add G2. Each lane's group
+    holds its accumulator, its window sums and its padd scratch."""
     if lanes < 1:
         raise ValueError(f"a {curve} Horner step needs at least one lane, got {lanes}")
     per_warp = G2_HORNER_PER_WARP if (curve, windows) == ("bn254_g2", 1) else COOP_PADDS_PER_WARP[curve]
-    per_block = COOP_HORNER_WARPS * per_warp
+    per_block = warps * per_warp
     smem = per_block * ((1 + windows) * POINT_BYTES[curve] + COOP_SCRATCH_BYTES[curve])
-    return -(-lanes // per_block), COOP_HORNER_WARPS, smem
+    return -(-lanes // per_block), warps, smem
 
 
 def window_sum4_g1_geometry(Kp: int, lanes: int, sms: int, groups: int = None) -> tuple:
@@ -704,7 +707,17 @@ def padd_chain_plain(consts: torch.Tensor, p: torch.Tensor, q: torch.Tensor, R: 
 
 
 def padd_chain(consts: torch.Tensor, p: torch.Tensor, q: torch.Tensor, R: int) -> torch.Tensor:
-    """p + R * q per lane by R chained additions over (4, n, B) int32."""
+    """p + R * q per lane by R chained additions over (4, n, B) int32, in
+    one launch of the four-thread chain (``csrc/coop_horner.cuh``
+    ``coop_chain_kernel<EdCoop>``), on pair_add ed25519's layout with
+    CHAIN_WARPS warps a block (``coop_horner_geometry``: eight lanes a
+    warp).
+
+    The kernel narrows ``p`` and ``q`` to int16 once (its precondition):
+    every limb must lie in int16. P2's callers meet it: ``p`` and ``q`` are
+    encoded points (``probes.chain_inputs``, limbs in [0, 4096)), and every
+    padd output limb lies in [-1536, 5631] (``csrc/coop_sum.cuh``), so the
+    chain's accumulator stays exact in int16."""
     if p.device.type == "cpu":
         return padd_chain_plain(consts, p, q, R)
     eng = _engine("padd_chain", "ed25519")
@@ -714,7 +727,7 @@ def padd_chain(consts: torch.Tensor, p: torch.Tensor, q: torch.Tensor, R: int) -
     _check_points(eng, "q", q, B)
     out = torch.empty_like(p)
     _run("padd_chain", "ed25519", dev, consts.data_ptr(), p.data_ptr(), q.data_ptr(),
-         out.data_ptr(), R, B)
+         out.data_ptr(), R, B, *coop_horner_geometry("ed25519", B, 1, CHAIN_WARPS))
     return out
 
 
@@ -753,6 +766,10 @@ MONT_N = 22  # limbs of the mont_mul instance (BN254 Fr, 2^255 - 19)
 # warps a block share an SM's four schedulers, so a row's latency is the
 # same, and fewer blocks stage the consts fewer times)
 MONT_ROWS = 128
+# lanes (threads) a mont_padd block (csrc/probes.cu: 352 bytes of int16 rows
+# a lane in shared memory): of 64, 128 and 256, the fastest at P7's 2^18
+# lanes (chip_smoke's mont_padd line: 2 % ahead of 128, 256 6 % behind)
+MONT_PADD_THREADS = 64
 
 
 def mont_carry(x: torch.Tensor, one_mont: torch.Tensor) -> torch.Tensor:
@@ -866,7 +883,14 @@ def mont_padd_plain(consts: torch.Tensor, p: torch.Tensor, q: torch.Tensor) -> t
 
 
 def mont_padd(consts: torch.Tensor, p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """p + q per lane over (4, n, E) int32 Montgomery limbs, limbs-major."""
+    """p + q per lane over (4, n, E) int32 Montgomery limbs, limbs-major.
+
+    The kernel (``csrc/probes.cu``) serves p = 2^255 - 19 only: p, R mod p
+    and ninv are written into its product, and it reads only the consts
+    block's 2d * R mod p row. It holds a lane's points as int16 rows in
+    shared memory (its precondition): every limb of ``p`` and ``q`` must lie
+    in int16, as P7's canonical Montgomery limbs (``probes.mont_padd_inputs``,
+    [0, 4096)) do. MONT_PADD_THREADS lanes a block."""
     if p.device.type == "cpu":
         return mont_padd_plain(consts, p, q)
     dev = _check_mont(consts, 4, p=p, q=q)
@@ -875,7 +899,8 @@ def mont_padd(consts: torch.Tensor, p: torch.Tensor, q: torch.Tensor) -> torch.T
         if tuple(t.shape) != (4, MONT_N, E):
             raise ValueError(f"{key} must be (4, {MONT_N}, {E}) int32")
     out = torch.empty_like(p)
-    _run("mont_padd", None, dev, consts.data_ptr(), p.data_ptr(), q.data_ptr(), out.data_ptr(), E)
+    _run("mont_padd", None, dev, consts.data_ptr(), p.data_ptr(), q.data_ptr(), out.data_ptr(), E,
+         MONT_PADD_THREADS)
     return out
 
 

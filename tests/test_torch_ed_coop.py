@@ -21,6 +21,10 @@ small sizes against the plain versions:
   narrowed to int16 once and every step's output as the kernel's shared
   memory holds it, gives ``horner_plain``'s limbs (and so the JAX
   ``_horner_call``'s, tests/test_torch_curve.py);
+* P2's chain (``coop_chain_kernel<EdCoop>``): p and q narrowed to int16
+  once, then 64 cooperative padds in place, gives ``padd_chain_plain``'s
+  limbs (and so a loop of the JAX ``EdwardsEngine.padd``'s,
+  tests/test_torch_probes.py), every step inside [-1536, 5631];
 * the table-add step on the padd (``coop_horner_kernel<EdCoop, 1, 0>``:
   one padd), p and q narrowed to int16 once, gives ``pair_add_plain``'s
   limbs (and so the JAX ``_pair_add_call``'s, tests/test_torch_curve.py)
@@ -404,6 +408,27 @@ def test_narrowed_ed_pair_add_builds_the_range_table(range_table):
 
 
 # ---------------------------------------------------------------------------
+# the narrowed chain (coop_chain_kernel<EdCoop>, probes.cu): P2
+# ---------------------------------------------------------------------------
+
+
+def test_narrowed_ed_chain_gives_padd_chain_plain_limbs():
+    """P2's kernel over its probe's inputs at 8 lanes: p and q (encoded
+    points, limbs in [0, 4096)) narrowed to int16 once, then R = 64
+    cooperative padds in place, the accumulator as the kernel's shared
+    memory holds it (int16) after every padd. Every padd output limb lies in
+    [-1536, 5631] and the limbs equal padd_chain_plain's bit for bit."""
+    consts, p, q, _, _ = probes.chain_inputs("cpu", lanes=8)
+    assert 0 <= int(torch.minimum(p, q).min()) and int(torch.maximum(p, q).max()) < 4096
+    f = FieldOps(tc.edwards_engine().n, consts)
+    acc, add = _narrowed(p).to(torch.int32), _narrowed(q).to(torch.int32)
+    for _ in range(probes.CHAIN_R):
+        acc = _narrowed(_coop_padd(f, acc, add)).to(torch.int32)
+        assert -1536 <= int(acc.min()) and int(acc.max()) <= 5631
+    assert torch.equal(acc, kernels.padd_chain_plain(consts, p, q, probes.CHAIN_R))
+
+
+# ---------------------------------------------------------------------------
 # int32 headroom and the int16 interval at p = 2^255 - 19
 # ---------------------------------------------------------------------------
 
@@ -497,6 +522,20 @@ def test_ed_sum_geometry_fits_every_path_shape(K, lanes):
         assert warps == {1: 10, 127: 8, 128: 8, 512: 2, 1024: 1}[lanes]
     if (K, lanes) == (96, 128):  # the mesh block: level 1's 48 padds in one pass, 128 blocks
         assert (warps, smem) == (6, 48 * 192 + 6 * 8 * 384)
+
+
+@pytest.mark.parametrize("B", [1, 7, 8, 9, 512])
+def test_ed_chain_geometry_fits_every_lane_count(B):
+    """padd_chain (P2) runs pair_add ed25519's layout at CHAIN_WARPS warps
+    a block: 32 lanes a block, so its probe's 512 lanes give 16 blocks, and
+    ragged counts leave no lane without a group."""
+    blocks, warps, smem = kernels.coop_horner_geometry(CURVE, B, 1, kernels.CHAIN_WARPS)
+    assert warps == kernels.CHAIN_WARPS == 4
+    lanes = warps * kernels.COOP_PADDS_PER_WARP[CURVE]
+    assert (blocks - 1) * lanes < B <= blocks * lanes
+    assert {512: 16}.get(B, blocks) == blocks
+    # per group: the accumulator and q as int16 points, 4 int32 rows of scratch
+    assert smem == lanes * (2 * kernels.POINT_BYTES[CURVE] + kernels.COOP_SCRATCH_BYTES[CURVE]) == 24576
 
 
 def test_ed_geometry_raises_without_lanes_or_points():

@@ -235,7 +235,8 @@ def test_int32_headroom():
     stays below 2^31 in magnitude (signed overflow is undefined in the CUDA
     kernel): the h pipeline at n = 512 and the 110 MiMC rounds over BN254
     Fr, the P6 probe's random limbs and the P7 Edwards addition over
-    2^255 - 19. Computed in Python ints, so nothing here can overflow."""
+    2^255 - 19, and every row P7's kernel stores as int16 fits it. Computed
+    in Python ints, so nothing here can overflow."""
     hr = _Headroom(BN254_FR.p)
     can = hr.canonical()
     one = [(1, 1)] + [(0, 0)] * (hr.n - 1)
@@ -267,6 +268,10 @@ def test_int32_headroom():
     for u, v in ((E, F), (G, H), (F, G), (E, H)):
         ed_hr.mm(u, v)
     assert ed_hr.worst < 2**31, ed_hr.worst
+    # P7's kernel holds a lane's rows as int16: the inputs, Y -/+ X of both
+    # points, A, B, T1 T2, C, D, then E, H, F, G; every limb fits
+    stored = [c, ed_hr.add(c, c, -1), ed_hr.add(c, c), A, B, ed_hr.mm(c, c), C, D, E, F, G, H]
+    assert all(-(1 << 15) <= lo and hi < (1 << 15) for row in stored for lo, hi in row)
 
 
 def test_library_digest_covers_every_header(tmp_path, monkeypatch):
@@ -277,7 +282,8 @@ def test_library_digest_covers_every_header(tmp_path, monkeypatch):
     shutil.copytree(kernels.CSRC, csrc)
     monkeypatch.setattr(kernels, "CSRC", csrc)
     before = {lib: kernels._library_path(lib) for lib in kernels.LIBRARIES}
-    assert kernels._sources("probes") == ["probes.cu", "fold_curves.cuh", "mont.cuh"]
+    assert kernels._sources("probes") == ["probes.cu", "coop_horner.cuh", "mont.cuh", "coop_sum.cuh",
+                                          "fold_curves.cuh"]
     assert kernels._sources("mont") == ["mont.cu", "mont.cuh"]
     for header in ("fold_curves.cuh", "mont.cuh"):
         path = csrc / header

@@ -3,12 +3,15 @@
 P6 ``mont_mul``, P7 ``mont_padd``, P1 ``fold_ablate`` and P3
 ``padd_f32_chain`` against the JAX formulas of the TPU probe scripts, all
 against the host's integer and point arithmetic, and
-``libzkp_tpu_torch.probes`` end to end on the CPU at tiny sizes."""
+``libzkp_tpu_torch.probes`` end to end on the CPU at tiny sizes; the
+designs of the P3 and P7 kernels (their constants written into the code
+and their schedules) against the plain versions."""
 
 from __future__ import annotations
 
 import importlib.util
 import random
+import re
 from pathlib import Path
 
 import jax
@@ -368,3 +371,109 @@ def test_padd_f32_coop_schedule_gives_plain_limbs_and_stays_exact():
     assert torch.equal(acc.view(torch.int32), want.view(torch.int32))
     assert peak[0] < 2**24, peak[0]
     assert float(acc.abs().max()) <= probes.F32_HALF + 32
+
+
+# ---------------------------------------------------------------------------
+# P7's kernel (csrc/probes.cu mont_padd_kernel, csrc/mont.cuh Mont25519)
+# ---------------------------------------------------------------------------
+
+def _constants(source: str, names) -> dict:
+    """The integer constants ``names`` as a CUDA source defines them
+    (``NAME = value``, decimal or hex)."""
+    text = (kernels.CSRC / source).read_text()
+    return {n: int(re.search(rf"\b{n} = (0x[0-9a-fA-F]+|\d+)", text).group(1), 0) for n in names}
+
+
+MONT25519 = _constants("mont.cuh", ("P0", "P_MID", "P_TOP", "ONE0", "ONE1", "NINV"))
+MP = _constants("probes.cu", ("A_ROWS", "B_ROWS", "O_ROWS", "TWOD", "STEPS"))
+
+
+def test_mont25519_constants_are_the_fields_limbs():
+    """p, R mod p and ninv written into P7's product are exactly the consts
+    block's rows for p = 2^255 - 19 (``get_context(ed.P)`` and the probe's
+    consts block): p's limbs 4077, 4095 x 20, 7; R mod p's two nonzero
+    limbs; ninv."""
+    ctx = get_context(ed.P)
+    c = MONT25519
+    assert ctx.n == 22
+    assert [int(v) for v in ctx.p_limbs] == [c["P0"]] + [c["P_MID"]] * 20 + [c["P_TOP"]]
+    assert {i: int(v) for i, v in enumerate(ctx.one_mont) if v} == {0: c["ONE0"], 1: c["ONE1"]}
+    assert ctx.ninv == c["NINV"] == 2587
+    consts = probes.mont_padd_inputs("cpu", lanes=1)[0].numpy()
+    np.testing.assert_array_equal(consts[:3], ctx.consts_np)
+    assert int(consts[2, 0]) == c["NINV"]
+
+
+def _n16(x: torch.Tensor) -> torch.Tensor:
+    """x as the kernel's int16 rows hold it: asserts that no limb leaves int16."""
+    n16 = x.to(torch.int16)
+    assert torch.equal(n16.to(torch.int32), x), "a limb left int16"
+    return n16.to(torch.int32)
+
+
+def _mont25519_carry(x: torch.Tensor) -> torch.Tensor:
+    """mont_carry with Mont25519 on (22, L): the 20 zero limbs of R mod p
+    left out."""
+    top, hi = x[-1] >> 12, x >> 12
+    r = x & 4095
+    r[1:] += hi[:-1]
+    r[0] += top * MONT25519["ONE0"]
+    r[1] += top * MONT25519["ONE1"]
+    return r
+
+
+def _mont25519_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """mont_mul<22> with Mont25519 on (22, L): the columns, the REDC with
+    p's limbs and ninv as constants, three carries."""
+    c = MONT25519
+    n = a.shape[0]
+    T = torch.zeros((2 * n, a.shape[1]), dtype=torch.int32)
+    for j in range(n):
+        T[j:j + n] += a * b[j]
+    for i in range(n):
+        m = ((T[i] & 4095) * c["NINV"]) & 4095
+        T[i] += m * c["P0"]
+        T[i + 1:i + n - 1] += m * c["P_MID"]
+        T[i + n - 1] += m * c["P_TOP"]
+        T[i + 1] += T[i] >> 12
+    x = T[n:]
+    for _ in range(3):
+        x = _mont25519_carry(x)
+    return x
+
+
+def _mont_padd_steps(consts: torch.Tensor, p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """mont_padd_kernel's schedule: the lane's 8 int16 rows (p's X, Y, Z, T,
+    then q's), the pair step (x, y) <- (carry(y - x), carry(y + x)) on rows
+    (0, 1), (4, 5) before step 0 and (0, 1), (3, 2) before step 5, and the 9
+    product steps from the kernel's row tables (operand row TWOD: the 2d
+    row), step 4 doubled and carried, steps 5 to 8 into out."""
+    rows = [_n16(x) for x in (*p, *q)]
+    twod = _n16(consts[3][:, None].expand(-1, p.shape[-1]))
+    out = [None] * 4
+
+    def pair(xr, yr):
+        x, y = rows[xr], rows[yr]
+        rows[xr], rows[yr] = _n16(_mont25519_carry(y - x)), _n16(_mont25519_carry(y + x))
+
+    for s in range(MP["STEPS"]):
+        if s in (0, 5):
+            for k in range(2):
+                pair(4 * k if s == 0 else 3 * k, 4 * k + 1 if s == 0 else (2 if k else 1))
+        ra, rb = (MP["A_ROWS"] >> 4 * s) & 15, (MP["B_ROWS"] >> 4 * s) & 15
+        x = _mont25519_mul(rows[ra], twod if rb == MP["TWOD"] else rows[rb])
+        if s == 4:
+            x = _mont25519_carry(x + x)
+        if s < 5:
+            rows[(MP["O_ROWS"] >> 4 * s) & 15] = _n16(x)
+        else:
+            out[s - 5] = x
+    return torch.stack(out)
+
+
+def test_mont_padd_kernel_schedule_gives_plain_limbs():
+    """P7's kernel schedule at 70 lanes of its probe's inputs: every stored
+    row fits int16 and the limbs equal mont_padd_plain's (and so
+    point_add_val's, above)."""
+    consts, p, q, _, _ = probes.mont_padd_inputs("cpu", lanes=70)
+    assert torch.equal(_mont_padd_steps(consts, p, q), kernels.mont_padd_plain(consts, p, q))
