@@ -11,13 +11,15 @@
     python3 chip_smoke.py --f32-chain  # phases 1, 2 and f32_chain only, no last line
     python3 chip_smoke.py --ed-chain   # phases 1, 2 and ed_chain only, no last line
     python3 chip_smoke.py --mont-padd  # phases 1, 2 and mont_padd only, no last line
+    python3 chip_smoke.py --fe-mul     # phases 1, 2 and fe_mul only, no last line
 
 Phases, each printing one JSON line:
 
 1. the card (``nvidia-smi`` and torch's view of it);
 2. the build of the CUDA kernels from ``libzkp_tpu_torch/csrc`` (timed; the
    ptxas lines, and the registers, frame and spills of mont_mul, tree_sum
-   ed25519, pair_add ed25519, padd_f32_chain, padd_chain and mont_padd);
+   ed25519, pair_add ed25519, padd_f32_chain, padd_chain, mont_padd and
+   fe_mul);
 3. each kernel instance against its plain PyTorch version on the card at its
    path's shapes, both timed with CUDA events: the ed25519 window_sum,
    horner and pair_add of the range prover; pair_add, window_sum4 and
@@ -27,8 +29,10 @@ Phases, each printing one JSON line:
    points; ed25519 at phase 7's range-basis MSM, 96 points); the probe
    kernels padd_chain and fe_mul, and pair_add at P5's shape; mont_padd,
    the five fold_ablate variants and padd_f32_chain at their probes'
-   shapes (pair_add ed25519 at both shapes, padd_chain, mont_padd and
-   padd_f32_chain also with the card's time a launch from the profiler); mont_mul, limb for limb, at an NTT stage of a 256-statement h
+   shapes (pair_add ed25519 at both shapes, padd_chain, fe_mul, mont_padd
+   and padd_f32_chain also with the card's time a launch from the
+   profiler; fe_mul also at ragged lane counts, from a base not 16-byte
+   aligned and chained on its own output); mont_mul, limb for limb, at an NTT stage of a 256-statement h
    batch (twiddles broadcast), with a one-row operand, at MiMC's 4096 rows
    (b = a, and one row), at ragged last blocks, at b rows that are no
    contiguous run of a block, from bases not 16-byte aligned and at P6's
@@ -123,6 +127,7 @@ FP32_LANES_PER_SM = 128  # FFMA results per clock per SM, compute capability 9.0
 MUL_MACS = 24 * 24 + 26 * 24  # one field product: 576 conv + 624 fold multiply-adds
 # p = 2^255 - 19: 576 conv + the 52 fold multiply-adds whose constant is not 0
 ED_MUL_MACS = 24 * 24 + 52
+BN_MUL_MACS = 24 * 24 + 564  # BN254 Fq, likewise: 564 nonzero fold constants
 MONT_MACS = 2 * 22 * 22 + 22  # one Montgomery product: 484 conv + 484 REDC + 22 m
 # P3's float32 product: 841 conv FMAs + the 62 fold FMAs whose constant is not 0
 F32_MUL_FMAS = 29 * 29 + 62
@@ -155,7 +160,8 @@ PTXAS_KERNELS = {"mont_mul": ("mont", "mont_mul_kernel"),
                  "pair_add_ed25519": ("pair_add", "coop_horner_kernelI6EdCoopLi1ELi0E", "pair_add_kernelI7Ed25519"),
                  "padd_f32_chain": ("probes", "padd_f32_coop_kernel", "padd_f32_chain_kernel"),
                  "padd_chain": ("probes", "coop_chain_kernelI6EdCoop", "padd_chain_kernel", "_Z6fe_mul"),
-                 "mont_padd": ("probes", "mont_padd_kernel", "mont_mul22")}
+                 "mont_padd": ("probes", "mont_padd_kernel", "mont_mul22"),
+                 "fe_mul": ("probes", "fe_mul_kernel")}
 # K3 pair_add ed25519's and P3's kernels in a profile: this tree's and the
 # one-thread kernels they replaced
 PAIR_ADD_ED_KERNELS = ("coop_horner_kernel<EdCoop, 1, 0>", "pair_add_kernel<Ed25519>")
@@ -164,6 +170,13 @@ F32_CHAIN_KERNELS = ("padd_f32_coop_kernel", "padd_f32_chain_kernel")
 # kernel it replaced (P7's kept its name)
 CHAIN_KERNELS = ("coop_chain_kernel<EdCoop>", "padd_chain_kernel")
 MONT_PADD_KERNELS = ("mont_padd_kernel",)
+# P4's kernels in a profile: this tree's (one a product) and the kernel with
+# the out-of-line product they replaced
+FE_MUL_KERNELS = ("fe_mul_kernel",)
+# BN254 Fq's product with its constants in the code and on the consts block
+# in __constant__, timed in turns (fe_mul)
+FE_MUL_ABLATION = ("immediates", "c_consts", "c_consts", "immediates", "immediates", "c_consts")
+FE_MUL_RAGGED = (1, 7, 100, 1000, (1 << 20) - 3)  # lanes of the ragged checks
 ED_CHAIN_WARPS = (1, 2, 4, 8, 8, 4, 2, 1)  # warps a block, timed in turns (ed_chain)
 MONT_PADD_SWEEP = (64, 128, 256, 256, 128, 64)  # lanes a block, timed in turns (mont_padd)
 ED_PAIR_WARPS = (1, 4, 8, 8, 4, 1)  # warps a block, timed in turns (ed_pair)
@@ -1076,8 +1089,9 @@ def check_probe_kernels(dev, int_rate: float, fp32_rate: float) -> list:
             "scripts/bench_fold.py:138",
             lambda: kernels.fe_mul(mc, a, b, curve=curve),
             lambda: kernels.fe_mul_plain(mc, a, b, curve=curve), 50,
-            (ED_MUL_MACS if curve == "ed25519" else MUL_MACS) * a.shape[-1], 3 * a.numel() * 4,
-            f"a, b (24,{a.shape[-1]}) i32"))
+            (ED_MUL_MACS if curve == "ed25519" else BN_MUL_MACS) * a.shape[-1], 3 * a.numel() * 4,
+            f"a, b (24,{a.shape[-1]}) i32", card=FE_MUL_KERNELS))
+        ragged_fe_mul(dev, curve, mc, a, b)
     consts, p, q, _, _ = probes.add_inputs(dev)
     check("pair_add", "libzkp_tpu_torch/csrc/pair_add.cu", "scripts/bench_fold.py:185",
           lambda: kernels.pair_add(consts, p, q), lambda: kernels.pair_add_plain(consts, p, q), 20,
@@ -1110,6 +1124,129 @@ def check_probe_kernels(dev, int_rate: float, fp32_rate: float) -> list:
                          R * 9 * F32_MUL_FMAS * B, 3 * fp.numel() * 4,
                          f"p, q (4,29,{B}) f32, chain {R}", rate=fp32_rate, card=F32_CHAIN_KERNELS))
     return results
+
+
+def ragged_fe_mul(dev, curve: str, consts, a, b) -> None:
+    """fe_mul at FE_MUL_RAGGED lanes, from bases not 16-byte aligned (``a``
+    and ``b`` copied to word 1 of a buffer) and chained on its own output
+    (relaxed operands: fe_mul(fe_mul(a, b), a)), each limb for limb against
+    its plain version. One kernel_check line with "ragged": true."""
+    from libzkp_tpu_torch import probes
+    from libzkp_tpu_torch.ops import kernels
+
+    name = kernels.instance("fe_mul", curve)
+    cases = [(f"E {E}",) + probes.mul_inputs(dev, curve, E, seed=E)[1:3] for E in FE_MUL_RAGGED]
+    n, E = a.shape
+    moved = []
+    for x in (a, b):
+        m = torch.empty(n * E + 1, dtype=torch.int32, device=dev)[1:].view(n, E)
+        m.copy_(x)
+        moved.append(m)
+    cases.append((f"E {E}, bases not 16-byte aligned", *moved))
+    for tag, x, y in cases:
+        _limbs_err(f"{name} at {tag}", kernels.fe_mul(consts, x, y, curve=curve),
+                   kernels.fe_mul_plain(consts, x, y, curve=curve))
+    chained = kernels.fe_mul(consts, kernels.fe_mul(consts, a, b, curve=curve), a, curve=curve)
+    plain = kernels.fe_mul_plain(consts, kernels.fe_mul_plain(consts, a, b, curve=curve), a, curve=curve)
+    _limbs_err(f"{name} chained", chained, plain)
+    emit({"phase": "kernel_check", "name": name, "ragged": True, "max_abs_err": 0.0,
+          "tolerance": "exact limbs", "cases": [c[0] for c in cases] + [f"E {E}, fe_mul(fe_mul(a, b), a)"]})
+
+
+def sass_counts(lib: str, names: tuple) -> dict:
+    """Per kernel of the built library ``lib`` whose mangled name holds one
+    of ``names``, counted in ``cuobjdump -sass``: instructions, IMADs (the
+    plain multiply-add), IMADs with an immediate operand, LDC instructions
+    and operands in constant bank 3 (``__constant__``; bank 0 holds the
+    kernel's parameters)."""
+    import re
+    import shutil
+
+    from libzkp_tpu_torch.ops import kernels
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", str(kernels.build()[lib])], check=True, capture_output=True,
+                          text=True, timeout=300).stdout
+    out, cur = {}, None
+    for ln in text.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            cur = m.group(1) if any(x in m.group(1) for x in names) else None
+            if cur:
+                out[cur] = dict.fromkeys(("instructions", "imad", "imad_immediate", "ldc", "const_bank3"), 0)
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)\s*([^;]*);", ln)
+        if cur is None or not m:
+            continue
+        op, args = m.groups()
+        c = out[cur]
+        c["instructions"] += 1
+        c["ldc"] += op.split(".")[0] == "LDC"
+        c["const_bank3"] += "c[0x3]" in args
+        if op == "IMAD":
+            c["imad"] += 1
+            c["imad_immediate"] += "0x" in re.sub(r"c\[0x[0-9a-f]+\]\[[^]]*\]", "", args)
+    return out
+
+
+def fe_mul_pair(dev) -> None:
+    """P4 fe_mul alone at its probe's shape (2^20 lanes), both fields,
+    through its wrapper: limb for limb against its plain version, timed
+    (CUDA events, three runs) with the card's time a launch (profiler).
+    Where the probes library has ``fe_mul_bn254_g1_c_consts_launch`` (this
+    tree), also BN254 Fq's product with its constants in the code against
+    the same product on the consts block in __constant__, at the same loads
+    and block size, in turns (FE_MUL_ABLATION), each checked limb for limb
+    at 2^20, 2^20 - 100 and 100 lanes before it is first timed; and the
+    SASS of every fe_mul kernel counted (:func:`sass_counts`). Runs on an
+    earlier checkout too. One fe_mul line."""
+    import ctypes
+
+    from libzkp_tpu_torch import probes
+    from libzkp_tpu_torch.ops import kernels
+
+    out = {"card": smi("name,power.limit")}
+    for curve in ("ed25519", "bn254_g1"):
+        mc, a, b, _, _ = probes.mul_inputs(dev, curve)
+        _limbs_err(kernels.instance("fe_mul", curve), kernels.fe_mul(mc, a, b, curve=curve),
+                   kernels.fe_mul_plain(mc, a, b, curve=curve))
+        run = lambda: kernels.fe_mul(mc, a, b, curve=curve)  # noqa: E731
+        out[curve] = {"shape": f"a, b (24,{a.shape[-1]}) i32", "ms": [cuda_ms(run, 50) for _ in range(3)],
+                      **card_time(run, FE_MUL_KERNELS, 50)}
+    lib = ctypes.CDLL(str(kernels.build()["probes"]))
+    if hasattr(lib, "fe_mul_bn254_g1_c_consts_launch"):
+        launches = {"immediates": lib.fe_mul_bn254_g1_launch, "c_consts": lib.fe_mul_bn254_g1_c_consts_launch}
+        for fn in launches.values():
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+
+        def forced(form, mc, x, y, res):
+            err = launches[form](mc.data_ptr(), x.data_ptr(), y.data_ptr(), res.data_ptr(), x.shape[-1],
+                                 torch.cuda.current_stream(dev).cuda_stream)
+            if err:
+                raise RuntimeError(f"fe_mul bn254_g1 {form} failed with CUDA error {err}")
+
+        mc, a, b, _, _ = probes.mul_inputs(dev, "bn254_g1")
+        E = a.shape[-1]
+        cases = [(a, b)] + [probes.mul_inputs(dev, "bn254_g1", e, seed=e)[1:3] for e in (E - 100, 100)]
+        for form in launches:
+            for x, y in cases:
+                res = torch.empty_like(x)
+                forced(form, mc, x, y, res)
+                torch.cuda.synchronize()
+                _limbs_err(f"fe_mul bn254_g1 {form} at E {x.shape[-1]}", res,
+                           kernels.fe_mul_plain(mc, x, y, curve="bn254_g1"))
+        ablation: dict = {form: {"ms": [], "card_us": [], "dtod_us": []} for form in launches}
+        res = torch.empty_like(a)
+        for form in FE_MUL_ABLATION:
+            run = lambda: forced(form, mc, a, b, res)  # noqa: E731
+            ablation[form]["ms"].append(cuda_ms(run, 50))
+            card = card_time(run, FE_MUL_KERNELS, 50)
+            ablation[form]["card_us"].append(card["kernel_us"])
+            ablation[form]["dtod_us"].append(card["dtod_us"])
+        out["ablation"] = ablation
+        out["sass"] = sass_counts("probes", FE_MUL_KERNELS)
+    emit({"phase": "fe_mul", **out})
 
 
 def _mont_cases(dev) -> list:
@@ -2025,7 +2162,7 @@ def main_path(dev) -> dict:
 
 def main(argv: list) -> int:
     flags = ("--kernels", "--range", "--groth16", "--g1", "--mont", "--ed-tree", "--ed-pair", "--f32-chain",
-             "--ed-chain", "--mont-padd")
+             "--ed-chain", "--mont-padd", "--fe-mul")
     if len(argv) > 1 or (argv and argv[0] not in flags):
         print(f"usage: python3 chip_smoke.py [{' | '.join(flags)}], got {argv}", file=sys.stderr)
         return 2
@@ -2093,6 +2230,9 @@ def main(argv: list) -> int:
         return 0
     if argv == ["--mont-padd"]:  # mont_padd alone, likewise
         mont_padd_pair(dev)
+        return 0
+    if argv == ["--fe-mul"]:  # fe_mul alone, likewise
+        fe_mul_pair(dev)
         return 0
     tables: dict = {}
     checks = (check_kernels(dev, int_rate, tables) + check_bn254_kernels(dev, int_rate, tables)

@@ -2,8 +2,10 @@
 // curves of the MSM (ed25519, BN254 G1, BN254 G2), one field element per
 // thread: the field product and carries of the cooperative padds
 // (coop_sum.cuh), which run every tree sum, Horner step, table add and the
-// P2 chain, and the out-of-line product of the P4 probe (probes.cu). No
-// point formula runs whole in one thread: the padds are coop_sum.cuh's.
+// P2 chain. The P4 probe (probes.cu) runs the same product with its field's
+// constants in the code (ed_mul, bn254_fq.cuh bn_fq_mul) and keeps this
+// one as its constant-memory ablation. No point formula runs whole in one
+// thread: the padds are coop_sum.cuh's.
 //
 // The same schedule as the plain PyTorch version (ops/limbfold.py FieldOps,
 // ops/edwards.py, ops/weierstrass.py) and the JAX package's ops/limbfold.py
@@ -90,7 +92,7 @@ __device__ __forceinline__ void fe_smul(int32_t* r, const int32_t* a, int32_t k)
 
 // r = a * b. r may alias a or b: every read of a and b comes before the
 // first write of r. Inlined where the operands are register arrays
-// (csrc/coop_sum.cuh); fe_mul below is the same code out of line.
+// (csrc/coop_sum.cuh, the P4 ablation in probes.cu).
 __device__ __forceinline__ void fe_mul_inline(int32_t* r, const int32_t* a, const int32_t* b) {
   using namespace fold;
   int32_t t[NCOL];
@@ -120,11 +122,6 @@ __device__ __forceinline__ void fe_mul_inline(int32_t* r, const int32_t* a, cons
   fe_carry(r);
   fe_carry(r);
   fe_carry(r);
-}
-
-// The same code out of line: the P4 probe's product (probes.cu fe_mul_kernel).
-__device__ __noinline__ void fe_mul(int32_t* r, const int32_t* a, const int32_t* b) {
-  fe_mul_inline(r, a, b);
 }
 
 // ---------------------------------------------------------------------------

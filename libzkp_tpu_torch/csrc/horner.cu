@@ -20,7 +20,7 @@
 // few lanes to fill the card, so the lever is a short step:
 // * ed25519, four threads a lane (EdCoop), eight lanes a warp: a pdouble's
 //   latency is 2 products and the padd's 3, where one thread per lane ran 8
-//   and 9 with its operands in local memory (fe_mul out of line), each
+//   and 9 with its operands in local memory (an out-of-line product), each
 //   product ed_mul, the fold product with p = 2^255 - 19's 52 nonzero fold
 //   terms in the code (coop_sum.cuh). At the range prover's 1024 lanes that
 //   is 128 one-warp blocks, one an SM, where blocks of 128 one-thread lanes

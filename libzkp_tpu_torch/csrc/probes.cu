@@ -14,11 +14,18 @@
 //   card's throughput. Bound: R * 9 products of 576 + 52 multiply-adds per
 //   lane.
 // * fe_mul (P4) replaces scripts/bench_fold.py bench_field's Pallas kernel:
-//   one fold product per lane, out = a * b over (N, E) int32, for the field
-//   of the consts block it is given (p = 2^255 - 19 or BN254 Fq). One lane
-//   per thread, lanes of a warp on neighbouring words of each limb row, so
-//   loads and stores coalesce; E / 256 blocks fill the card. Bound: bytes at
-//   E = 2^20 (3 * N * 4 bytes per lane against 1200 multiply-adds).
+//   one fold product per lane, out = a * b over (N, E) int32, in the field
+//   its launch is named for (p = 2^255 - 19 or BN254 Fq). Bound: bytes at
+//   E = 2^20 (3 * N * 4 bytes a lane against 628 or 1140 multiply-adds).
+//   One lane a thread, the product inlined on the lane's register arrays
+//   with the field's constants in the code (coop_sum.cuh ed_mul,
+//   bn254_fq.cuh bn_fq_mul): no stack frame, no constant-memory operand and
+//   no consts copy before the launch, so the kernel reads only a and b. The
+//   lanes of a warp sit on neighbouring words of each limb row, so loads
+//   and stores coalesce; FE_MUL_THREADS a block. The ablation that
+//   chip_smoke.py --fe-mul times against bn_fq_mul runs the same loads
+//   around fe_mul_inline over the consts block in __constant__ (BN254 Fq's
+//   constants as memory operands; fe_mul_bn254_g1_c_consts_launch).
 //
 // * mont_padd (P7) replaces scripts/bench_pallas_mul.py main.pallas_add: one
 //   Edwards addition per lane in the Montgomery domain (point_add_val, 9
@@ -54,18 +61,41 @@
 // P5 (scripts/bench_fold.py main.pl_add, one padd per lane) is exactly K3
 // pair_add (pair_add.cu, on EdCoop) at its shape, so it has no kernel here.
 
+#include "bn254_fq.cuh"
 #include "coop_horner.cuh"
 #include "mont.cuh"
 
 namespace {
 
-constexpr int MUL_THREADS = 256;
+constexpr int MUL_THREADS = 256;  // fold_ablate's block
+// P4's block: 128 threads were the fastest for ed25519 (106.6-107.4 us a
+// launch against 108.2-109.0 at 256 and 117.4-118.0 at 512) and for BN254
+// Fq (118.5-120.1 against 121.6-121.9 and 139.1-140.7), on an H100 80GB
+// HBM3 at 700 W (chip_smoke.py --fe-mul, in turns)
+constexpr int FE_MUL_THREADS = 128;
 
-__global__ void __launch_bounds__(MUL_THREADS)
+// The P4 products, r = a * b on register arrays, r aliasing a.
+struct EdProduct {
+  static __device__ __forceinline__ void mul(int32_t* r, const int32_t* a, const int32_t* b) { ed_mul(r, a, b); }
+};
+
+struct BnProduct {
+  static __device__ __forceinline__ void mul(int32_t* r, const int32_t* a, const int32_t* b) { bn_fq_mul(r, a, b); }
+};
+
+// BN254 Fq's product on the consts block in __constant__: the same limbs as
+// BnProduct, 1200 multiply-adds with constant-memory operands (the
+// ablation only).
+struct ConstProduct {
+  static __device__ __forceinline__ void mul(int32_t* r, const int32_t* a, const int32_t* b) { fe_mul_inline(r, a, b); }
+};
+
+template <class Prod>
+__global__ void __launch_bounds__(FE_MUL_THREADS)
 fe_mul_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
               int32_t* __restrict__ out, int E) {
   using namespace fold;
-  const int e = blockIdx.x * MUL_THREADS + threadIdx.x;
+  const int e = blockIdx.x * FE_MUL_THREADS + threadIdx.x;
   if (e >= E) return;
   int32_t x[N], y[N];
 #pragma unroll
@@ -73,7 +103,7 @@ fe_mul_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
     x[i] = a[(size_t)i * E + e];
     y[i] = b[(size_t)i * E + e];
   }
-  fe_mul(x, x, y);
+  Prod::mul(x, x, y);
 #pragma unroll
   for (int i = 0; i < N; ++i) out[(size_t)i * E + e] = x[i];
 }
@@ -428,13 +458,10 @@ padd_f32_coop_kernel(const float* __restrict__ consts, const float* __restrict__
   }
 }
 
-template <class Cv>
-int fe_mul_launch(const int32_t* consts, const int32_t* a, const int32_t* b, int32_t* out, int E,
-                  void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = fold_load_consts(consts, Cv::NCONST, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  fe_mul_kernel<<<(E + MUL_THREADS - 1) / MUL_THREADS, MUL_THREADS, 0, st>>>(a, b, out, E);
+template <class Prod>
+int fe_mul_launch(const int32_t* a, const int32_t* b, int32_t* out, int E, cudaStream_t st) {
+  if (E < 1) return static_cast<int>(cudaErrorInvalidValue);
+  fe_mul_kernel<Prod><<<(E + FE_MUL_THREADS - 1) / FE_MUL_THREADS, FE_MUL_THREADS, 0, st>>>(a, b, out, E);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -450,17 +477,28 @@ extern "C" int padd_chain_ed25519_launch(const int32_t* consts, const int32_t* p
   return coop_chain_launch<Ed25519, EdCoop>(consts, p, q, out, R, B, blocks, warps, smem, stream);
 }
 
-// consts: the curve's consts block (its first N + 3 rows, ONE and FOLD, are
-// the field's); a, b, out: (N, E) int32. Each returns the CUDA error of the
-// launch (0 on success).
-extern "C" int fe_mul_ed25519_launch(const int32_t* consts, const int32_t* a, const int32_t* b,
-                                     int32_t* out, int E, void* stream) {
-  return fe_mul_launch<Ed25519>(consts, a, b, out, E, stream);
+// consts: the curve's consts block, unread (the field's constants are in
+// the code); a, b, out: (N, E) int32, E >= 1. Each returns the CUDA error
+// of the launch (0 on success).
+extern "C" int fe_mul_ed25519_launch(const int32_t*, const int32_t* a, const int32_t* b, int32_t* out,
+                                     int E, void* stream) {
+  return fe_mul_launch<EdProduct>(a, b, out, E, static_cast<cudaStream_t>(stream));
 }
 
-extern "C" int fe_mul_bn254_g1_launch(const int32_t* consts, const int32_t* a, const int32_t* b,
-                                      int32_t* out, int E, void* stream) {
-  return fe_mul_launch<Bn254G1>(consts, a, b, out, E, stream);
+extern "C" int fe_mul_bn254_g1_launch(const int32_t*, const int32_t* a, const int32_t* b, int32_t* out,
+                                      int E, void* stream) {
+  return fe_mul_launch<BnProduct>(a, b, out, E, static_cast<cudaStream_t>(stream));
+}
+
+// The BN254 Fq product on the consts block in __constant__, for
+// chip_smoke.py's ablation: consts is bn254_g1's consts block, copied
+// before the launch; the rest as fe_mul_bn254_g1_launch.
+extern "C" int fe_mul_bn254_g1_c_consts_launch(const int32_t* consts, const int32_t* a, const int32_t* b,
+                                               int32_t* out, int E, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = fold_load_consts(consts, Bn254G1::NCONST, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return fe_mul_launch<ConstProduct>(a, b, out, E, st);
 }
 
 // consts: (4, 22) int32 (p, R mod p, ninv, 2d * R mod p: the kernel reads

@@ -740,7 +740,12 @@ def fe_mul_plain(consts: torch.Tensor, a: torch.Tensor, b: torch.Tensor, *,
 def fe_mul(consts: torch.Tensor, a: torch.Tensor, b: torch.Tensor, *, curve: str) -> torch.Tensor:
     """a * b per lane over (n, E) int32, in the coordinate field of ``curve``
     (ed25519: p = 2^255 - 19; bn254_g1: BN254 Fq) whose consts block is
-    ``consts``."""
+    ``consts``, limb for limb as :func:`fe_mul_plain`.
+
+    The kernel (``csrc/probes.cu``) has its field's constants in its code
+    (``ed_mul``; ``bn_fq_mul``, ``csrc/bn254_fq.cuh``), so on the card
+    ``consts`` is checked and picks nothing: it feeds only the plain
+    version. One lane a thread, any E >= 1."""
     if a.device.type == "cpu":
         return fe_mul_plain(consts, a, b, curve=curve)
     eng = _engine("fe_mul", curve)

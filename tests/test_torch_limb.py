@@ -282,10 +282,10 @@ def test_library_digest_covers_every_header(tmp_path, monkeypatch):
     shutil.copytree(kernels.CSRC, csrc)
     monkeypatch.setattr(kernels, "CSRC", csrc)
     before = {lib: kernels._library_path(lib) for lib in kernels.LIBRARIES}
-    assert kernels._sources("probes") == ["probes.cu", "coop_horner.cuh", "mont.cuh", "coop_sum.cuh",
-                                          "fold_curves.cuh"]
+    assert kernels._sources("probes") == ["probes.cu", "bn254_fq.cuh", "coop_horner.cuh", "mont.cuh",
+                                          "fold_curves.cuh", "coop_sum.cuh"]
     assert kernels._sources("mont") == ["mont.cu", "mont.cuh"]
-    for header in ("fold_curves.cuh", "mont.cuh"):
+    for header in ("fold_curves.cuh", "mont.cuh", "bn254_fq.cuh"):
         path = csrc / header
         original = path.read_bytes()
         path.write_bytes(original + b"// edited\n")

@@ -4,8 +4,8 @@ P6 ``mont_mul``, P7 ``mont_padd``, P1 ``fold_ablate`` and P3
 ``padd_f32_chain`` against the JAX formulas of the TPU probe scripts, all
 against the host's integer and point arithmetic, and
 ``libzkp_tpu_torch.probes`` end to end on the CPU at tiny sizes; the
-designs of the P3 and P7 kernels (their constants written into the code
-and their schedules) against the plain versions."""
+designs of the P3, P4 and P7 kernels (their constants written into the
+code and their schedules) against the plain versions."""
 
 from __future__ import annotations
 
@@ -27,6 +27,7 @@ from libzkp_tpu_torch import probes
 from libzkp_tpu_torch.ops import ed25519 as ed
 from libzkp_tpu_torch.ops import kernels
 from libzkp_tpu_torch.ops.limb import _limbs_to_int, get_context
+from libzkp_tpu_torch.ops.limbfold import FieldOps
 from libzkp_tpu_torch.ops.weierstrass import get_engine
 
 
@@ -110,6 +111,107 @@ def test_probe_inputs_tile_distinct_operands():
     assert vals == [av[i % probes.DISTINCT] for i in range(130)]
     rng = random.Random(0)
     assert probes._points(rng, 2) != probes._points(rng, 2)
+
+
+# ---------------------------------------------------------------------------
+# P4's BN254 kernel (csrc/bn254_fq.cuh bn_fq_mul): BN254 Fq's constants in
+# the code
+# ---------------------------------------------------------------------------
+
+
+def _bn_fq_table() -> np.ndarray:
+    """The ONE and FOLD rows written into bn_fq_mul (``bnfq::CONSTS``)."""
+    text = (kernels.CSRC / "bn254_fq.cuh").read_text()
+    body = re.search(r"CONSTS\[[^]]*\]\[[^]]*\] = \{(.*?)\n\};", text, re.S).group(1)
+    return np.array([[int(v) for v in row.split(",")] for row in re.findall(r"\{([^{}]*)\}", body)],
+                    dtype=np.int64)
+
+
+def test_bn_fq_mul_constants_are_the_consts_block():
+    """The 27 rows in the CUDA source are the bn254_g1 consts block's ONE
+    and FOLD[0..25], row for row: 21 + 564 nonzero limbs."""
+    table = _bn_fq_table()
+    np.testing.assert_array_equal(table, get_engine("bn254_g1").consts_np[:27])
+    assert table.shape == (27, 24)
+    assert np.count_nonzero(table[0]) == 21 and np.count_nonzero(table[1:]) == 564
+
+
+def _bn_fq_mul(table: np.ndarray, a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """bn_fq_mul's sums on (n, L) limbs in int64, nonzero terms only, in
+    the kernel's order: the convolution row i by row i, two no-wrap passes
+    (the top carry dropped), the fold t[i] + t[n + k] * FOLD[k][i] k by k,
+    three wrap carries adding top * ONE[i]. Asserts that every value on
+    the way fits int32, as the kernel's int32 sums need."""
+    n = a.shape[0]
+    one, fold = table[0], table[1:]
+
+    def fits(x):
+        assert np.abs(x).max() < 2**31
+        return x
+
+    a, b = a.astype(np.int64), b.astype(np.int64)
+    t = np.zeros((2 * n + 2, a.shape[1]), np.int64)
+    for i in range(n):
+        t[i:i + n] = fits(t[i:i + n] + a[i] * b)
+    for _ in range(2):
+        hi = t >> 12
+        t = t & 4095
+        t[1:] += hi[:-1]
+    r = t[:n].copy()
+    for i in range(n):
+        for k in np.flatnonzero(fold[:, i]):
+            r[i] = fits(r[i] + t[n + k] * fold[k, i])
+    for _ in range(3):
+        top, hi = r[-1] >> 12, r >> 12
+        r = r & 4095
+        r[1:] += hi[:-1]
+        for i in np.flatnonzero(one):
+            r[i] = fits(r[i] + top * one[i])
+    return r
+
+
+@pytest.mark.parametrize("case", ["canonical", "padd_interval", "chained"])
+def test_bn_fq_mul_sums_give_fold_product_limbs(case):
+    """bn_fq_mul's sums over the source's table equal FieldOps.mul's limbs
+    for canonical operands, for operands across the G1 padd-output interval
+    [-7643, 11737] and for a product of a product (relaxed operands, as P4's
+    chained check feeds the kernel)."""
+    n = 24
+    consts = torch.from_numpy(get_engine("bn254_g1").consts_np)
+    f = FieldOps(n, consts)
+    rng = np.random.default_rng(["canonical", "padd_interval", "chained"].index(case))
+    lo, hi = (-7643, 11738) if case == "padd_interval" else (0, 4096)
+    a, b = (rng.integers(lo, hi, (n, 256)).astype(np.int32) for _ in range(2))
+    if case == "chained":
+        a = f.mul(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+    want = f.mul(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+    np.testing.assert_array_equal(_bn_fq_mul(_bn_fq_table(), a, b), want)
+
+
+def test_chip_smoke_sass_counts_reads_cuobjdump_listing(monkeypatch):
+    """chip_smoke's SASS count (the check that BN254 Fq's kernel multiplies
+    by immediates and reads no constant bank 3): per named kernel, every
+    instruction, plain IMADs, IMADs with an immediate, LDCs and bank-3
+    operands; other kernels and the encoding comments are skipped."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    listing = """
+\t\tFunction : _ZN12_GLOBAL__N_113fe_mul_kernelI9BnProductEEvPKiS3_Pii
+        /*0000*/                   LDC R1, c[0x0][0x28] ;        /* 0x00000a00ff017b82 */
+        /*0010*/                   IMAD R5, R2, 0xd76, RZ ;      /* 0x00000d7602057824 */
+        /*0020*/              @!P0 IMAD R5, R2, c[0x3][0x10], R5 ;  /* 0x000c000002057a24 */
+        /*0030*/                   IMAD.MOV.U32 R5, RZ, RZ, 0x1 ;   /* 0x00000001ff057424 */
+        /*0040*/                   IMAD R6, R2, R3, R5 ;          /* 0x0000000302067224 */
+\t\tFunction : _Z17coop_chain_kernelI6EdCoopEvPKiS2_Piii
+        /*0000*/                   IMAD R5, R2, 0x5, RZ ;         /* 0x0000000502057824 */
+"""
+    monkeypatch.setattr(smoke.subprocess, "run", lambda *a, **k: type("R", (), {"stdout": listing}))
+    monkeypatch.setattr(kernels, "build", lambda: {"probes": "libprobes.so"})
+    got = smoke.sass_counts("probes", ("fe_mul_kernel",))
+    assert got == {"_ZN12_GLOBAL__N_113fe_mul_kernelI9BnProductEEvPKiS3_Pii": {
+        "instructions": 5, "imad": 3, "imad_immediate": 1, "ldc": 1, "const_bank3": 1}}
 
 
 # ---------------------------------------------------------------------------
