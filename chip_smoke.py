@@ -12,6 +12,7 @@
     python3 chip_smoke.py --ed-chain   # phases 1, 2 and ed_chain only, no last line
     python3 chip_smoke.py --mont-padd  # phases 1, 2 and mont_padd only, no last line
     python3 chip_smoke.py --fe-mul     # phases 1, 2 and fe_mul only, no last line
+    python3 chip_smoke.py --bp-rest    # phases 1, 2 and 12 only, no last line
 
 Phases, each printing one JSON line:
 
@@ -41,7 +42,8 @@ Phases, each printing one JSON line:
    window_sum4 G1 and G2, tree_sum on every curve, horner G1 and G2,
    horner4 G1 and G2, pair_add G1 and G2) are held limb for limb, also at
    ragged shapes (window_sum: Kp in {1, 2, 3,
-   33, 160}, B in {1, 7, 513}, and at 512 lanes with its warps a block
+   33, 160}, B in {1, 7, 513}, Kp in {8, 32, 64, 96}, B in {1, 7, 512},
+   and at 512 lanes with its warps a block
    compared (1, 2, 4, the geometry's choice and every level-1 padd at once,
    also at 1024); horner
    ed25519: B in {1, 7, 8, 9, 1023}, B = 1 timed as 9 chained steps;
@@ -99,7 +101,16 @@ Phases, each printing one JSON line:
     mesh; one warm batch under ``torch.profiler`` (mont_mul's card time a
     launch);
 11. the probes (``libzkp_tpu_torch.probes``: P2, P4, P5, P6, P7, P1, P3);
-12. the kernels line (launches summed over the paths), the card's name and
+12. the rest of the Bulletproofs backend (``bp_rest``): 256 threshold
+    proofs (``prove_threshold_batch``), 64 consistency proofs of 5 values
+    (``prove_consistency_batch``) and 256 range proofs at each of 8, 16 and
+    32 bits on the lockstep host prover (its MSMs through the ed25519 seam,
+    K1 at Kp 8, 32, 64, 96), each batch cold with its launches asserted,
+    warm batches timed, a seeded batch profiled (busy ms, idle share, K1's
+    and K2's device ms, the host's parts) with 4 lanes held byte for byte
+    against the host prover (timed: the host figure), 8 proofs verified and
+    a tampered one rejected;
+13. the kernels line (launches summed over the paths), the card's name and
     power limit, and the last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero before the last line. Without a CUDA
@@ -108,6 +119,7 @@ device it exits non-zero at once.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import random
 import subprocess
@@ -118,6 +130,15 @@ from collections import defaultdict
 import torch
 
 N_TRIPLES = 256       # range proofs per batch: 512 prover lanes
+# bp_rest's batches: threshold proofs (one 64-bit instance each), consistency
+# proofs of BP_REST_VALUES values (BP_REST_VALUES - 1 instances each), and
+# N_TRIPLES range proofs at each width on the lockstep host prover
+BP_REST_THRESHOLDS = 256
+BP_REST_SEQUENCES, BP_REST_VALUES = 64, 5
+BP_REST_WIDTHS = (8, 16, 32)
+BP_REST_KPS = (8, 32, 64, 96)  # the seam's padded bases there: [B, B_blinding]; A/S and L/R at 8, 16, 32 bits
+BP_REST_LANES = 4     # lanes of each batch held byte for byte against the host prover
+WIDTH_TIMED_BATCHES = 2  # the widths batches' warm repeats, cut from TIMED_BATCHES for the run's time
 KP = 160              # padded basis of [B_blinding] + G(64) + H(64) + [B]
 MSM_LANES = 1024      # T1||T2 and L||R MSMs run at twice the prover lanes
 TIMED_BATCHES = 3
@@ -226,7 +247,9 @@ def bound(macs: float, nbytes: float, int_rate: float):
 def profiled(run) -> tuple:
     """``run()`` under ``torch.profiler`` (CUDA activity): its result, its
     wall ms (host clock around the call and a synchronise) and the card's
-    busy entries, (name, device us, calls) for each kernel and copy."""
+    busy entries, (name, device us, calls) for each kernel and copy, summed
+    from the raw trace events (``key_averages()`` builds an event tree in
+    Python: about 45 s for a range batch's 230,000 device operations)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -235,9 +258,13 @@ def profiled(run) -> tuple:
         out = run()
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
-    busy = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    return out, ms, busy
+    busy = defaultdict(lambda: [0.0, 0])
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            entry = busy[e.name()]
+            entry[0] += e.duration_ns() / 1e3
+            entry[1] += 1
+    return out, ms, [(name, us, calls) for name, (us, calls) in busy.items()]
 
 
 def busy_summary(busy: list, wall_ms: float, **kernels) -> dict:
@@ -362,15 +389,17 @@ def k1_warps(dev, consts, table, digits, want) -> None:
 def ragged_window_sum(dev, consts, table) -> None:
     """K1 at ragged shapes, B in {1, 7, 513} lanes over the first Kp in
     {1, 2, 3, 33, 160} basis points of the path's table (a lone point, the
-    tree's odd carries, one lane past V, A and S's 512), limb for limb
-    against the plain version; one kernel_check line each (not in the
-    kernels line)."""
+    tree's odd carries, one lane past V, A and S's 512), and B in {1, 7,
+    512} over the first Kp in BP_REST_KPS (the seam's bases on the widths
+    path, 512 lanes a chunk), limb for limb against the plain version; one
+    kernel_check line each (not in the kernels line)."""
     from libzkp_tpu_torch.ops import kernels
 
     C, n = table.shape[1:]
-    for Kp in (1, 2, 3, 33, KP):
+    shapes = [(Kp, (1, 7, 513)) for Kp in (1, 2, 3, 33, KP)] + [(Kp, (1, 7, 512)) for Kp in BP_REST_KPS]
+    for Kp, lane_counts in shapes:
         sub = table[:Kp * 256]
-        for B in (1, 7, 513):
+        for B in lane_counts:
             digits = torch.randint(0, 256, (Kp, B), dtype=torch.int32,
                                    generator=torch.Generator().manual_seed(10 * Kp + B)).to(dev)
             got = kernels.window_sum(consts, sub, digits)
@@ -2160,9 +2189,206 @@ def main_path(dev) -> dict:
     return {"counts": counts, "ms_per_batch": ms_batch}
 
 
+@contextlib.contextmanager
+def host_timers(**targets):
+    """Wall ms and calls of each ``(module or class, attribute)`` function
+    while the body runs, the attribute wrapped and restored after: the
+    host's own cost by part (a part's ms include what it waits on)."""
+    out = {k: {"ms": 0.0, "calls": 0} for k in targets}
+    saved = {k: getattr(owner, attr) for k, (owner, attr) in targets.items()}
+
+    def wrap(key, fn):
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                out[key]["ms"] += (time.perf_counter() - t0) * 1e3
+                out[key]["calls"] += 1
+        return timed
+
+    for k, (owner, attr) in targets.items():
+        setattr(owner, attr, wrap(k, saved[k]))
+    try:
+        yield out
+    finally:
+        for k, (owner, attr) in targets.items():
+            setattr(owner, attr, saved[k])
+
+
+def _bp_rest_batch(dev, name: str, n: int, items: list, run, prepare, verify, want: dict,
+                   warm_want: dict, timed: int) -> dict:
+    """One bp_rest batch: ``run()`` proves ``items`` through the entry point
+    (cold, the launch counters zeroed just before and read just after, then
+    ``timed`` warm batches on the host clock); ``prepare()`` gives their
+    ``(instances, finish)`` pairs for one batch of ``_prove_batch_fixed_n``
+    under seeded draws, under the profiler (busy ms, idle share, K1's and
+    K2's device ms, the host's parts) with its launches read, and
+    BP_REST_LANES of its lanes held byte for byte against the host golden
+    ``prove_single`` (timed: the host figure); 8 sampled envelopes of the
+    cold batch verified by ``verify(envelope, item)``, a tampered one
+    rejected. One line, ``bp_rest_<name>``."""
+    import copy
+
+    from libzkp_tpu_torch.models import bulletproofs as bp
+    from libzkp_tpu_torch.models.strobe import Transcript
+    from libzkp_tpu_torch.ops import curve, ed25519 as ed, kernels, msm_device
+
+    start = time.perf_counter()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    envs = run()
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    counts = kernels.launches()
+    want = dict.fromkeys(kernels.INSTANCES, 0) | want
+    if counts != want:
+        raise AssertionError(f"{name}: kernel launches {counts}, the batch needs {want}")
+    if len(envs) != len(items) or any(not isinstance(e, bytes) for e in envs):
+        raise AssertionError(f"{name}: the entry point returned malformed envelopes")
+
+    batch_ms = []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        batch_ms.append((time.perf_counter() - t0) * 1e3)
+    per_proof = [ms / len(items) for ms in batch_ms]
+
+    sample = list(range(0, len(items), max(1, len(items) // 8)))[:8]
+    for i in sample:
+        if not verify(envs[i], items[i]):
+            raise AssertionError(f"{name}: proof {i} does not verify")
+    bad = bytearray(envs[sample[1]])
+    bad[len(bad) // 2] ^= 1
+    if verify(bytes(bad), items[sample[1]]):
+        raise AssertionError(f"{name}: a tampered proof verified")
+
+    insts = [inst for pair_insts, _ in prepare() for inst in pair_insts]
+    lanes = sorted({0, 1, len(insts) // 2, len(insts) - 1})[:BP_REST_LANES]
+    golden = copy.deepcopy([insts[lane] for lane in lanes])  # the lockstep prover advances transcripts
+    per = (2 * n + 4) * 64
+    rand = random.Random(99).randbytes(per * len(insts))
+    kernels.reset_launches()
+    with host_timers(seam_msm=(ed, "msm_fixed_many"), table_lookup=(msm_device, "_get_table"),
+                     digits=(curve, "_digits_from_scalars"), compress=(ed, "compress"),
+                     transcript_challenge=(Transcript, "challenge_bytes")) as host:
+        t0 = time.perf_counter()
+        res, prof_ms, busy = profiled(lambda: bp._prove_batch_fixed_n(insts, n, rand=rand, device=dev))
+        profile_s = time.perf_counter() - t0  # the batch and the profiler's own work
+    warm_counts = kernels.launches()
+    warm_want = dict.fromkeys(kernels.INSTANCES, 0) | warm_want
+    if warm_counts != warm_want:
+        raise AssertionError(f"{name}: warm kernel launches {warm_counts}, the batch needs {warm_want}")
+
+    saved = bp._random_scalar
+    host_s = []
+    try:
+        for lane, (t, value, blinding, n_bits) in zip(lanes, golden):
+            draws = iter(ed.scalar_from_bytes_mod_order_wide(rand[per * lane + 64 * s : per * lane + 64 * s + 64])
+                         for s in range(2 * n + 4))
+            bp._random_scalar = lambda d=draws: next(d)
+            t0 = time.perf_counter()
+            proof, V = bp.prove_single(t, value, blinding, n_bits)
+            host_s.append(time.perf_counter() - t0)
+            if proof.to_bytes() != res[lane][0].to_bytes() or V != res[lane][1]:
+                raise AssertionError(f"{name} lane {lane}: the batch's proof differs from the host prover's")
+    finally:
+        bp._random_scalar = saved
+    host_ms = sum(host_s) / len(host_s) * 1e3
+    row = {"phase": f"bp_rest_{name}", "proofs": len(items), "prover_lanes": len(insts), "n_bits": n,
+           "cold_s": cold_s, "launches": {k: v for k, v in counts.items() if v},
+           "batch_ms": batch_ms, "ms_per_batch": sum(batch_ms) / len(batch_ms),
+           "ms_per_proof": sum(per_proof) / len(per_proof), "ms_per_proof_spread": [min(per_proof), max(per_proof)],
+           "verified": len(sample), "tamper_rejected": True, "byte_exact_lanes": lanes,
+           "proof_bytes": len(res[0][0].to_bytes()),
+           "host_prove_single_ms": host_ms, "host_ms_per_proof": host_ms * len(insts) / len(items),
+           "seconds": time.perf_counter() - start, "profile_s": profile_s,
+           "seeded_batch": {"warm_launches": {k: v for k, v in warm_counts.items() if v},
+                            "batch_ms_profiled": prof_ms, "host": host,
+                            **busy_summary(busy, prof_ms, window_sum="window_sum_kernel",
+                                           horner="horner_kernel")}}
+    emit(row)
+    return counts
+
+
+def bp_rest(dev, basis_cold: bool) -> dict:
+    """Phase 12: the rest of the Bulletproofs backend, each batch through
+    :func:`_bp_rest_batch`: BP_REST_THRESHOLDS threshold proofs at 64 bits
+    (``prove_threshold_batch``, one device prover batch); BP_REST_SEQUENCES
+    consistency proofs of BP_REST_VALUES values (``prove_consistency_batch``:
+    each sequence's commitments one seam MSM of 8 lanes, the steps one
+    device prover batch), one reaching 2^64 - 1; and at each width of
+    BP_REST_WIDTHS, N_TRIPLES range proofs, the proofs of
+    ``prove_range_with_bits`` as one batch (``prepare_range_bits``, one
+    lockstep host prover batch whose MSMs run through the seam: V at 512
+    lanes, A||S, T1||T2 and each round's L||R at 1024 in chunks of 512),
+    and ``prove_range_with_bits`` itself once. Launches predicted from the
+    code: 32 window_sum and 32 horner launches a device prover MSM (10 a
+    batch) and a seam chunk; 255 pair_add launches a cold table (the range
+    basis when ``basis_cold``, [B, B_blinding] once, A/S's and the rounds'
+    basis at each width). Runs after every phase whose launch counts a
+    seam table in the LRU could change."""
+    import libzkp_tpu_torch as zkp
+    from libzkp_tpu_torch.models.bulletproofs_backend import BulletproofsBackend as BB
+    from libzkp_tpu_torch.models.schemes.common import prove_prepared
+    from libzkp_tpu_torch.ops import msm_device
+    from libzkp_tpu_torch.utils.envelope import SCHEME_RANGE
+
+    start = time.perf_counter()
+    rng = random.Random(1022)
+    u64 = (1 << 64) - 1
+    pairs = [([u64 - 5, 5], u64)]
+    while len(pairs) < BP_REST_THRESHOLDS:
+        values = [rng.randrange(1 << 62) for _ in range(rng.randint(1, 4))]
+        pairs.append((values, rng.randrange(sum(values) + 1)))
+    seqs = [[0, 1, 1 << 63, u64 - 1, u64]]
+    while len(seqs) < BP_REST_SEQUENCES:
+        seqs.append(sorted(rng.randrange(1 << 64) for _ in range(BP_REST_VALUES)))
+    device_msms = {"window_sum": 32 * 10, "horner": 32 * 10}  # one device prover batch
+
+    counts = [_bp_rest_batch(
+        dev, "threshold", 64, pairs,
+        run=lambda: zkp.prove_threshold_batch(pairs, device=dev),
+        prepare=lambda: [BB.prepare_threshold_bits(v, t, 64) for v, t in pairs],
+        verify=lambda env, item: zkp.verify_threshold(env, item[1]),
+        want=device_msms | {"pair_add": 255 * basis_cold}, warm_want=device_msms, timed=TIMED_BATCHES)]
+    commits = 32 * BP_REST_SEQUENCES  # each sequence's commitments: one seam chunk
+    counts.append(_bp_rest_batch(
+        dev, "consistency", 64, seqs,
+        run=lambda: zkp.prove_consistency_batch(seqs, device=dev),
+        prepare=lambda: [BB.prepare_consistency(d, device=dev) for d in seqs],
+        verify=lambda env, item: zkp.verify_consistency(env),
+        want={k: v + commits for k, v in device_msms.items()} | {"pair_add": 255},
+        warm_want=device_msms, timed=TIMED_BATCHES))
+    for n in BP_REST_WIDTHS:
+        triples = [((1 << n) - 1, 0, (1 << n) - 1)]
+        while len(triples) < N_TRIPLES:
+            lo = rng.randrange(1 << 62)
+            hi = lo + rng.randrange(1 << n)
+            triples.append((rng.randint(lo, hi), lo, hi))
+        one, two = -(-2 * N_TRIPLES // msm_device.CHUNK_B), -(-4 * N_TRIPLES // msm_device.CHUNK_B)
+        chunks = one + two * (2 + n.bit_length() - 1)  # V; A||S, T1||T2 and L||R per round
+        seam = {"window_sum": 32 * chunks, "horner": 32 * chunks}
+
+        def prepare(triples=triples, n=n):
+            return [BB.prepare_range_bits(v, lo, hi, n) for v, lo, hi in triples]
+
+        counts.append(_bp_rest_batch(
+            dev, f"range_{n}", n, triples,
+            run=lambda prepare=prepare: prove_prepared(SCHEME_RANGE, prepare(), device=dev),
+            prepare=prepare, verify=lambda env, item: zkp.verify_range(env, *item[1:]),
+            want=seam | {"pair_add": 2 * 255}, warm_want=seam, timed=WIDTH_TIMED_BATCHES))
+        env = zkp.prove_range_with_bits(*triples[1], n, device=dev)
+        if not zkp.verify_range(env, *triples[1][1:]):
+            raise AssertionError(f"prove_range_with_bits at {n} bits: the proof does not verify")
+    emit({"phase": "bp_rest", "seconds": time.perf_counter() - start})
+    return {"counts": {k: sum(c[k] for c in counts) for k in counts[0]}}
+
+
 def main(argv: list) -> int:
     flags = ("--kernels", "--range", "--groth16", "--g1", "--mont", "--ed-tree", "--ed-pair", "--f32-chain",
-             "--ed-chain", "--mont-padd", "--fe-mul")
+             "--ed-chain", "--mont-padd", "--fe-mul", "--bp-rest")
     if len(argv) > 1 or (argv and argv[0] not in flags):
         print(f"usage: python3 chip_smoke.py [{' | '.join(flags)}], got {argv}", file=sys.stderr)
         return 2
@@ -2234,6 +2460,9 @@ def main(argv: list) -> int:
     if argv == ["--fe-mul"]:  # fe_mul alone, likewise
         fe_mul_pair(dev)
         return 0
+    if argv == ["--bp-rest"]:  # the rest of the Bulletproofs backend alone
+        bp_rest(dev, basis_cold=True)
+        return 0
     tables: dict = {}
     checks = (check_kernels(dev, int_rate, tables) + check_bn254_kernels(dev, int_rate, tables)
               + check_sharded_kernels(dev, int_rate, tables)
@@ -2252,6 +2481,9 @@ def main(argv: list) -> int:
     for tag, mesh in meshes:
         paths += [sharded_msm(dev, mesh, tag), groth16_mesh(dev, mesh, g16, tag)]
     paths += [groth16_h(dev), mimc_batch(dev), probes_phase(dev)]
+    # last: its seam tables enter the LRU after every phase that counts
+    # launches of cached tables; main_path built the range basis's table
+    paths.append(bp_rest(dev, basis_cold=False))
     # launches of each instance summed over the paths that run it
     launched = {name: sum(p["counts"][name] for p in paths) for name in kernels.INSTANCES}
     if sorted(r["name"] for r in checks) != sorted(kernels.INSTANCES):

@@ -1,8 +1,13 @@
 """libzkp_tpu_torch — the PyTorch / CUDA port of libzkp_tpu for NVIDIA Hopper.
 
 A second package beside the JAX reference ``libzkp_tpu``, ported slice by
-slice. Ported: the main path, the batched 64-bit Bulletproofs range prover
-(:func:`prove_range_batch`); the batched Groth16 equality prover
+slice. Ported: the Bulletproofs backend, its three proof types on one
+lockstep batch prover — range proofs (:func:`prove_range_batch`, the main
+path), threshold proofs (:func:`prove_threshold_batch`) and consistency
+proofs (:func:`prove_consistency_batch`): 64-bit single proofs on the
+batched device prover, narrower widths (:func:`prove_range_with_bits`,
+:func:`prove_threshold_with_bits`) on the lockstep host prover with its
+MSMs on the device; the batched Groth16 equality prover
 (:func:`prove_equality_batch`), whose query MSMs over BN254 G1 and G2 run on
 the same family of hand-written CUDA kernels (``ops/kernels.py``, sources in
 ``csrc/``) and whose h polynomial runs on the device NTT over the Montgomery
@@ -17,6 +22,11 @@ runs the plain PyTorch path. The package imports neither jax nor
 ``libzkp_tpu``.
 """
 
+from .models.schemes.consistency_proof import (  # noqa: F401
+    prove_consistency,
+    prove_consistency_batch,
+    verify_consistency,
+)
 from .models.schemes.equality_proof import (  # noqa: F401
     prove_equality,
     prove_equality_batch,
@@ -29,16 +39,33 @@ from .models.schemes.range_proof import (  # noqa: F401
     prove_range_with_bits,
     verify_range,
 )
+from .models.schemes.threshold_proof import (  # noqa: F401
+    prove_threshold,
+    prove_threshold_batch,
+    prove_threshold_with_bits,
+    verify_threshold,
+)
 from .ops.mimc import mimc_hash_batch  # noqa: F401
+
+# the reference API's alias (libzkp_tpu/advanced/misc.py)
+prove_threshold_optimized = prove_threshold
 
 __all__ = [
     "mimc_hash_batch",
+    "prove_consistency",
+    "prove_consistency_batch",
     "prove_equality",
     "prove_equality_batch",
     "prove_range",
     "prove_range_batch",
     "prove_range_with_bits",
+    "prove_threshold",
+    "prove_threshold_batch",
+    "prove_threshold_optimized",
+    "prove_threshold_with_bits",
+    "verify_consistency",
     "verify_equality",
     "verify_equality_with_commitment",
     "verify_range",
+    "verify_threshold",
 ]

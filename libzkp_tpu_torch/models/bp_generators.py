@@ -1,6 +1,7 @@
 """Bulletproofs generator derivation (dalek-compatible chains).
 
-Copy of the JAX package's ``libzkp_tpu/models/bp_generators.py`` without the
+Copy of the JAX package's ``libzkp_tpu/models/bp_generators.py``, its
+``pedersen_commit_compressed_many`` on the device MSM seam in place of the
 native hook:
 
 * ``PedersenGens::default()``: B = Ristretto basepoint, B_blinding =
@@ -31,6 +32,14 @@ def pedersen_gens() -> Tuple[ed.Point, ed.Point]:
 def pedersen_commit(value: int, blinding: int) -> ed.Point:
     b, b_blinding = pedersen_gens()
     return ed.point_add(ed.scalar_mul(value, b), ed.scalar_mul(blinding, b_blinding))
+
+
+def pedersen_commit_compressed_many(pairs, *, device) -> list:
+    """Compressed Pedersen commitments of ``(value, blinding)`` pairs (both
+    reduced mod l): one MSM batch over ``[B, B_blinding]`` on ``device``."""
+    b, b_blinding = pedersen_gens()
+    pts = ed.msm_fixed_many([[v, bl] for v, bl in pairs], [b, b_blinding], device=device)
+    return [ed.compress(p) for p in pts]
 
 
 @functools.lru_cache(maxsize=64)

@@ -2,7 +2,7 @@
 and the batched entry that runs on the device prover.
 
 Port of the parts of the JAX package's ``libzkp_tpu/models/bulletproofs.py``
-that the range prover needs: the same transcript schedule (merlin labels
+that the Bulletproofs backend needs: the same transcript schedule (merlin labels
 ``dom-sep``/``n``/``m``/``V``/``A``/``S``/``T_1``/``T_2``/``t_x``/
 ``t_x_blinding``/``e_blinding``/``w`` and the ``ipp v1`` rounds) and the same
 672-byte (n=64) serialization ``[A|S|T1|T2|t_x|t_x_bl|e_bl|L_i R_i ...|a|b]``.
@@ -12,7 +12,9 @@ that the range prover needs: the same transcript schedule (merlin labels
 * :func:`verify_single`, :func:`verification_terms`, :func:`check_terms`,
   :func:`batch_verify_groups`: pure-Python verification.
 * :func:`prove_single_batch`: sends every 64-bit group of instances to
-  :func:`.bp_device.prove_insts_device` on the caller's device.
+  :func:`.bp_device.prove_insts_device` on the caller's device, and every
+  narrower width to the lockstep host prover, whose MSMs run on that device
+  (:func:`..ops.ed25519.msm_fixed_many`).
 """
 
 from __future__ import annotations
@@ -343,9 +345,11 @@ def prove_single_batch(
 ) -> List[Tuple[RangeProof, bytes]]:
     """Lockstep batch prover on ``device`` (default: the CUDA card).
 
-    Instances are ``(transcript, value, blinding, n)``; every 64-bit
-    instance runs on the batched device prover. Other widths are not in this
-    port yet and raise ``NotImplementedError``.
+    Instances are ``(transcript, value, blinding, n)``, grouped by ``n``:
+    64-bit instances run on the batched device prover
+    (:func:`.bp_device.prove_insts_device`), every other width the reference
+    takes (n a power of two up to 32) on the lockstep host prover, whose
+    MSMs run on ``device`` through :func:`..ops.ed25519.msm_fixed_many`.
     """
     out: List[Optional[Tuple[RangeProof, bytes]]] = [None] * len(instances)
     by_n: dict = {}
@@ -361,18 +365,19 @@ def prove_single_batch(
 def _prove_batch_fixed_n(
     insts, n: int, rand: Optional[bytes] = None, *, device=None
 ) -> List[Tuple[RangeProof, bytes]]:
-    """Batched prover for one bit width, grouped by transcript position.
+    """Batched prover for one bit width.
 
     ``rand`` supplies the per-proof randomness as ``(2n + 4)`` wide 64-byte
-    draws per proof (layout of :func:`.bp_device.prove_insts_device`);
-    ``None`` draws from ``os.urandom``.
+    draws per proof, ordered ``a_blind, s_blind, s_L[0..n-1], s_R[0..n-1],
+    t1_blinding, t2_blinding`` (:func:`prove_single`'s draw order, so both
+    give the same bytes under the same draws); ``None`` draws from
+    ``os.urandom``. A width the reference refuses raises its
+    ``AssertionError``.
     """
     from . import bp_device
 
-    if n != bp_device.N_BITS:
-        raise NotImplementedError(
-            f"only 64-bit range proofs run on the device prover in this port (got n={n})"
-        )
+    if not (0 < n <= 64 and n & (n - 1) == 0):
+        raise AssertionError(f"bit width {n} is not a power of two in [1, 64]")
     dev = resolve(device)
     m0 = len(insts)
     per = (2 * n + 4) * 64
@@ -383,6 +388,10 @@ def _prove_batch_fixed_n(
     for _, value, _, _ in insts:
         if not 0 <= value < (1 << n):
             raise ValueError(f"value {value} is not in [0, 2^{n})")
+    if n != bp_device.N_BITS:
+        return _prove_batch_lockstep(insts, n, rand, dev)
+    # the device prover resumes every lane's transcript at one STROBE
+    # position: group by it
     groups: dict = {}
     for idx, (t, _, _, _) in enumerate(insts):
         groups.setdefault(t.strobe.state_bytes()[200:203], []).append(idx)
@@ -397,6 +406,173 @@ def _prove_batch_fixed_n(
                 raise RuntimeError("device prover emitted an unparseable proof")
             out[i] = (rp, v)
     return out  # type: ignore[return-value]
+
+
+def _prove_batch_lockstep(insts, n: int, rand: bytes, dev) -> List[Tuple[RangeProof, bytes]]:
+    """The JAX package's lockstep host prover (its ``_prove_batch_fixed_n``
+    after the native and device branches): every instance advances through
+    :func:`prove_single`'s phases together, each phase's MSMs one
+    :func:`..ops.ed25519.msm_fixed_many` batch on ``dev`` (V; A‖S; T1‖T2;
+    L‖R per inner-product round), the transcripts and the scalar algebra on
+    the host."""
+    m0 = len(insts)
+    per = (2 * n + 4) * 64
+
+    def _wide(j: int, slot: int) -> int:
+        off = j * per + slot * 64
+        return ed.scalar_from_bytes_mod_order_wide(rand[off : off + 64])
+
+    B, B_blinding = pedersen_gens()
+    G, H = bp_gens(n)
+    G = list(G)
+    H = list(H)
+    basis_vs = [B, B_blinding]
+    basis_as = [B_blinding] + G + H
+    basis_ipp = G + H + [B]
+
+    # -- phase 1: value commitments -----------------------------------------
+    gammas = [blinding % L for _, _, blinding, _ in insts]
+    a_Ls = [[(value >> i) & 1 for i in range(n)] for _, value, _, _ in insts]
+    V_pts = ed.msm_fixed_many(
+        [[value % L, g] for (_, value, _, _), g in zip(insts, gammas)], basis_vs, device=dev
+    )
+    Vs = [ed.compress(p) for p in V_pts]
+
+    # -- phase 2: A and S commitments (one batch for both) ------------------
+    a_blind = [_wide(j, 0) for j in range(m0)]
+    s_blind = [_wide(j, 1) for j in range(m0)]
+    s_Ls = [[_wide(j, 2 + i) for i in range(n)] for j in range(m0)]
+    s_Rs = [[_wide(j, 2 + n + i) for i in range(n)] for j in range(m0)]
+    as_vecs = []
+    for j in range(m0):
+        a_L = a_Ls[j]
+        as_vecs.append([a_blind[j]] + a_L + [(b - 1) % L for b in a_L])
+        as_vecs.append([s_blind[j]] + s_Ls[j] + s_Rs[j])
+    as_pts = ed.msm_fixed_many(as_vecs, basis_as, device=dev)
+
+    ys, zs, A_cs, S_cs = [], [], [], []
+    for j, (t, _, _, _) in enumerate(insts):
+        t.append_message(b"dom-sep", b"rangeproof v1")
+        t.append_u64(b"n", n)
+        t.append_u64(b"m", 1)
+        if not _validate_and_append_point(t, b"V", Vs[j]):
+            raise ValueError("value commitment is the identity")
+        A_c, S_c = ed.compress(as_pts[2 * j]), ed.compress(as_pts[2 * j + 1])
+        _append_point(t, b"A", A_c)
+        _append_point(t, b"S", S_c)
+        A_cs.append(A_c)
+        S_cs.append(S_c)
+        ys.append(_challenge_scalar(t, b"y"))
+        zs.append(_challenge_scalar(t, b"z"))
+
+    # -- phase 3: t(x) commitments ------------------------------------------
+    l0s, r0s, r1s, t1b, t2b, t_vecs = [], [], [], [], [], []
+    for j in range(m0):
+        y, z = ys[j], zs[j]
+        z2 = z * z % L
+        a_L, s_L, s_R = a_Ls[j], s_Ls[j], s_Rs[j]
+        l0 = [(a_L[i] - z) % L for i in range(n)]
+        yi = 1
+        pow2 = 1
+        r0, r1 = [], []
+        for i in range(n):
+            r0.append((yi * ((a_L[i] - 1 + z) % L) + z2 * pow2) % L)
+            r1.append(yi * s_R[i] % L)
+            yi = yi * y % L
+            pow2 = pow2 * 2 % L
+        t1 = (_inner(l0, r1) + _inner(s_L, r0)) % L
+        t2 = _inner(s_L, r1)
+        t1b.append(_wide(j, 2 + 2 * n))
+        t2b.append(_wide(j, 3 + 2 * n))
+        l0s.append(l0)
+        r0s.append(r0)
+        r1s.append(r1)
+        t_vecs.append([t1, t1b[j]])
+        t_vecs.append([t2, t2b[j]])
+    t_pts = ed.msm_fixed_many(t_vecs, basis_vs, device=dev)
+
+    # -- phase 4: x and w challenges, the inner-product inputs -----------------
+    states = []
+    for j, (t, _, _, _) in enumerate(insts):
+        z2 = zs[j] * zs[j] % L
+        T_1 = ed.compress(t_pts[2 * j])
+        T_2 = ed.compress(t_pts[2 * j + 1])
+        _append_point(t, b"T_1", T_1)
+        _append_point(t, b"T_2", T_2)
+        x = _challenge_scalar(t, b"x")
+        l0, r0, r1, s_L = l0s[j], r0s[j], r1s[j], s_Ls[j]
+        l_vec = [(l0[i] + s_L[i] * x) % L for i in range(n)]
+        r_vec = [(r0[i] + r1[i] * x) % L for i in range(n)]
+        t_x = _inner(l_vec, r_vec)
+        t_x_blinding = (z2 * gammas[j] + x * t1b[j] + x * x % L * t2b[j]) % L
+        e_blinding = (a_blind[j] + x * s_blind[j]) % L
+        _append_scalar(t, b"t_x", t_x)
+        _append_scalar(t, b"t_x_blinding", t_x_blinding)
+        _append_scalar(t, b"e_blinding", e_blinding)
+        w = _challenge_scalar(t, b"w")
+        y_inv = pow(ys[j], -1, L)
+        hf = []
+        yi = 1
+        for _ in range(n):
+            hf.append(yi)
+            yi = yi * y_inv % L
+        t.append_message(b"dom-sep", b"ipp v1")
+        t.append_u64(b"n", n)
+        states.append({"t": t, "a": l_vec, "b": r_vec, "gc": [1] * n, "hc": hf, "w": w,
+                       "L": [], "R": [], "T_1": T_1, "T_2": T_2, "t_x": t_x,
+                       "t_x_blinding": t_x_blinding, "e_blinding": e_blinding})
+
+    # -- phase 5: the inner-product rounds in lockstep ---------------------------
+    m = n
+    while m > 1:
+        half = m // 2
+        vecs = []
+        for st in states:
+            a, b, gc, hc, w = st["a"], st["b"], st["gc"], st["hc"], st["w"]
+            cL = _inner(a[:half], b[half:])
+            cR = _inner(a[half:], b[:half])
+            gl, hl, gr, hr = [0] * n, [0] * n, [0] * n, [0] * n
+            for k in range(n):
+                i = k % m
+                if i >= half:
+                    gl[k] = a[i - half] * gc[k] % L
+                    hr[k] = b[i - half] * hc[k] % L
+                else:
+                    hl[k] = b[half + i] * hc[k] % L
+                    gr[k] = a[half + i] * gc[k] % L
+            vecs.append(gl + hl + [cL * w % L])
+            vecs.append(gr + hr + [cR * w % L])
+        pts = ed.msm_fixed_many(vecs, basis_ipp, device=dev)
+        for j, st in enumerate(states):
+            t = st["t"]
+            Lc = ed.compress(pts[2 * j])
+            Rc = ed.compress(pts[2 * j + 1])
+            st["L"].append(Lc)
+            st["R"].append(Rc)
+            _append_point(t, b"L", Lc)
+            _append_point(t, b"R", Rc)
+            u = _challenge_scalar(t, b"u")
+            u_inv = pow(u, -1, L)
+            a, b, gc, hc = st["a"], st["b"], st["gc"], st["hc"]
+            st["a"] = [(a[i] * u + u_inv * a[half + i]) % L for i in range(half)]
+            st["b"] = [(b[i] * u_inv + u * b[half + i]) % L for i in range(half)]
+            for k in range(n):
+                if (k % m) < half:
+                    gc[k] = gc[k] * u_inv % L
+                    hc[k] = hc[k] * u % L
+                else:
+                    gc[k] = gc[k] * u % L
+                    hc[k] = hc[k] * u_inv % L
+        m = half
+
+    return [
+        (
+            RangeProof(A_cs[j], S_cs[j], st["T_1"], st["T_2"], st["t_x"], st["t_x_blinding"],
+                       st["e_blinding"], InnerProductProof(st["L"], st["R"], st["a"][0], st["b"][0])),
+            Vs[j],
+        )
+        for j, st in enumerate(states)
+    ]
 
 
 # ---------------------------------------------------------------------------

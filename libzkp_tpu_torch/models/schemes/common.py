@@ -1,12 +1,13 @@
 """Shared envelope parse/build helpers for the proof layer.
 
-Copy of the JAX package's ``libzkp_tpu/models/schemes/common.py`` (the
-Bulletproofs half that the range scheme uses).
+Copy of the JAX package's ``libzkp_tpu/models/schemes/common.py`` (its
+Bulletproofs half), and :func:`prove_prepared`, the batch variants' shared
+tail.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Tuple
 
 from ...utils.encoding import u32_le
 from ...utils.envelope import PROOF_VERSION, Proof
@@ -15,6 +16,7 @@ from ...utils.limits import (
     MAX_BULLETPROOFS_BACKEND_PROOF_BYTES,
     MAX_PROOF_TOTAL_BYTES,
 )
+from ..bulletproofs import prove_single_batch
 
 
 def parse_and_validate_proof(proof_bytes: bytes, expected_scheme: int) -> Proof:
@@ -67,3 +69,19 @@ def validate_standard_commitment(commitment: bytes) -> None:
         raise InvalidProofFormat(
             f"invalid commitment size: expected 32 bytes, got {len(commitment)}"
         )
+
+
+def prove_prepared(scheme_id: int, prepared: List, *, device) -> List[bytes]:
+    """Envelopes of ``scheme_id`` for the backend's prepared proofs
+    (``(instances, finish)`` pairs of a ``prepare_*``): every proof's
+    single-proof instances as one lockstep :func:`prove_single_batch` on
+    ``device``."""
+    instances = [inst for insts, _ in prepared for inst in insts]
+    results = prove_single_batch(instances, device=device)
+    out = []
+    pos = 0
+    for insts, finish in prepared:
+        backend_proof = finish(results[pos : pos + len(insts)])
+        pos += len(insts)
+        out.append(create_proof(scheme_id, *extract_bulletproofs_components(backend_proof)))
+    return out

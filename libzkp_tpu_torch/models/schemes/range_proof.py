@@ -11,12 +11,12 @@ from ...device import resolve
 from ...utils.envelope import SCHEME_RANGE
 from ...utils.errors import BackendError
 from ...utils.validation import validate_range_params
-from ..bulletproofs import prove_single_batch
 from ..bulletproofs_backend import BulletproofsBackend
 from .common import (
     create_proof,
     extract_bulletproofs_components,
     parse_and_validate_proof,
+    prove_prepared,
     reconstruct_bulletproofs_proof,
     validate_standard_commitment,
 )
@@ -31,7 +31,9 @@ def prove_range(value: int, min_v: int, max_v: int, *, device=None) -> bytes:
 def prove_range_with_bits(
     value: int, min_v: int, max_v: int, n_bits: int, *, device=None
 ) -> bytes:
-    """Range proof with a configurable bit width (64 only in this port)."""
+    """Range proof with a configurable bit width (8 for values in [0, 255]):
+    64 bits on the device prover, 1 to 32 on the lockstep host prover with
+    its MSMs on ``device``."""
     device = resolve(device)
     validate_range_params(value, min_v, max_v)
     try:
@@ -45,28 +47,18 @@ def prove_range_with_bits(
 
 
 def prove_range_batch(triples, *, device=None) -> list:
-    """Batched variant over ``(value, min_v, max_v)`` triples: the min/max
-    single proofs of every triple run as one lockstep device batch."""
+    """Batched variant over ``(value, min_v, max_v)`` triples at 64 bits: the
+    min/max single proofs of every triple run as one lockstep device batch."""
     device = resolve(device)
     triples = list(triples)
     for value, min_v, max_v in triples:
         validate_range_params(value, min_v, max_v)
-    prepared = []
     try:
-        for value, min_v, max_v in triples:
-            prepared.append(BulletproofsBackend.prepare_range_bits(value, min_v, max_v, 64))
+        prepared = [BulletproofsBackend.prepare_range_bits(value, min_v, max_v, 64)
+                    for value, min_v, max_v in triples]
     except ValueError as e:
         raise BackendError(str(e)) from None
-    instances = [inst for insts, _ in prepared for inst in insts]
-    results = prove_single_batch(instances, device=device)
-    out = []
-    pos = 0
-    for insts, finish in prepared:
-        backend_proof = finish(results[pos : pos + len(insts)])
-        pos += len(insts)
-        proof_bytes, commitment = extract_bulletproofs_components(backend_proof)
-        out.append(create_proof(SCHEME_ID, proof_bytes, commitment))
-    return out
+    return prove_prepared(SCHEME_ID, prepared, device=device)
 
 
 def verify_range(proof: bytes, min_v: int, max_v: int) -> bool:

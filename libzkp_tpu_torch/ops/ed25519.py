@@ -1,13 +1,13 @@
 """Curve25519 / Ristretto255 group (host golden tier).
 
 Pure-Python copy of the JAX package's ``libzkp_tpu/ops/ed25519.py`` (and the
-two primes of its ``ops/field.py``) without the native C++ hooks and without
-``msm_fixed_many`` and its device seam:
+two primes of its ``ops/field.py``) without the native C++ hooks:
 Edwards point arithmetic (extended coordinates, a=-1), Ristretto255
 encode/decode per RFC 9496, Elligator hash-to-group (``from_uniform_bytes``),
 scalars mod l and a Pippenger MSM. It is the byte-exact reference the batched
 device prover (:mod:`libzkp_tpu_torch.models.bp_device`) is held against, and
-the host half of verification.
+the host half of verification. :func:`msm_fixed_many` is the one entry that
+runs on a device: the fixed-basis MSM seam (:mod:`.msm_device`).
 """
 
 from __future__ import annotations
@@ -163,6 +163,17 @@ def msm(scalars: Sequence[int], points: Sequence[Point], window: int = 6) -> Poi
 def msm_fixed(scalars, points) -> Point:
     """MSM over a process-constant basis (the plain MSM on the host tier)."""
     return msm(scalars, points)
+
+
+def msm_fixed_many(scalar_vecs, points, *, device) -> list:
+    """Independent MSMs of ``scalar_vecs`` (each reduced mod l) over one
+    fixed basis, on ``device`` through the seam (:mod:`.msm_device`: the
+    basis's multiples table in its LRU, 512-lane chunks on the v3 walk, or
+    the mesh route) -> extended points. On a CUDA device it runs on the
+    kernels or raises; on the CPU it runs their plain versions."""
+    from . import msm_device  # msm_device -> curve -> edwards imports this module
+
+    return msm_device.msm_fixed_many("ed25519", scalar_vecs, points, device=device)
 
 
 # ---------------------------------------------------------------------------

@@ -33,12 +33,13 @@ import libzkp_tpu_torch as zkp
 from libzkp_tpu_torch import convert, probes
 from libzkp_tpu_torch.parallel import collective, mesh
 from libzkp_tpu_torch.models import groth16, r1cs, snark_backend
-from libzkp_tpu_torch.models.schemes import equality_proof
+from libzkp_tpu_torch.models.schemes import consistency_proof, equality_proof, threshold_proof
 from libzkp_tpu_torch.ops import bn254, field, kernels, mimc, msm_device, ntt, ristretto, weierstrass
 from libzkp_tpu_torch.ops import groth16_device, limb
 from libzkp_tpu_torch.utils.commitment import commit_value_snark
 env = zkp.prove_range(7, 0, 10, device="cpu")
 ok = zkp.verify_range(env, 0, 10)
+ok = ok and zkp.verify_threshold(zkp.prove_threshold([3, 4], 5, device="cpu"), 5)
 # the Groth16 slice's host pipeline: commitment, circuit, CSR, h
 v = 7
 fr = int.from_bytes(commit_value_snark(v), "little")
@@ -64,6 +65,11 @@ print(json.dumps({"ok": ok, "mods": mods}))
 @pytest.mark.parametrize("call", [
     "zkp.prove_range(7, 0, 10)",
     "zkp.prove_range_batch([(7, 0, 10)])",
+    "zkp.prove_range_with_bits(7, 0, 10, 8)",
+    "zkp.prove_threshold([3, 4], 5)",
+    "zkp.prove_threshold_batch([([3, 4], 5)])",
+    "zkp.prove_consistency([1, 2])",
+    "zkp.prove_consistency_batch([[1, 2]])",
     "bp.prove_single_batch([(Transcript(b'x'), 7, 1, 64)])",
     "zkp.prove_equality(7, 7)",
     "zkp.prove_equality_batch([(7, 7), (8, 8)])",

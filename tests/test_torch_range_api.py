@@ -76,8 +76,8 @@ def test_non_u64_and_other_widths():
         trp.prove_range(-1, 0, 10, device="cpu")
     with pytest.raises(TypeError):
         trp.prove_range(1.5, 0, 10, device="cpu")
-    with pytest.raises(NotImplementedError):
-        trp.prove_range_with_bits(5, 0, 200, 8, device="cpu")
+    env = trp.prove_range_with_bits(5, 0, 200, 8, device="cpu")
+    assert trp.verify_range(env, 0, 200) and jrp.verify_range(env, 0, 200)
 
 
 def test_sha256_commitments_match_reference():
