@@ -12,7 +12,8 @@
     python3 chip_smoke.py --ed-chain   # phases 1, 2 and ed_chain only, no last line
     python3 chip_smoke.py --mont-padd  # phases 1, 2 and mont_padd only, no last line
     python3 chip_smoke.py --fe-mul     # phases 1, 2 and fe_mul only, no last line
-    python3 chip_smoke.py --bp-rest    # phases 1, 2 and 12 only, no last line
+    python3 chip_smoke.py --bp-rest    # phases 1, 2 and 13 only, no last line
+    python3 chip_smoke.py --native     # phases 1, 2 and 12 only, no last line
 
 Phases, each printing one JSON line:
 
@@ -20,7 +21,8 @@ Phases, each printing one JSON line:
 2. the build of the CUDA kernels from ``libzkp_tpu_torch/csrc`` (timed; the
    ptxas lines, and the registers, frame and spills of mont_mul, tree_sum
    ed25519, pair_add ed25519, padd_f32_chain, padd_chain, mont_padd and
-   fe_mul);
+   fe_mul), and beside it ``g++``'s build of the native host tier
+   (``libzkp_tpu_torch/native``: its seconds, flags and library);
 3. each kernel instance against its plain PyTorch version on the card at its
    path's shapes, both timed with CUDA events: the ed25519 window_sum,
    horner and pair_add of the range prover; pair_add, window_sum4 and
@@ -101,7 +103,20 @@ Phases, each printing one JSON line:
     mesh; one warm batch under ``torch.profiler`` (mont_mul's card time a
     launch);
 11. the probes (``libzkp_tpu_torch.probes``: P2, P4, P5, P6, P7, P1, P3);
-12. the rest of the Bulletproofs backend (``bp_rest``): 256 threshold
+12. the native host tier (``native``) on this machine's host: Keccak,
+    ``compress``, ``decompress`` (64 invalid encodings among 256),
+    ``scalar_mul``, ``msm`` (n = 1, 2, 7, 33, 130) and ``msm_fixed`` held
+    equal to their ``*_py`` goldens on seeded inputs, µs a call both ways,
+    the OpenMP team, and the fixed MSM at several teams and window chunks
+    (``native_hooks``); the whole-pipeline native prover
+    ``_prove_batch_native`` beside the card's route on the same instances
+    and draws, in turns, every proof byte-identical: 64 bits on the main
+    path's 256 proofs, 8, 16 and 32 bits on bp_rest's (``native_baseline``);
+    ``batch_verify_groups`` (native) against ``batch_verify_groups_py`` on
+    the main path's envelopes, ms a proof, a tampered proof rejected by both
+    (``native_verifier``). The seam's table LRU is restored after it, so
+    bp_rest's cold tables stay cold;
+13. the rest of the Bulletproofs backend (``bp_rest``): 256 threshold
     proofs (``prove_threshold_batch``), 64 consistency proofs of 5 values
     (``prove_consistency_batch``) and 256 range proofs at each of 8, 16 and
     32 bits on the lockstep host prover (its MSMs through the ed25519 seam,
@@ -109,8 +124,9 @@ Phases, each printing one JSON line:
     warm batches timed, a seeded batch profiled (busy ms, idle share, K1's
     and K2's device ms, the host's parts) with 4 lanes held byte for byte
     against the host prover (timed: the host figure), 8 proofs verified and
-    a tampered one rejected;
-13. the kernels line (launches summed over the paths), the card's name and
+    a tampered one rejected; the host parts and the host ``prove_single`` run
+    on the native hooks;
+14. the kernels line (launches summed over the paths), the card's name and
     power limit, and the last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero before the last line. Without a CUDA
@@ -2102,6 +2118,17 @@ def probes_phase(dev) -> dict:
     return {"counts": counts}
 
 
+def main_triples() -> list:
+    """The main path's N_TRIPLES (value, min, max) range statements."""
+    rng = random.Random(1016)
+    triples = [((1 << 63) + 12345, 0, (1 << 64) - 1)]
+    while len(triples) < N_TRIPLES:
+        lo = rng.randrange(0, 1 << 62)
+        hi = lo + rng.randrange(0, 1 << 62)
+        triples.append((rng.randint(lo, hi), lo, hi))
+    return triples
+
+
 def main_path(dev) -> dict:
     """Phase 4: 256 range proofs through the port's entry point."""
     import libzkp_tpu_torch as zkp
@@ -2109,12 +2136,7 @@ def main_path(dev) -> dict:
     from libzkp_tpu_torch.models.bulletproofs_backend import BulletproofsBackend
     from libzkp_tpu_torch.ops import ed25519 as ed, kernels
 
-    rng = random.Random(1016)
-    triples = [((1 << 63) + 12345, 0, (1 << 64) - 1)]
-    while len(triples) < N_TRIPLES:
-        lo = rng.randrange(0, 1 << 62)
-        hi = lo + rng.randrange(0, 1 << 62)
-        triples.append((rng.randint(lo, hi), lo, hi))
+    triples = main_triples()
 
     kernels.reset_launches()
     t0 = time.perf_counter()
@@ -2186,7 +2208,7 @@ def main_path(dev) -> dict:
     finally:
         bp._random_scalar = saved
     emit({"phase": "byte_exact", "lanes": lanes, "proof_bytes": 672, "identical": True})
-    return {"counts": counts, "ms_per_batch": ms_batch}
+    return {"counts": counts, "ms_per_batch": ms_batch, "envs": envs, "triples": triples}
 
 
 @contextlib.contextmanager
@@ -2303,6 +2325,7 @@ def _bp_rest_batch(dev, name: str, n: int, items: list, run, prepare, verify, wa
            "verified": len(sample), "tamper_rejected": True, "byte_exact_lanes": lanes,
            "proof_bytes": len(res[0][0].to_bytes()),
            "host_prove_single_ms": host_ms, "host_ms_per_proof": host_ms * len(insts) / len(items),
+           "host_hooks": "native",
            "seconds": time.perf_counter() - start, "profile_s": profile_s,
            "seeded_batch": {"warm_launches": {k: v for k, v in warm_counts.items() if v},
                             "batch_ms_profiled": prof_ms, "host": host,
@@ -2310,6 +2333,30 @@ def _bp_rest_batch(dev, name: str, n: int, items: list, run, prepare, verify, wa
                                            horner="horner_kernel")}}
     emit(row)
     return counts
+
+
+def bp_rest_items() -> tuple:
+    """bp_rest's statements: BP_REST_THRESHOLDS threshold pairs (values,
+    threshold), BP_REST_SEQUENCES consistency sequences, and for each width
+    of BP_REST_WIDTHS N_TRIPLES (value, min, max) range statements."""
+    rng = random.Random(1022)
+    u64 = (1 << 64) - 1
+    pairs = [([u64 - 5, 5], u64)]
+    while len(pairs) < BP_REST_THRESHOLDS:
+        values = [rng.randrange(1 << 62) for _ in range(rng.randint(1, 4))]
+        pairs.append((values, rng.randrange(sum(values) + 1)))
+    seqs = [[0, 1, 1 << 63, u64 - 1, u64]]
+    while len(seqs) < BP_REST_SEQUENCES:
+        seqs.append(sorted(rng.randrange(1 << 64) for _ in range(BP_REST_VALUES)))
+    widths = {}
+    for n in BP_REST_WIDTHS:
+        triples = [((1 << n) - 1, 0, (1 << n) - 1)]
+        while len(triples) < N_TRIPLES:
+            lo = rng.randrange(1 << 62)
+            hi = lo + rng.randrange(1 << n)
+            triples.append((rng.randint(lo, hi), lo, hi))
+        widths[n] = triples
+    return pairs, seqs, widths
 
 
 def bp_rest(dev, basis_cold: bool) -> dict:
@@ -2336,15 +2383,7 @@ def bp_rest(dev, basis_cold: bool) -> dict:
     from libzkp_tpu_torch.utils.envelope import SCHEME_RANGE
 
     start = time.perf_counter()
-    rng = random.Random(1022)
-    u64 = (1 << 64) - 1
-    pairs = [([u64 - 5, 5], u64)]
-    while len(pairs) < BP_REST_THRESHOLDS:
-        values = [rng.randrange(1 << 62) for _ in range(rng.randint(1, 4))]
-        pairs.append((values, rng.randrange(sum(values) + 1)))
-    seqs = [[0, 1, 1 << 63, u64 - 1, u64]]
-    while len(seqs) < BP_REST_SEQUENCES:
-        seqs.append(sorted(rng.randrange(1 << 64) for _ in range(BP_REST_VALUES)))
+    pairs, seqs, width_triples = bp_rest_items()
     device_msms = {"window_sum": 32 * 10, "horner": 32 * 10}  # one device prover batch
 
     counts = [_bp_rest_batch(
@@ -2361,12 +2400,7 @@ def bp_rest(dev, basis_cold: bool) -> dict:
         verify=lambda env, item: zkp.verify_consistency(env),
         want={k: v + commits for k, v in device_msms.items()} | {"pair_add": 255},
         warm_want=device_msms, timed=TIMED_BATCHES))
-    for n in BP_REST_WIDTHS:
-        triples = [((1 << n) - 1, 0, (1 << n) - 1)]
-        while len(triples) < N_TRIPLES:
-            lo = rng.randrange(1 << 62)
-            hi = lo + rng.randrange(1 << n)
-            triples.append((rng.randint(lo, hi), lo, hi))
+    for n, triples in width_triples.items():
         one, two = -(-2 * N_TRIPLES // msm_device.CHUNK_B), -(-4 * N_TRIPLES // msm_device.CHUNK_B)
         chunks = one + two * (2 + n.bit_length() - 1)  # V; A||S, T1||T2 and L||R per round
         seam = {"window_sum": 32 * chunks, "horner": 32 * chunks}
@@ -2386,9 +2420,244 @@ def bp_rest(dev, basis_cold: bool) -> dict:
     return {"counts": {k: sum(c[k] for c in counts) for k in counts[0]}}
 
 
+def _per_call_us(fn, inputs: list) -> tuple:
+    """``fn(*args)`` for each args tuple of ``inputs`` on the host clock:
+    (µs a call, results)."""
+    t0 = time.perf_counter()
+    out = [fn(*args) for args in inputs]
+    return (time.perf_counter() - t0) / len(inputs) * 1e6, out
+
+
+def native_hooks() -> dict:
+    """The native host tier's hooks against their pure-Python goldens on this
+    machine's host, each on seeded inputs, µs a call both ways; the OpenMP
+    team; and the one-MSM calls at several teams (the fixed MSM over the
+    verification basis also at several window chunks), two rounds. One line,
+    ``native_hooks``."""
+    import ctypes
+    import os
+
+    from libzkp_tpu_torch import native
+    from libzkp_tpu_torch.models.bp_generators import bp_gens, pedersen_gens
+    from libzkp_tpu_torch.ops import ed25519 as ed, keccak
+
+    native.load()  # the first call's build check and load stay out of the timings
+    rng = random.Random(1600)
+    hooks = {}
+
+    def hold(name, nat, py, inputs, same=lambda a, b: a == b):
+        py_us, want = _per_call_us(py, inputs)
+        nat_us, got = _per_call_us(nat, inputs)
+        bad = [i for i, (g, w) in enumerate(zip(got, want)) if not same(g, w)]
+        if bad:
+            raise AssertionError(f"native {name} differs from its golden at inputs {bad[:8]}")
+        hooks[name] = {"calls": len(inputs), "native_us": nat_us, "python_us": py_us,
+                       "python_over_native": py_us / nat_us}
+
+    def permuted(perm):
+        def run(state):
+            buf = bytearray(state)
+            perm(buf)
+            return bytes(buf)
+        return run
+
+    hold("keccak_f1600", permuted(keccak.keccak_f1600_bytes), permuted(keccak.keccak_f1600_bytes_py),
+         [(rng.randbytes(200),) for _ in range(256)])
+    pts = [ed.from_uniform_bytes(rng.randbytes(64)) for _ in range(256)]
+    hold("compress", ed.compress, ed.compress_py, [(p,) for p in pts])
+    encs = [ed.compress_py(p) for p in pts[:192]]
+    encs += [(ed.P + rng.randrange(19)).to_bytes(32, "little") for _ in range(16)]  # s >= p
+    encs += [(rng.randrange(ed.P) | 1).to_bytes(32, "little") for _ in range(16)]  # negative s
+    while len(encs) < 256:  # non-square: canonical even s that decode to nothing
+        enc = (rng.randrange(ed.P) & ~1).to_bytes(32, "little")
+        if ed.decompress_py(enc) is None:
+            encs.append(enc)
+    hold("decompress", ed.decompress, ed.decompress_py, [(e,) for e in encs],
+         same=lambda a, b: (a is None and b is None) or (a is not None and b is not None and ed.ristretto_eq(a, b)))
+    rejected = sum(ed.decompress(e) is None for e in encs)
+    if rejected != 64:
+        raise AssertionError(f"decompress rejected {rejected} of the 64 invalid encodings")
+    hold("scalar_mul", ed.scalar_mul, ed.scalar_mul_py,
+         [(rng.randrange(ed.L), p) for p in pts[:64]], same=ed.point_equal)
+    for n in (1, 2, 7, 33, 130):
+        basis = [ed.from_uniform_bytes(rng.randbytes(64)) for _ in range(n)]
+        hold(f"msm_{n}", ed.msm, ed.msm_py, [([rng.randrange(ed.L) for _ in basis], basis) for _ in range(8)],
+             same=ed.point_equal)
+    B, B_blinding = pedersen_gens()
+    G, H = bp_gens(64)
+    vbasis = [B_blinding, B] + list(G) + list(H)  # the verifier's 130-point basis
+    vecs = [[rng.randrange(ed.L) for _ in vbasis] for _ in range(32)]
+    ed.msm_fixed(vecs[0], vbasis)  # registers the basis
+    hold("msm_fixed_130", ed.msm_fixed, ed.msm_py, [(v, vbasis) for v in vecs], same=ed.point_equal)
+
+    # the one-MSM calls at several OpenMP teams (the wrappers run the
+    # budget's from native.TEAM_MIN_POINTS points, else one thread), on the
+    # raw calls: the fixed MSM at window chunks 0 (the engine's default), 1
+    # and one a thread; the Pippenger MSM at each n
+    lib = native.load()
+    budget = torch.get_num_threads()
+    teams = sorted({1, 2, 4, budget, os.cpu_count() or 1})
+    h = native.ed_fixed_handle(tuple(vbasis), vbasis)
+    raw = [b"".join((k % ed.L).to_bytes(32, "little") for k in v) for v in vecs]
+    out = ctypes.create_string_buffer(128)
+    msm_in = {}
+    for n in (1, 2, 7, 33, 130):
+        pts = vbasis[:n]
+        msm_in[n] = (b"".join(native._to_wire(p) for p in pts), [sc[: 32 * n] for sc in raw])
+    fixed_sweep, msm_sweep = {}, {}
+    try:
+        for _ in range(2):
+            for team in teams:
+                lib.omp_set_num_threads(team)
+                for chunks in sorted({0, 1, team}):
+                    t0 = time.perf_counter()
+                    for sc in raw:
+                        lib.zkp_ed_msm_fixed_mt(h, sc, out, chunks)
+                    fixed_sweep.setdefault(f"team {team}, chunks {chunks}", []).append(
+                        (time.perf_counter() - t0) / len(raw) * 1e6)
+                for n, (pb, scs) in msm_in.items():
+                    t0 = time.perf_counter()
+                    for sc in scs:
+                        lib.zkp_ed_msm(n, sc, pb, out)
+                    msm_sweep.setdefault(f"n {n}, team {team}", []).append(
+                        (time.perf_counter() - t0) / len(scs) * 1e6)
+    finally:
+        lib.omp_set_num_threads(budget)
+    row = {"phase": "native_hooks", "library": str(lib._name), "team": native.max_threads(),
+           "torch_threads": budget, "cpu_count": os.cpu_count(), "hooks": hooks,
+           "msm_fixed_130_us_by_team": fixed_sweep, "msm_us_by_team": msm_sweep}
+    emit(row)
+    return row
+
+
+def _range_insts(triples: list, n: int) -> list:
+    """The prover instances of ``triples`` at ``n`` bits (two a proof)."""
+    from libzkp_tpu_torch.models.bulletproofs_backend import BulletproofsBackend as BB
+
+    return [inst for v, lo, hi in triples for inst in BB.prepare_range_bits(v, lo, hi, n)[0]]
+
+
+@contextlib.contextmanager
+def seam_tables_kept():
+    """Restore the seam's table LRU after the body: a phase that compares
+    routes builds tables that a later phase counts as cold."""
+    from libzkp_tpu_torch.ops import msm_device
+
+    saved = list(msm_device._TABLES.items())
+    try:
+        yield
+    finally:
+        msm_device._TABLES.clear()
+        msm_device._TABLES.update(saved)
+
+
+def native_baseline(dev, triples_by_width: dict) -> dict:
+    """The native tier's whole-pipeline prover (``_prove_batch_native``)
+    beside the card's route (``_prove_batch_fixed_n``: ``prove_insts_device``
+    at 64 bits, ``_prove_batch_lockstep`` with its MSMs on the seam below) on
+    the same instances and draws: each route once to warm, then in turns
+    native, card, card, native, every proof byte-identical across the runs.
+    One line, ``native_baseline``."""
+    import copy
+
+    from libzkp_tpu_torch.models import bulletproofs as bp
+
+    rows = {}
+    with seam_tables_kept():
+        for n, triples in triples_by_width.items():
+            insts = _range_insts(triples, n)
+            rand = random.Random(99 + n).randbytes((2 * n + 4) * 64 * len(insts))
+            routes = {"native": lambda i: bp._prove_batch_native(i, n, rand),
+                      "card": lambda i: bp._prove_batch_fixed_n(i, n, rand=rand, device=dev)}
+            want, ms = None, {"native": [], "card": []}
+            for k, route in enumerate(("native", "card", "native", "card", "card", "native")):
+                run = copy.deepcopy(insts)  # the lockstep prover advances its transcripts
+                t0 = time.perf_counter()
+                res = routes[route](run)
+                torch.cuda.synchronize()
+                if k >= 2:  # the first of each route warms it
+                    ms[route].append((time.perf_counter() - t0) * 1e3)
+                got = [(rp.to_bytes(), V) for rp, V in res]
+                if want is None:
+                    want = got
+                elif got != want:
+                    raise AssertionError(f"{n} bits: the {route} route's proofs differ from the native route's")
+            per = {r: [t / len(triples) for t in v] for r, v in ms.items()}
+            rows[n] = {"proofs": len(triples), "instances": len(insts),
+                       "native_ms_per_proof": sum(per["native"]) / 2, "card_ms_per_proof": sum(per["card"]) / 2,
+                       "native_runs_ms_per_proof": per["native"], "card_runs_ms_per_proof": per["card"],
+                       "card_over_native": sum(per["card"]) / sum(per["native"]), "identical": True}
+    emit({"phase": "native_baseline", "route_card": {"64": "prove_insts_device", "below": "_prove_batch_lockstep"},
+          "widths": rows})
+    return rows
+
+
+def native_verifier(envs: list, triples: list) -> dict:
+    """``batch_verify_groups`` (the native RLC verifier) against
+    ``batch_verify_groups_py`` on the main path's envelopes, each group one
+    envelope's two instances, ms a proof; equal verdicts, all true; then one
+    tampered proof, rejected by both while every other group passes. One
+    line, ``native_verifier``."""
+    import dataclasses
+
+    from libzkp_tpu_torch.models import bulletproofs as bp
+    from libzkp_tpu_torch.models.bulletproofs_backend import BulletproofsBackend as BB
+    from libzkp_tpu_torch.models.schemes.common import parse_and_validate_proof, reconstruct_bulletproofs_proof
+    from libzkp_tpu_torch.utils.envelope import SCHEME_RANGE
+
+    def groups(tamper=None):
+        out = []
+        for i, (env, (_, lo, hi)) in enumerate(zip(envs, triples)):
+            p = parse_and_validate_proof(env, SCHEME_RANGE)
+            insts = BB.range_instances(reconstruct_bulletproofs_proof(p.proof, p.commitment), lo, hi)
+            if insts is None:
+                raise AssertionError(f"envelope {i} does not parse")
+            if i == tamper:
+                rp, t, V, n = insts[1]
+                insts[1] = (dataclasses.replace(rp, t_x=(rp.t_x + 1) % bp.L), t, V, n)
+            out.append(insts)
+        return out
+
+    row = {"phase": "native_verifier", "proofs": len(envs)}
+    tamper = len(envs) // 3
+    for tag, target in (("valid", None), ("tampered", tamper)):
+        verdicts = {}
+        for name, fn in (("native", bp.batch_verify_groups), ("python", bp.batch_verify_groups_py)):
+            gs = groups(target)
+            t0 = time.perf_counter()
+            verdicts[name] = fn(gs)
+            row[f"{tag}_{name}_ms_per_proof"] = (time.perf_counter() - t0) * 1e3 / len(envs)
+        want = [i != target for i in range(len(envs))]
+        if verdicts["native"] != verdicts["python"] or verdicts["native"] != want:
+            raise AssertionError(f"{tag}: verdicts native {verdicts['native'].count(True)} true, "
+                                 f"python {verdicts['python'].count(True)} true, want {want.count(True)}")
+    row["tampered_index"] = tamper
+    emit(row)
+    return row
+
+
+def native_phase(dev, main: dict = None) -> None:
+    """The native host tier on the card machine's host: its hooks against
+    their goldens, its whole-pipeline prover beside the card's route at 64
+    bits (the main path's statements) and at 8, 16, 32 bits (bp_rest's), and
+    its RLC verifier against the pure-Python one on the main path's
+    envelopes (proved here when ``main`` does not hold them)."""
+    import libzkp_tpu_torch as zkp
+
+    start = time.perf_counter()
+    native_hooks()
+    _, _, widths = bp_rest_items()
+    native_baseline(dev, {64: main_triples(), **widths})
+    if main is None:
+        triples = main_triples()
+        main = {"envs": zkp.prove_range_batch(triples, device=dev), "triples": triples}
+    native_verifier(main["envs"], main["triples"])
+    emit({"phase": "native", "seconds": time.perf_counter() - start})
+
+
 def main(argv: list) -> int:
     flags = ("--kernels", "--range", "--groth16", "--g1", "--mont", "--ed-tree", "--ed-pair", "--f32-chain",
-             "--ed-chain", "--mont-padd", "--fe-mul", "--bp-rest")
+             "--ed-chain", "--mont-padd", "--fe-mul", "--bp-rest", "--native")
     if len(argv) > 1 or (argv and argv[0] not in flags):
         print(f"usage: python3 chip_smoke.py [{' | '.join(flags)}], got {argv}", file=sys.stderr)
         return 2
@@ -2410,8 +2679,15 @@ def main(argv: list) -> int:
           "max_sm_clock_mhz": sm_clock_mhz, "int32_mac_per_s": int_rate, "fp32_fma_per_s": fp32_rate,
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
+    from concurrent.futures import ThreadPoolExecutor
+
+    from libzkp_tpu_torch import native
+
     t0 = time.perf_counter()
-    kernels.build()
+    with ThreadPoolExecutor(1) as pool:  # g++ for the native tier beside the nvcc builds
+        native_build = pool.submit(native.build)
+        kernels.build()
+        native_path, native_s = native_build.result()
     ptxas = {
         n: [ln.strip() for ln in (kernels.BUILD_DIR / f"{n}.log").read_text().splitlines()
             if "ptxas info" in ln or "stack frame" in ln]
@@ -2420,7 +2696,9 @@ def main(argv: list) -> int:
     }
     summary = {key: ptxas_summary((kernels.BUILD_DIR / f"{lib}.log").read_text(), names)
                for key, (lib, *names) in PTXAS_KERNELS.items() if (kernels.BUILD_DIR / f"{lib}.log").exists()}
-    emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas, "ptxas_summary": summary})
+    emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas, "ptxas_summary": summary,
+          "native": {"compiler": native.CXX, "flags": list(native.CXXFLAGS), "library": str(native_path),
+                     "seconds": native_s}})
 
     from libzkp_tpu_torch.parallel import mesh as meshmod
 
@@ -2463,6 +2741,9 @@ def main(argv: list) -> int:
     if argv == ["--bp-rest"]:  # the rest of the Bulletproofs backend alone
         bp_rest(dev, basis_cold=True)
         return 0
+    if argv == ["--native"]:  # the native host tier alone
+        native_phase(dev)
+        return 0
     tables: dict = {}
     checks = (check_kernels(dev, int_rate, tables) + check_bn254_kernels(dev, int_rate, tables)
               + check_sharded_kernels(dev, int_rate, tables)
@@ -2470,7 +2751,8 @@ def main(argv: list) -> int:
     del tables
     if argv == ["--kernels"]:  # the kernel checks alone, to time two checkouts in turns
         return 0
-    paths = [main_path(dev)]
+    main = main_path(dev)
+    paths = [main]
     g16 = groth16_path(dev)
     paths += [g16, groth16_grouped(dev)]
     # the mesh route on one card: four positions, all cuda:0 (no interconnect)
@@ -2481,6 +2763,7 @@ def main(argv: list) -> int:
     for tag, mesh in meshes:
         paths += [sharded_msm(dev, mesh, tag), groth16_mesh(dev, mesh, g16, tag)]
     paths += [groth16_h(dev), mimc_batch(dev), probes_phase(dev)]
+    native_phase(dev, main)
     # last: its seam tables enter the LRU after every phase that counts
     # launches of cached tables; main_path built the range basis's table
     paths.append(bp_rest(dev, basis_cold=False))

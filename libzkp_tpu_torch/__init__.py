@@ -14,8 +14,11 @@ the same family of hand-written CUDA kernels (``ops/kernels.py``, sources in
 product kernel; and the MiMC batch (:func:`mimc_hash_batch`) on that kernel. The query MSMs also run
 sharded over a (dp, shard) device mesh (``parallel/``,
 ``ops.curve.msm_many_sharded``) when ``parallel.mesh.set_mesh`` names one or
-more than one CUDA device is visible. Proofs and envelopes are
-byte-compatible with the JAX package's.
+more than one CUDA device is visible. The host primitives (the transcript's
+Keccak, Ristretto encode and decode, ed25519 scalar multiplication and MSMs)
+and range-proof verification run on the native host tier (``native/``, the
+JAX package's ``zkpcore.cpp``, built with ``g++`` at first use). Proofs and
+envelopes are byte-compatible with the JAX package's.
 
 Entry points run on the CUDA card unless called with ``device="cpu"``, which
 runs the plain PyTorch path. The package imports neither jax nor

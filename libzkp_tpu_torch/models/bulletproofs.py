@@ -9,12 +9,19 @@ that the Bulletproofs backend needs: the same transcript schedule (merlin labels
 
 * :func:`prove_single` / :func:`ipp_create`: the pure-Python host prover, the
   byte-exact reference of the batched device prover.
-* :func:`verify_single`, :func:`verification_terms`, :func:`check_terms`,
-  :func:`batch_verify_groups`: pure-Python verification.
+* :func:`verify_single`, :func:`batch_verify_groups`: verification on the
+  native tier's RLC batch verifier (``zkp_bp_verify_rlc``), as the
+  reference's; :func:`verify_single_py`, :func:`batch_verify_groups_py` over
+  :func:`verification_terms` and :func:`check_terms`: the pure-Python
+  verifier, their golden.
 * :func:`prove_single_batch`: sends every 64-bit group of instances to
   :func:`.bp_device.prove_insts_device` on the caller's device, and every
   narrower width to the lockstep host prover, whose MSMs run on that device
   (:func:`..ops.ed25519.msm_fixed_many`).
+* :func:`_prove_batch_native`: the native tier's whole-pipeline batch prover
+  (``zkp_bp_prove_batch``), byte-identical under the same draws. It is the
+  host baseline the card's routes are measured beside; no entry point calls
+  it.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import os
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
+from .. import native
 from ..device import resolve
 from ..ops import ed25519 as ed
 from .bp_generators import bp_gens, pedersen_commit, pedersen_gens
@@ -575,6 +583,31 @@ def _prove_batch_lockstep(insts, n: int, rand: bytes, dev) -> List[Tuple[RangePr
     ]
 
 
+def _prove_batch_native(insts, n: int, rand: bytes) -> List[Tuple[RangeProof, bytes]]:
+    """The native tier's whole-pipeline batch prover (``zkp_bp_prove_batch``:
+    one call, OpenMP across proofs) under the draws of
+    :func:`_prove_batch_fixed_n`'s ``rand``; reads each transcript's STROBE
+    state and leaves the transcript as it was. The host baseline of the
+    card's routes: no entry point calls it. Raises ``MemoryError`` when the
+    native basis registry is full."""
+    B, B_blinding = pedersen_gens()
+    G, H = bp_gens(n)
+    basis_vs = [B, B_blinding]
+    basis_as = [B_blinding] + list(G) + list(H)
+    basis_ipp = list(G) + list(H) + [B]
+    handles = [native.ed_fixed_handle(tuple(b), b) for b in (basis_vs, basis_as, basis_ipp)]
+    vs, ps = native.bp_prove_batch(
+        *handles, n, [value for _, value, _, _ in insts], [bl % L for _, _, bl, _ in insts],
+        rand, b"".join(t.strobe.state_bytes() for t, _, _, _ in insts))
+    out = []
+    for pbytes, v in zip(ps, vs):
+        rp = RangeProof.from_bytes(pbytes)
+        if rp is None:
+            raise RuntimeError("the native prover emitted an unparseable proof")
+        out.append((rp, v))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Verification
 # ---------------------------------------------------------------------------
@@ -714,9 +747,9 @@ def _rlc_weight() -> int:
     return w
 
 
-def verify_single(proof: RangeProof, t: Transcript, V: bytes, n: int) -> bool:
-    """Verify a single-value range proof against compressed commitment V.
-    Never raises: a malformed proof is ``False``."""
+def verify_single_py(proof: RangeProof, t: Transcript, V: bytes, n: int) -> bool:
+    """Pure-Python :func:`verify_single`. Never raises: a malformed proof is
+    ``False``."""
     try:
         terms = verification_terms(proof, t, V, n)
         if terms is None:
@@ -727,15 +760,11 @@ def verify_single(proof: RangeProof, t: Transcript, V: bytes, n: int) -> bool:
         return False
 
 
-def batch_verify_groups(
+def batch_verify_groups_py(
     groups: List[List[Tuple[RangeProof, Transcript, bytes, int]]]
 ) -> List[bool]:
-    """Verify groups of range-proof instances with one combined MSM.
-
-    A group is the set of single-proof instances of one envelope-level proof;
-    its verdict is all-instances-pass. On a failed combined check the batch
-    bisects, so a few bad proofs cost O(log n) extra MSMs.
-    """
+    """Pure-Python :func:`batch_verify_groups`: one combined MSM, bisecting
+    on a failed combined check."""
     results = [False] * len(groups)
     term_groups: List[Optional[List[VerificationTerms]]] = []
     for g in groups:
@@ -764,4 +793,83 @@ def batch_verify_groups(
     live = [i for i, tg in enumerate(term_groups) if tg is not None]
     if live:
         _check(live)
+    return results
+
+
+def verify_single(proof: RangeProof, t: Transcript, V: bytes, n: int) -> bool:
+    """Verify a single-value range proof against compressed commitment V, on
+    the native RLC verifier. A malformed proof is ``False``."""
+    return batch_verify_groups([[(proof, t, V, n)]])[0]
+
+
+def _verify_fix_handle() -> int:
+    """Registered handle of the verification basis [B_blinding, B] + G + H."""
+    B, B_blinding = pedersen_gens()
+    G, H = bp_gens(64)
+    basis = [B_blinding, B] + list(G) + list(H)
+    return native.ed_fixed_handle(tuple(basis), basis)
+
+
+# an instance that cannot reach the native verifier (a proof that does not
+# serialise, a V that is not 32 bytes, a width the verifier refuses): a
+# zero-length proof, which the verifier flags as structurally bad
+_MALFORMED = (b"", b"\0" * 32, b"\0" * 203, 64)
+
+
+def batch_verify_groups(
+    groups: List[List[Tuple[RangeProof, Transcript, bytes, int]]]
+) -> List[bool]:
+    """Verify groups of range-proof instances in one native call: the
+    transcript replays, the scalars and one grand MSM (``zkp_bp_verify_rlc``).
+
+    A group is the set of single-proof instances of one envelope-level proof;
+    its verdict is all-instances-pass, and an empty group is vacuously
+    ``True``. Groups holding a structurally bad instance fail and the rest are
+    checked again; on a failed combined check the batch bisects on group
+    boundaries, so a few bad proofs cost O(log n) extra calls. A malformed
+    proof is ``False``; a failure of the native call itself raises.
+    """
+    results = [not g for g in groups]
+    flat = []  # (group index, proof bytes, V, transcript state, n)
+    for gi, g in enumerate(groups):
+        for p, t, V, n in g:
+            try:
+                parts = (p.A, p.S, p.T_1, p.T_2, *p.ipp.L_vec, *p.ipp.R_vec, V)
+                inst = (p.to_bytes(), bytes(V), t.strobe.state_bytes(), n)
+            except Exception:  # malformed input: a failing instance, not an error
+                parts, inst = (), _MALFORMED
+            if any(len(c) != 32 for c in parts) or not (
+                isinstance(n, int) and 0 < n <= 64 and n & (n - 1) == 0
+            ):
+                inst = _MALFORMED
+            flat.append((gi, *inst))
+    if not flat:
+        return results
+    h_fix = _verify_fix_handle()
+
+    def _check(idxs: List[int], allow_struct: bool) -> None:
+        rhos = [_rlc_weight().to_bytes(32, "little") for _ in idxs]
+        sigmas = [_rlc_weight().to_bytes(32, "little") for _ in idxs]
+        rc, bad = native.bp_verify_rlc(
+            h_fix, [flat[i][4] for i in idxs], [flat[i][1] for i in idxs],
+            [flat[i][2] for i in idxs], [flat[i][3] for i in idxs], rhos, sigmas)
+        if rc == 2 and allow_struct:
+            # drop every group holding a structurally bad instance, retry
+            bad_groups = {flat[idxs[j]][0] for j, b in enumerate(bad) if b}
+            keep = [i for i in idxs if flat[i][0] not in bad_groups]
+            if keep:
+                _check(keep, False)
+            return
+        if rc == 1:
+            for i in idxs:
+                results[flat[i][0]] = True
+            return
+        # the combined relation failed: bisect on group boundaries
+        gidxs = sorted({flat[i][0] for i in idxs})
+        if len(gidxs) > 1:
+            lo = set(gidxs[: len(gidxs) // 2])
+            _check([i for i in idxs if flat[i][0] in lo], False)
+            _check([i for i in idxs if flat[i][0] not in lo], False)
+
+    _check(list(range(len(flat))), True)
     return results

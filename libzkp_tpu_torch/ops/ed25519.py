@@ -1,18 +1,24 @@
-"""Curve25519 / Ristretto255 group (host golden tier).
+"""Curve25519 / Ristretto255 group (host tier).
 
-Pure-Python copy of the JAX package's ``libzkp_tpu/ops/ed25519.py`` (and the
-two primes of its ``ops/field.py``) without the native C++ hooks:
-Edwards point arithmetic (extended coordinates, a=-1), Ristretto255
-encode/decode per RFC 9496, Elligator hash-to-group (``from_uniform_bytes``),
-scalars mod l and a Pippenger MSM. It is the byte-exact reference the batched
-device prover (:mod:`libzkp_tpu_torch.models.bp_device`) is held against, and
-the host half of verification. :func:`msm_fixed_many` is the one entry that
-runs on a device: the fixed-basis MSM seam (:mod:`.msm_device`).
+Copy of the JAX package's ``libzkp_tpu/ops/ed25519.py`` (and the two primes
+of its ``ops/field.py``): Edwards point arithmetic (extended coordinates,
+a=-1), Ristretto255 encode/decode per RFC 9496, Elligator hash-to-group
+(``from_uniform_bytes``), scalars mod l and a Pippenger MSM. It is the
+byte-exact reference the batched device prover
+(:mod:`libzkp_tpu_torch.models.bp_device`) is held against, and the host
+half of verification. As in the reference, :func:`scalar_mul`, :func:`msm`,
+:func:`msm_fixed`, :func:`compress` and :func:`decompress` run on the native
+host tier (:mod:`libzkp_tpu_torch.native`); their pure-Python goldens stay
+as ``scalar_mul_py``, ``msm_py``, ``compress_py`` and ``decompress_py``.
+:func:`msm_fixed_many` is the one entry that runs on a device: the
+fixed-basis MSM seam (:mod:`.msm_device`).
 """
 
 from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple
+
+from .. import native
 
 P = (1 << 255) - 19  # Curve25519 base field
 L = (1 << 252) + 27742317777372353535851937790883648493  # Ristretto255 group order
@@ -107,7 +113,7 @@ def point_equal(p1: Point, p2: Point) -> bool:
     return (X1 * Z2 - X2 * Z1) % P == 0 and (Y1 * Z2 - Y2 * Z1) % P == 0
 
 
-def scalar_mul(k: int, p1: Point) -> Point:
+def scalar_mul_py(k: int, p1: Point) -> Point:
     """Double-and-add with a simple 4-bit fixed window."""
     k %= L
     if k == 0:
@@ -128,7 +134,7 @@ def scalar_mul(k: int, p1: Point) -> Point:
     return acc
 
 
-def msm(scalars: Sequence[int], points: Sequence[Point], window: int = 6) -> Point:
+def msm_py(scalars: Sequence[int], points: Sequence[Point], window: int = 6) -> Point:
     """Pippenger multi-scalar multiplication (host golden model)."""
     assert len(scalars) == len(points)
     pairs = [(s % L, pt) for s, pt in zip(scalars, points) if s % L != 0]
@@ -160,9 +166,21 @@ def msm(scalars: Sequence[int], points: Sequence[Point], window: int = 6) -> Poi
     return acc
 
 
+def scalar_mul(k: int, p1: Point) -> Point:
+    """k * p1 on the native tier."""
+    return native.ed_scalar_mul(k, p1, L)
+
+
+def msm(scalars: Sequence[int], points: Sequence[Point]) -> Point:
+    """Pippenger MSM on the native tier."""
+    return native.ed_msm(scalars, points, L)
+
+
 def msm_fixed(scalars, points) -> Point:
-    """MSM over a process-constant basis (the plain MSM on the host tier)."""
-    return msm(scalars, points)
+    """MSM over a process-constant basis (generator vectors) on the native
+    tier: the basis registers once, and every later call runs on its
+    precomputed tables. Its golden is the plain :func:`msm_py`."""
+    return native.ed_msm_fixed(tuple(points), scalars, points, L)
 
 
 def msm_fixed_many(scalar_vecs, points, *, device) -> list:
@@ -181,7 +199,7 @@ def msm_fixed_many(scalar_vecs, points, *, device) -> list:
 # ---------------------------------------------------------------------------
 
 
-def compress(p1: Point) -> bytes:
+def compress_py(p1: Point) -> bytes:
     X, Y, Z, T = p1
     u1 = (Z + Y) * (Z - Y) % P
     u2 = X * Y % P
@@ -205,7 +223,7 @@ def compress(p1: Point) -> bytes:
     return s.to_bytes(32, "little")
 
 
-def decompress(data: bytes) -> Optional[Point]:
+def decompress_py(data: bytes) -> Optional[Point]:
     if len(data) != 32:
         return None
     s = int.from_bytes(data, "little")
@@ -225,6 +243,17 @@ def decompress(data: bytes) -> Optional[Point]:
     if not was_square or _is_negative(t) or y == 0:
         return None
     return (x, y, 1, t)
+
+
+def compress(p1: Point) -> bytes:
+    """Ristretto255 encoding on the native tier."""
+    return native.ristretto_compress(p1)
+
+
+def decompress(data: bytes) -> Optional[Point]:
+    """Ristretto255 decoding on the native tier: None for an invalid
+    encoding."""
+    return native.ristretto_decompress(data)
 
 
 def ristretto_eq(p1: Point, p2: Point) -> bool:
@@ -294,4 +323,4 @@ def scalar_from_canonical_bytes(data: bytes) -> Optional[int]:
 _BASE_Y = 4 * pow(5, -1, P) % P
 _BASE_X = 15112221349535400772501151409588531511454012693041857206046113283949847762202
 BASEPOINT: Point = (_BASE_X, _BASE_Y, 1, _BASE_X * _BASE_Y % P)
-RISTRETTO_BASEPOINT_COMPRESSED = compress(BASEPOINT)
+RISTRETTO_BASEPOINT_COMPRESSED = compress_py(BASEPOINT)  # at import: no native build

@@ -1,11 +1,15 @@
-"""Keccak-f[1600] permutation (host golden tier).
+"""Keccak-f[1600] permutation (host tier).
 
-Pure-Python copy of the JAX package's ``libzkp_tpu/ops/keccak.py`` without
-its native hook. Backs the host STROBE-128 sponge of the Merlin transcript
-(:mod:`libzkp_tpu_torch.models.strobe`).
+Copy of the JAX package's ``libzkp_tpu/ops/keccak.py``. Backs the host
+STROBE-128 sponge of the Merlin transcript
+(:mod:`libzkp_tpu_torch.models.strobe`): :func:`keccak_f1600_bytes` runs on
+the native tier (:mod:`libzkp_tpu_torch.native`), and the pure-Python
+permutation stays as :func:`keccak_f1600_bytes_py`, its golden.
 """
 
 from __future__ import annotations
+
+from .. import native
 
 MASK64 = (1 << 64) - 1
 
@@ -56,9 +60,14 @@ def keccak_f1600(lanes):
     return a
 
 
-def keccak_f1600_bytes(state: bytearray) -> None:
+def keccak_f1600_bytes_py(state: bytearray) -> None:
     """Permute a 200-byte state buffer in place (little-endian lanes)."""
     lanes = [int.from_bytes(state[i * 8 : i * 8 + 8], "little") for i in range(25)]
     keccak_f1600(lanes)
     for i, lane in enumerate(lanes):
         state[i * 8 : i * 8 + 8] = lane.to_bytes(8, "little")
+
+
+def keccak_f1600_bytes(state: bytearray) -> None:
+    """Permute a 200-byte state buffer in place, on the native tier."""
+    native.keccak_f1600_bytes(state)

@@ -6,7 +6,8 @@
 * The whole slice: the port's ``prove_single_batch_device`` on the CPU gives
   byte-identical 672-byte proofs and V commitments to the JAX package's host
   ``prove_single`` under the same injected randomness (lane value 2^63+12345
-  included: the regression case of the 64-term-sum carry bound), and both
+  included: the regression case of the 64-term-sum carry bound), as does the
+  port's native whole-pipeline prover ``_prove_batch_native``, and both
   packages' verifiers accept them.
 """
 
@@ -137,6 +138,12 @@ def test_device_prover_matches_jax_host_prover_and_verifies(monkeypatch):
         assert len(dev_out[lane][0]) == 672
         assert dev_out[lane][1] == host_out[lane][1], f"V lane {lane}"
         assert dev_out[lane][0] == host_out[lane][0], f"proof lane {lane}"
+
+    # the native prover under the same draws (each scalar < l as a wide draw)
+    rand = b"".join(s.to_bytes(64, "little") for lane in rnd_lanes for s in lane)
+    insts = [(Transcript(b"libzkp_range_min"), v, g, 64) for v, g in zip(values, gammas)]
+    native = bp._prove_batch_native(insts, 64, rand)
+    assert [(rp.to_bytes(), V) for rp, V in native] == host_out
 
     for proof_bytes, V in dev_out:
         assert bp.verify_single(bp.RangeProof.from_bytes(proof_bytes),

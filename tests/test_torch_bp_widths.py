@@ -5,9 +5,11 @@ JAX package.
   v3 window walk) gives the same compressed points as the JAX package's
   per-vector host ``msm`` at K = 2, 17 and 65, the bases of V, A/S and the
   inner-product rounds at 8 and 32 bits; on a mesh, as the host ``msm``.
-* The lockstep host prover ``_prove_batch_fixed_n`` at n = 8, 16, 32 gives
+* The lockstep host prover ``_prove_batch_fixed_n`` at n = 1, 2, 4, 8, 16,
+  32 (n = 1: no inner-product round, so no L||R MSM) gives
   byte-identical proofs and V commitments to the JAX package's under the
-  same injected draws (its native and device prover routes off), and both
+  same injected draws (its native and device prover routes off) and to the
+  port's native whole-pipeline prover ``_prove_batch_native``, and both
   packages' verifiers accept them.
 * ``prove_range_with_bits`` at 8 bits gives the JAX package's envelope under
   one seeded stand-in for ``os.urandom``.
@@ -98,12 +100,14 @@ def _instances(n: int, T):
     return [(T(label), v, rng.randrange(L), n) for label, v in zip(LABELS, values)]
 
 
-@pytest.mark.parametrize("n", [8, 16, 32])
+@pytest.mark.parametrize("n", [1, 2, 4, 8, 16, 32])
 def test_lockstep_prover_matches_reference(jax_lockstep, n):
     per = (2 * n + 4) * 64
     rand = hashlib.shake_256(b"widths-%d" % n).digest(per * len(LABELS))
     got = bp._prove_batch_fixed_n(_instances(n, Transcript), n, rand=rand, device=CPU)
     want = jbulp._prove_batch_fixed_n(_instances(n, JTranscript), n, rand)
+    native = bp._prove_batch_native(_instances(n, Transcript), n, rand)
+    assert [(rp.to_bytes(), V) for rp, V in native] == [(rp.to_bytes(), V) for rp, V in got]
     for (rp, V), (jrp_, jV), label in zip(got, want, LABELS):
         assert len(rp.to_bytes()) == 7 * 32 + 64 * (n.bit_length() - 1) + 64
         assert rp.to_bytes() == jrp_.to_bytes() and V == jV

@@ -30,7 +30,7 @@ def test_port_imports_neither_jax_nor_reference():
     code = """
 import json, sys
 import libzkp_tpu_torch as zkp
-from libzkp_tpu_torch import convert, probes
+from libzkp_tpu_torch import convert, native, probes
 from libzkp_tpu_torch.parallel import collective, mesh
 from libzkp_tpu_torch.models import groth16, r1cs, snark_backend
 from libzkp_tpu_torch.models.schemes import consistency_proof, equality_proof, threshold_proof
@@ -38,7 +38,12 @@ from libzkp_tpu_torch.ops import bn254, field, kernels, mimc, msm_device, ntt, r
 from libzkp_tpu_torch.ops import groth16_device, limb
 from libzkp_tpu_torch.utils.commitment import commit_value_snark
 env = zkp.prove_range(7, 0, 10, device="cpu")
-ok = zkp.verify_range(env, 0, 10)
+# verification runs on the port's own native library
+rlc_calls = []
+verify_rlc = native.bp_verify_rlc
+native.bp_verify_rlc = lambda *a: rlc_calls.append(1) or verify_rlc(*a)
+ok = zkp.verify_range(env, 0, 10) and len(rlc_calls) == 1
+ok = ok and native.load()._name.startswith(str(native.BUILD_DIR))
 ok = ok and zkp.verify_threshold(zkp.prove_threshold([3, 4], 5, device="cpu"), 5)
 # the Groth16 slice's host pipeline: commitment, circuit, CSR, h
 v = 7
