@@ -14,6 +14,7 @@
     python3 chip_smoke.py --fe-mul     # phases 1, 2 and fe_mul only, no last line
     python3 chip_smoke.py --bp-rest    # phases 1, 2 and 13 only, no last line
     python3 chip_smoke.py --native     # phases 1, 2 and 12 only, no last line
+    python3 chip_smoke.py --membership # phases 1, 2 and 6b only, no last line
 
 Phases, each printing one JSON line:
 
@@ -61,8 +62,13 @@ Phases, each printing one JSON line:
    9 chained padds; horner4 G1 and G2: B in {1, 5, 6, 257}, B = 1 timed as
    36 chained padds; pair_add G2: K in {1, 5, 6, 128, 353}, K = 1 timed;
    pair_add G1: K in {1, 5, 6, 8, 128, 512}, K = 8 and 512 timed;
-   pair_add ed25519: K in {1, 7, 8, 9, 161});
-4. (phases 4 to 6 run with the seam pinned to the single-device route, a
+   pair_add ed25519: K in {1, 7, 8, 9, 161}); mont_mul also at the
+   membership h's NTT stage (n = 1024, 256 statements), timed;
+3f. pair_add, window_sum4 and horner4 for BN254 G1 and G2 at the
+   membership path's shapes, limb for limb against their plain versions and
+   timed: window_sum4 G1 at Kp 608, 1024, 480 and G2 at Kp 608 over 256
+   lanes, horner4 on their sums, pair_add at each Kp;
+4. (phases 4 to 6b run with the seam pinned to the single-device route, a
    one-position mesh, on any number of cards) the main path: ``prove_range_batch`` of 256 range proofs (512 prover
    lanes; T1/T2 and the L/R MSMs at 1024 lanes) with the launch counters
    zeroed just before and read just after, then warm batches timed, one
@@ -86,7 +92,18 @@ Phases, each printing one JSON line:
    same injected draws, timed, every run's bytes equal; one grouped run
    under ``torch.profiler`` (the card's time in pair_add G1 and window_sum4
    G1, the table builds' wall time); 2 lanes held byte for byte against the
-   host golden prover;
+   host golden prover (phases 5 and 6 finish each proof and run the sparse
+   products on the native tier);
+6b. the membership path: setup, then ``prove_membership_batch`` of 256
+   distinct statements (sets of 1 to 64 values) with the launch counters
+   zeroed just before and read just after (the five query tables' builds:
+   4 x 255 pair_add G1 and 255 G2; 8 window_sum4 and 8 horner4 launches a
+   query MSM; the h at n = 1024, 46 mont_mul launches), warm batches timed,
+   one split into h, device query MSMs and host finish, a seeded batch
+   profiled, 4 lanes held byte for byte against the native baseline
+   ``prove_assigned_native`` and the host golden prover, every proof
+   checked by ``verify_membership_batch`` and a forged one singled out; the
+   seam's table LRU is restored after it;
 7. the mesh-sharded MSM on a (dp 2, shard 2) mesh whose four positions are
    all this card (it checks the sharding, the per-block kernels and the
    cross-shard fold, and measures no interconnect): the five query MSMs of a
@@ -114,8 +131,16 @@ Phases, each printing one JSON line:
     path's 256 proofs, 8, 16 and 32 bits on bp_rest's (``native_baseline``);
     ``batch_verify_groups`` (native) against ``batch_verify_groups_py`` on
     the main path's envelopes, ms a proof, a tampered proof rejected by both
-    (``native_verifier``). The seam's table LRU is restored after it, so
-    bp_rest's cold tables stay cold;
+    (``native_verifier``); the BN254 and Groth16 hooks held equal to their
+    goldens (G1 and G2 ``scalar_mul``, ``msm`` at n = 1, 2, 7, 33, 130,
+    ``msm_fixed`` at one point and 589, ``multi_pairing`` at 4 and 35 pairs,
+    the sparse products and h of both circuits), µs a call both ways, the
+    one-point calls' teams, multi-pairings serial and on the team
+    (``native_groth16_hooks``); ``prove_assigned_native`` beside the card
+    route on phase 5's and 6b's statements, in turns, byte-identical
+    (``native_groth16_baseline``); ``verify`` against ``verify_py`` and
+    ``verify_batch`` a proof (``native_groth16_verify``). The seam's table
+    LRU is restored after it, so bp_rest's cold tables stay cold;
 13. the rest of the Bulletproofs backend (``bp_rest``): 256 threshold
     proofs (``prove_threshold_batch``), 64 consistency proofs of 5 values
     (``prove_consistency_batch``) and 256 range proofs at each of 8, 16 and
@@ -174,7 +199,7 @@ H_MONT_MULS = 43       # mont_mul launches of one h_batch_device call at n = 512
 MIMC_VALUES = 4096     # values per MiMC batch (bench.py's size)
 MIMC_MONT_MULS = 332   # to_mont, 110 rounds x 3, from_mont
 # mont_mul's cases timed in phase 3e (tags of _mont_cases; None: the NTT stage)
-MONT_TIMED = (None, "one-row operand", "MiMC x * x", "MiMC to_mont", "P6")
+MONT_TIMED = (None, "membership NTT stage", "one-row operand", "MiMC x * x", "MiMC to_mont", "P6")
 PADD_MACS = 9 * ED_MUL_MACS   # Edwards padd: 9 products
 PDOUBLE_MACS = 8 * ED_MUL_MACS
 WPADD_MACS = {"bn254_g1": 12 * MUL_MACS + 2 * 24,  # RCB padd: 12 products + 2 small multiplies
@@ -184,6 +209,17 @@ G1_KPS = (512, 352)    # window_sum4 G1's Kp in a Groth16 batch: the h query, th
 G16_LANES = 256        # distinct equality statements per batch
 G16_VERIFY = 8
 G16_GROUP_STATEMENTS = 8  # statements of the grouped batch: 32 proofs each
+MEM_LANES = 256        # distinct set-membership statements per batch
+MEM_BYTE_LANES = 4     # lanes of the seeded membership batch held byte for byte
+# the membership circuit's query tables: a, b_g1, b_g2 (589 points: Kp 608),
+# h (1023: Kp 1024), l (459: Kp 480); its h runs at n = 1024
+MEM_G1_KPS = (608, 1024, 480)
+MEM_G2_KP = 608
+MEM_H_N = 1024
+MEM_H_MONT_MULS = 46   # mont_mul launches of one h_batch_device call at n = 1024 (a stage more a transform)
+NATIVE_VERIFY = 8      # proofs of each scheme verified by verify and verify_py (native_groth16)
+PAIRING_SWEEP = (4, 8, 16, 35, 259)  # multi-pairing sizes timed serial and on the team (native_groth16)
+NATIVE_H_WORKERS = (1, 2, 4, 8)  # prove_assigned_native's h pool sizes, timed in turns (native_groth16)
 # the G1 kernels' names in a profile, this tree's and the one-thread kernels'
 # they replaced (so the profiles of two checkouts compare)
 WS4_G1_KERNELS = ("window_sum4_g1_nodes_kernel", "window_sum4_g1_top_kernel", "window_sum4_kernel<Bn254G1>")
@@ -894,6 +930,81 @@ def check_bn254_kernels(dev, int_rate: float, tables: dict) -> list:
     return results
 
 
+def check_membership_shapes(dev, int_rate: float) -> None:
+    """Phase 3f: pair_add, window_sum4 and horner4 for BN254 G1 and G2
+    against their plain versions at the membership path's shapes
+    (MEM_LANES statements): window_sum4 G1 at Kp 608, 1024 and 480 (the a
+    and b_g1, h, and l queries) and G2 at Kp 608 (b_g2), horner4 on each
+    group's sums, pair_add at each Kp (a step of the table builds), limb for
+    limb and timed; one kernel_check line each, with ``"membership": true``
+    (the kernels line keeps the equality path's shapes)."""
+    import numpy as np
+
+    from libzkp_tpu_torch.ops import kernels
+    from libzkp_tpu_torch.ops.weierstrass import get_engine
+
+    rng = random.Random(20261019)
+    B, WG = MEM_LANES, kernels.WIN_GROUP
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for curve, kps in (("bn254_g1", MEM_G1_KPS), ("bn254_g2", (MEM_G2_KP,))):
+        eng = get_engine(curve)
+        C, n = eng.coords, eng.n
+        K = max(kps)
+        consts = torch.from_numpy(eng.consts_np).to(dev)
+        baseT = torch.from_numpy(np.ascontiguousarray(np.transpose(
+            eng.encode_points(_random_points(curve, K, rng)), (1, 2, 0)))).to(dev)
+        acc = eng.identity(K, dev)
+        rows = [acc]
+        for _ in range(255):
+            acc = kernels.pair_add_plain(consts, acc, baseT, curve=curve)
+            rows.append(acc)
+        table = torch.stack(rows).permute(3, 0, 1, 2).reshape(K * 256, C, n).to(torch.int16).contiguous()
+        padd = WPADD_MACS[curve]
+        for Kp in kps:
+            sub = table[:Kp * 256]
+            digits = torch.randint(0, 256, (WG, Kp, B), generator=torch.Generator().manual_seed(Kp),
+                                   dtype=torch.int32).to(dev)
+            got = kernels.window_sum4(consts, sub, digits, curve=curve)
+            want = window_sum4_plain_chunked(consts, sub, digits, curve)
+            torch.cuda.synchronize()
+            err = _limbs_err(f"window_sum4 {curve} at Kp {Kp}", got, want)
+            b_ms, b_by = bound((Kp - 1) * padd * WG * B, sub.numel() * 2 + digits.numel() * 4 + C * n * WG * B * 4,
+                               int_rate)
+            extra = {"groups": kernels.window_sum4_g1_geometry(Kp, WG * B, sms)[0]} if curve == "bn254_g1" else {}
+            emit({"phase": "kernel_check", "name": kernels.instance("window_sum4", curve), "membership": True,
+                  "max_abs_err": float(err), "tolerance": "exact limbs",
+                  "shape": f"table ({Kp * 256},{C},{n}) i16, digits ({WG},{Kp},{B}) i32",
+                  "ms": cuda_ms(lambda: kernels.window_sum4(consts, sub, digits, curve=curve), 5),
+                  "plain_ms": cuda_ms(lambda: window_sum4_plain_chunked(consts, sub, digits, curve), 1),
+                  "bound_ms": b_ms, "bound_by": b_by, **extra})
+
+            acc_in = got[..., :B].contiguous()
+            h_k = kernels.horner4(consts, acc_in, got, curve=curve)
+            h_p = kernels.horner4_plain(consts, acc_in, got, curve=curve)
+            torch.cuda.synchronize()
+            err = _limbs_err(f"horner4 {curve} after Kp {Kp}", h_k, h_p)
+            b_ms, b_by = bound(WG * 9 * padd * B, (2 + WG) * C * n * B * 4, int_rate)
+            emit({"phase": "kernel_check", "name": kernels.instance("horner4", curve), "membership": True,
+                  "max_abs_err": float(err), "tolerance": "exact limbs",
+                  "shape": f"acc ({C},{n},{B}), wsums ({C},{n},{WG * B}) i32 (Kp {Kp})",
+                  "ms": cuda_ms(lambda: kernels.horner4(consts, acc_in, got, curve=curve), 5),
+                  "plain_ms": cuda_ms(lambda: kernels.horner4_plain(consts, acc_in, got, curve=curve), 2),
+                  "bound_ms": b_ms, "bound_by": b_by})
+
+            p = sub.view(Kp, 256, C, n)[:, 7].permute(1, 2, 0).to(torch.int32).contiguous()
+            q = sub.view(Kp, 256, C, n)[:, 200].permute(1, 2, 0).to(torch.int32).contiguous()
+            a_k = kernels.pair_add(consts, p, q, curve=curve)
+            a_p = kernels.pair_add_plain(consts, p, q, curve=curve)
+            torch.cuda.synchronize()
+            err = _limbs_err(f"pair_add {curve} at K {Kp}", a_k, a_p)
+            b_ms, b_by = bound(padd * Kp, 3 * C * n * Kp * 4, int_rate)
+            emit({"phase": "kernel_check", "name": kernels.instance("pair_add", curve), "membership": True,
+                  "max_abs_err": float(err), "tolerance": "exact limbs", "shape": f"p, q ({C},{n},{Kp}) i32",
+                  "ms": cuda_ms(lambda: kernels.pair_add(consts, p, q, curve=curve), 50),
+                  "plain_ms": cuda_ms(lambda: kernels.pair_add_plain(consts, p, q, curve=curve), 10),
+                  "bound_ms": b_ms, "bound_by": b_by})
+
+
 def g1_pair(dev) -> None:
     """window_sum4 G1 and pair_add G1 alone, through the wrappers and the
     plain versions only, so that this function also runs on an earlier
@@ -1298,7 +1409,7 @@ def _mont_cases(dev) -> list:
     """mont_mul's checked cases, (a, b, field, tag, shape): an NTT stage of
     a 256-statement h batch (3 * 256 polynomials of 512 points: 3 * 256 * 256
     butterflies, the stage's 256 twiddles broadcast; tag None: the kernels
-    line's row); a one-row operand (``to_mont`` of the whole batch, R^2
+    line's row), and of the membership path's (1024 points); a one-row operand (``to_mont`` of the whole batch, R^2
     broadcast: the Z^-1, R^2, 1 and R mod p case); the MiMC batch's 4096
     rows with b = a (x * x) and with one row (``to_mont``); ragged last
     blocks (M in {1, 127, 129}); b rows that are no contiguous run of a
@@ -1322,7 +1433,10 @@ def _mont_cases(dev) -> list:
     tw = torch.from_numpy(_twiddle_table(ctx.p, H_N, False)[-1]).to(dev)  # (256, n), the last stage
     stage = rows(3 * G16_LANES, H_N // 2)
     mimc = rows(MIMC_VALUES, lo=0)
+    mem_tw = torch.from_numpy(_twiddle_table(ctx.p, MEM_H_N, False)[-1]).to(dev)
     cases = [(stage, tw, "BN254 Fr", None, f"a ({3 * G16_LANES},{H_N // 2},{n}) i32, b ({H_N // 2},{n}) broadcast"),
+             (rows(3 * MEM_LANES, MEM_H_N // 2), mem_tw, "BN254 Fr", "membership NTT stage",
+              f"a ({3 * MEM_LANES},{MEM_H_N // 2},{n}) i32, b ({MEM_H_N // 2},{n}) broadcast"),
              (rows(3 * G16_LANES, H_N, lo=0), ctx.tensor("r2", dev), "BN254 Fr", "one-row operand",
               f"a ({3 * G16_LANES},{H_N},{n}) i32, b ({n},)"),
              (mimc, mimc, "BN254 Fr", "MiMC x * x", f"a, b ({MIMC_VALUES},{n}) i32"),
@@ -1641,6 +1755,13 @@ def mont_padd_pair(dev) -> None:
     emit({"phase": "mont_padd", **out})
 
 
+def equality_pairs() -> list:
+    """Phase 5's G16_LANES distinct equality statements (v, v)."""
+    rng = random.Random(1017)
+    values = [(1 << 64) - 1, 0] + rng.sample(range(1, 1 << 62), G16_LANES - 2)
+    return [(v, v) for v in values]
+
+
 def groth16_path(dev) -> dict:
     """Phase 5: 256 distinct equality proofs through the port's entry point."""
     import libzkp_tpu_torch as zkp
@@ -1656,9 +1777,8 @@ def groth16_path(dev) -> dict:
           "queries": {"a": len(pk.a_query), "b_g1": len(pk.b_g1_query), "b_g2": len(pk.b_g2_query),
                       "h": len(pk.h_query), "l": len(pk.l_query)}})
 
-    rng = random.Random(1017)
-    values = [(1 << 64) - 1, 0] + rng.sample(range(1, 1 << 62), G16_LANES - 2)
-    pairs = [(v, v) for v in values]
+    pairs = equality_pairs()
+    values = [v for v, _ in pairs]
 
     kernels.reset_launches()
     t0 = time.perf_counter()
@@ -1874,6 +1994,178 @@ def groth16_grouped(dev) -> dict:
     return {"counts": counts, "ms_per_batch": mean}
 
 
+def membership_items() -> list:
+    """MEM_LANES distinct (value, set) statements, seeded: sets of 1 to 64
+    values (a set of 1 and a set of 64 among them), each value drawn from
+    its set."""
+    rng = random.Random(1019)
+    sizes = [1, 64] + [rng.randint(1, 64) for _ in range(MEM_LANES - 2)]
+    items = []
+    for size in sizes:
+        the_set = rng.sample(range(1 << 62), size)
+        items.append((rng.choice(the_set), the_set))
+    return items
+
+
+def _membership_entry(env: bytes, the_set: list) -> tuple:
+    """(Groth16 proof bytes, set, commitment) of a membership envelope."""
+    from libzkp_tpu_torch.utils.envelope import Proof as Envelope
+
+    e = Envelope.from_bytes(env)
+    return e.proof[4 + 8 * len(the_set):], the_set, e.commitment
+
+
+def membership(dev) -> dict:
+    """Phase 6b: MEM_LANES distinct set-membership proofs through the port's
+    entry point, ``prove_membership_batch``. The cold batch's launches are
+    asserted (its five query tables built, 255 pair_add launches each; per
+    query MSM 8 window_sum4 and 8 horner4 launches; the h at n = 1024 in
+    MEM_H_MONT_MULS mont_mul launches); warm batches timed; one split into
+    h, device query MSMs and host finish; a seeded batch profiled (busy ms,
+    idle share, the split); MEM_BYTE_LANES lanes held byte for byte against
+    the native baseline ``prove_assigned_native`` and the golden ``prove``
+    under the same draws; all proofs checked by ``verify_membership_batch``,
+    with one forged proof (another proof's C) rejected, and two by
+    ``verify_membership``. Runs under :func:`seam_tables_kept`, so the
+    phases after it see the seam's LRU as it was."""
+    import libzkp_tpu_torch as zkp
+    from libzkp_tpu_torch.models import groth16, snark_backend
+    from libzkp_tpu_torch.ops import kernels
+    from libzkp_tpu_torch.profile_prover import _wrap
+    from libzkp_tpu_torch.utils.commitment import commit_value_snark
+
+    t0 = time.perf_counter()
+    pk = snark_backend._get_membership_setup()
+    num_instance, csr = snark_backend._membership_shape()
+    emit({"phase": "membership_setup", "seconds": time.perf_counter() - t0,
+          "constraints": len(csr[0][0]) - 1, "instance": num_instance, "domain": len(pk.h_query) + 1,
+          "queries": {"a": len(pk.a_query), "b_g1": len(pk.b_g1_query), "b_g2": len(pk.b_g2_query),
+                      "h": len(pk.h_query), "l": len(pk.l_query)}})
+    items = membership_items()
+    sizes = [len(s) for _, s in items]
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    envs = zkp.prove_membership_batch(items, device=dev)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    counts = kernels.launches()
+    want = dict.fromkeys(kernels.INSTANCES, 0) | {
+        "pair_add_bn254_g1": 4 * 255, "pair_add_bn254_g2": 255,
+        "window_sum4_bn254_g1": 4 * 8, "window_sum4_bn254_g2": 8,
+        "horner4_bn254_g1": 4 * 8, "horner4_bn254_g2": 8, "mont_mul": MEM_H_MONT_MULS,
+    }
+    if counts != want:
+        raise AssertionError(f"kernel launches {counts}, the membership path needs {want}")
+    if len(envs) != MEM_LANES or any(not isinstance(e, bytes) or len(e) < 256 for e in envs):
+        raise AssertionError("prove_membership_batch returned malformed envelopes")
+    emit({"phase": "membership_cold", "membership_proofs": MEM_LANES, "seconds": cold_s,
+          "set_sizes": [min(sizes), max(sizes)], "launches": {k: v for k, v in counts.items() if v}})
+
+    batch_s = []
+    for _ in range(TIMED_BATCHES):
+        t0 = time.perf_counter()
+        zkp.prove_membership_batch(items, device=dev)
+        torch.cuda.synchronize()
+        batch_s.append(time.perf_counter() - t0)
+    batch_ms = sum(batch_s) / len(batch_s) * 1e3
+    emit({"phase": "membership_warm", "batch_ms": [x * 1e3 for x in batch_s], "ms_per_batch": batch_ms,
+          "spread_ms": [min(batch_s) * 1e3, max(batch_s) * 1e3],
+          "ms_per_membership_proof": batch_ms / MEM_LANES})
+
+    def split_run(run):
+        spent: dict = defaultdict(float)
+        depth = [0]
+        undo = [_wrap(groth16, name, name, spent, depth)
+                for name in ("_h_many", "_accs_many", "_finish_proof")]
+        try:
+            out = run()
+        finally:
+            for u in undo:
+                u()
+        return out, {"h_ms": spent["_h_many"] * 1e3, "device_query_msms_ms": spent["_accs_many"] * 1e3,
+                     "host_finish_ms": spent["_finish_proof"] * 1e3}
+
+    t0 = time.perf_counter()
+    _, split = split_run(lambda: zkp.prove_membership_batch(items, device=dev))
+    split_ms = (time.perf_counter() - t0) * 1e3
+    emit({"phase": "membership_split", "batch_ms": split_ms, **split,
+          "host_assign_rest_ms": split_ms - sum(split.values())})
+
+    seeded = random.Random(4545)
+    draws = [seeded.randrange(1, groth16.R) for _ in range(2 * MEM_LANES)]
+    saved = groth16._rand_fr
+    it = iter(draws)
+    groth16._rand_fr = lambda: next(it)
+    try:
+        (seeded_envs, prof_split), prof_ms, busy = profiled(
+            lambda: split_run(lambda: zkp.prove_membership_batch(items, device=dev)))
+    finally:
+        groth16._rand_fr = saved
+    emit({"phase": "membership_profile", "batch_ms_profiled": prof_ms, **prof_split,
+          **busy_summary(busy, prof_ms, mont_mul="mont_mul_kernel", window_sum4_g1=WS4_G1_KERNELS,
+                         window_sum4_g2="window_sum4_g2_kernel", horner4="coop_horner_kernel")})
+
+    # byte-exactness: lanes of the seeded batch (a set of 1, a set of 64,
+    # two more) against the native baseline and the host golden prover
+    lanes = [0, 1, MEM_LANES // 2, MEM_LANES - 1]
+    z_list = [snark_backend._membership_statement(v, s, commit_value_snark(v))
+              for v, s in (items[i] for i in lanes)]
+    it = iter([d for i in lanes for d in draws[2 * i : 2 * i + 2]])
+    groth16._rand_fr = lambda: next(it)
+    try:
+        t0 = time.perf_counter()
+        native_proofs = groth16.prove_assigned_native(pk, z_list, num_instance, csr)
+        native_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        groth16._rand_fr = saved
+    for lane, proof in zip(lanes, native_proofs):
+        v, the_set = items[lane]
+        if _membership_entry(seeded_envs[lane], the_set)[0] != groth16.proof_to_bytes(proof):
+            raise AssertionError(f"lane {lane}: the card route's proof differs from prove_assigned_native's")
+        pad = snark_backend.MAX_SET_SIZE - len(the_set)
+        sel = [x == the_set.index(v) for x in range(snark_backend.MAX_SET_SIZE)]
+        cs = snark_backend.build_membership_circuit(
+            v, sel, the_set + [0] * pad, [True] * len(the_set) + [False] * pad,
+            int.from_bytes(commit_value_snark(v), "little"))
+        it = iter(draws[2 * lane : 2 * lane + 2])
+        groth16._rand_fr = lambda: next(it)
+        try:
+            golden = groth16.proof_to_bytes(groth16.prove(pk, cs))
+        finally:
+            groth16._rand_fr = saved
+        if golden != groth16.proof_to_bytes(proof):
+            raise AssertionError(f"lane {lane}: the golden prover's proof differs")
+    emit({"phase": "membership_byte_exact", "lanes": lanes, "set_sizes": [sizes[i] for i in lanes],
+          "identical": True, "native_ms_for_the_lanes": native_ms})
+
+    entries = [_membership_entry(e, s) for e, (_, s) in zip(envs, items)]
+    t0 = time.perf_counter()
+    verdicts = snark_backend.SnarkBackend.verify_membership_batch(entries)
+    batch_verify_ms = (time.perf_counter() - t0) * 1e3
+    if verdicts != [True] * MEM_LANES:
+        raise AssertionError(f"verify_membership_batch: {verdicts.count(False)} of {MEM_LANES} proofs rejected")
+    forged = MEM_LANES // 3
+    bad = list(entries)
+    proof = bytearray(bad[forged][0])
+    proof[192:] = entries[forged + 1][0][192:]  # another proof's C: points on the curve, a wrong proof
+    bad[forged] = (bytes(proof),) + bad[forged][1:]
+    t0 = time.perf_counter()
+    verdicts = snark_backend.SnarkBackend.verify_membership_batch(bad)
+    bisect_ms = (time.perf_counter() - t0) * 1e3
+    if verdicts != [i != forged for i in range(MEM_LANES)]:
+        raise AssertionError("verify_membership_batch did not single out the forged proof")
+    v, the_set = items[1]
+    if not (zkp.verify_membership(envs[1], the_set) and zkp.verify_membership(envs[1], the_set[::-1])):
+        raise AssertionError("verify_membership rejected a proof")
+    if zkp.verify_membership(envs[1], the_set[:-1] + [the_set[-1] ^ 1]):
+        raise AssertionError("verify_membership accepted a changed set")
+    emit({"phase": "membership_verify", "proofs": MEM_LANES, "batch_ms": batch_verify_ms,
+          "batch_ms_per_proof": batch_verify_ms / MEM_LANES, "forged_index": forged,
+          "bisect_ms": bisect_ms, "forged_rejected": True})
+    return {"counts": counts, "items": items, "envs": envs, "ms_per_batch": batch_ms, "split": split}
+
+
 def mesh_launches(dp: int, shard: int) -> dict:
     """Launches of the sharded_msm phase on a (dp, shard) mesh: per MSM,
     every block runs 32 windows of one tree_sum and one horner, and each dp
@@ -2002,10 +2294,12 @@ def groth16_mesh(dev, mesh, g16: dict, tag: str) -> dict:
 def groth16_h(dev) -> dict:
     """Phase 9: the h crossover. For B in H_BATCHES distinct equality
     statements, ``h_batch_device`` on the card (one call of 43 mont_mul
-    launches, encode and decode included) against the host NTTs
-    (``_h_from_evals``, one statement after another), on the same sparse
-    products; every h equal. The host time of B statements is the sum of
-    their per-statement times."""
+    launches, encode and decode included) on the native sparse products'
+    rows (``native.groth16_spmv``, timed a statement) against the host NTTs
+    (``_h_from_evals``, one statement after another) on the pure-Python
+    sparse products (``_abc_from_csr``); every h equal. The host time of B
+    statements is the sum of their per-statement times."""
+    from libzkp_tpu_torch import native
     from libzkp_tpu_torch.models import groth16, snark_backend
     from libzkp_tpu_torch.ops import kernels
     from libzkp_tpu_torch.ops.groth16_device import h_batch_device
@@ -2014,9 +2308,13 @@ def groth16_h(dev) -> dict:
     num_instance, csr = snark_backend._equality_shape()
     rng = random.Random(1020)
     values = rng.sample(range(1, 1 << 62), max(H_BATCHES))
+    zs = [snark_backend._equality_assignment(v, v, int.from_bytes(commit_value_snark(v), "little"))
+          for v in values]
+    abc = [groth16._abc_from_csr(H_N, num_instance, csr, z) for z in zs]
+    packed = groth16._packed_csr(csr)
     t0 = time.perf_counter()
-    abc = [groth16._abc_from_csr(H_N, num_instance, csr, snark_backend._equality_assignment(
-        v, v, int.from_bytes(commit_value_snark(v), "little"))) for v in values]
+    spmv_rows = [native.groth16_spmv(H_N, len(csr[0][0]) - 1, num_instance, groth16.R, packed, z)
+                 for z in zs]
     spmv_ms = (time.perf_counter() - t0) * 1e3 / len(values)
     host, host_ms = [], []
     for az, bz, cz in abc:
@@ -2025,13 +2323,13 @@ def groth16_h(dev) -> dict:
         host_ms.append((time.perf_counter() - t0) * 1e3)
     rows = []
     for B in H_BATCHES:
-        args = ([t[0] for t in abc[:B]], [t[1] for t in abc[:B]], [t[2] for t in abc[:B]])
-        h_batch_device(H_N, *args, groth16.COSET, device=dev)  # warm the shape
+        args = spmv_rows[:B]
+        h_batch_device(H_N, args, groth16.COSET, device=dev)  # warm the shape
         kernels.reset_launches()
         times = []
         for _ in range(2):
             t0 = time.perf_counter()
-            got = h_batch_device(H_N, *args, groth16.COSET, device=dev)
+            got = h_batch_device(H_N, args, groth16.COSET, device=dev)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
         if kernels.launches()["mont_mul"] != 2 * H_MONT_MULS:
@@ -2636,12 +2934,231 @@ def native_verifier(envs: list, triples: list) -> dict:
     return row
 
 
+class _TeamSpy:
+    """Stands in for the native library and records each OpenMP team the
+    wrappers set."""
+
+    def __init__(self, lib):
+        self.lib, self.teams = lib, []
+
+    def omp_set_num_threads(self, k):
+        self.teams.append(k)
+        self.lib.omp_set_num_threads(k)
+
+    def __getattr__(self, name):
+        return getattr(self.lib, name)
+
+
+def native_groth16(dev, pairs: list, items: list) -> dict:
+    """The native tier's BN254 and Groth16 hooks on this machine's host
+    (``native_groth16_hooks``): each held equal to its ``*_py`` golden on
+    seeded inputs, µs a call both ways: G1 and G2 ``scalar_mul``, ``msm`` at
+    n = 1, 2, 7, 33, 130, ``msm_fixed`` at one point and at the membership
+    key's 589-point queries, ``multi_pairing`` at 4 pairs and at N + 3 = 35,
+    the sparse products (``groth16_spmv``'s rows against ``_abc_from_csr``'s,
+    the pure-Python ``_spmv``) and the h (``groth16_h`` against
+    ``_h_from_csr``) of both circuits; the team each one-point call sets; multi-pairings of
+    PAIRING_SWEEP pairs serial and on the team, in turns. Then the native
+    baseline ``prove_assigned_native``, at each h pool size of
+    NATIVE_H_WORKERS, beside the card route ``prove_assigned_many`` on
+    phase 5's equality statements and phase 6b's membership statements
+    under the same draws, in turns, every proof byte-identical; the fastest
+    pool size stands for the baseline (``native_groth16_baseline``); and ``verify`` against
+    ``verify_py``, ``verify_batch`` in ms a proof (``native_groth16_verify``).
+    The seam's table LRU is restored after it."""
+    import ctypes
+
+    from libzkp_tpu_torch import native
+    from libzkp_tpu_torch.models import groth16, snark_backend
+    from libzkp_tpu_torch.ops import bn254 as bn
+    from libzkp_tpu_torch.utils.commitment import commit_value_snark
+
+    start = time.perf_counter()
+    eq_pk, mem_pk = snark_backend._get_equality_setup(), snark_backend._get_membership_setup()
+    rng = random.Random(254)
+    G1 = bn.g1_from_affine(bn.G1_GEN)
+    G2 = bn.g2_from_affine((bn.G2_GEN_X, bn.G2_GEN_Y))
+    same1 = lambda a, b: bn.g1_to_affine(a) == bn.g1_to_affine(b)  # noqa: E731
+    same2 = lambda a, b: bn.g2_to_affine(a) == bn.g2_to_affine(b)  # noqa: E731
+    g1s = [bn.g1_scalar_mul_py(rng.randrange(1, bn.R), G1) for _ in range(130)]
+    g2s = [bn.g2_scalar_mul_py(rng.randrange(1, bn.R), G2) for _ in range(130)]
+    scalars = lambda k: [rng.randrange(bn.R) for _ in range(k)]  # noqa: E731
+    hooks = {}
+
+    def spmv_native(n, ni, csr, z):
+        return native.groth16_spmv(n, len(csr[0][0]) - 1, ni, groth16.R, groth16._packed_csr(csr), z)
+
+    def spmv_golden(n, ni, csr, z):
+        return tuple(b"".join(v.to_bytes(32, "little") for v in vec)
+                     for vec in groth16._abc_from_csr(n, ni, csr, z))
+
+    def hold(name, nat, py, inputs, same=lambda a, b: a == b):
+        nat(*inputs[0])  # registers a fixed basis, loads the library: out of the timings
+        py_us, want = _per_call_us(py, inputs)
+        nat_us, got = _per_call_us(nat, inputs)
+        bad = [i for i, (g, w) in enumerate(zip(got, want)) if not same(g, w)]
+        if bad:
+            raise AssertionError(f"native {name} differs from its golden at inputs {bad[:8]}")
+        hooks[name] = {"calls": len(inputs), "native_us": nat_us, "python_us": py_us,
+                       "python_over_native": py_us / nat_us}
+
+    hold("g1_scalar_mul", bn.g1_scalar_mul, bn.g1_scalar_mul_py, [(k, p) for k, p in zip(scalars(32), g1s)], same1)
+    hold("g2_scalar_mul", bn.g2_scalar_mul, bn.g2_scalar_mul_py, [(k, p) for k, p in zip(scalars(16), g2s)], same2)
+    for n in (1, 2, 7, 33, 130):
+        hold(f"g1_msm_{n}", bn.g1_msm, bn.g1_msm_py, [(scalars(n), g1s[:n]) for _ in range(4)], same1)
+        hold(f"g2_msm_{n}", bn.g2_msm, bn.g2_msm_py, [(scalars(n), g2s[:n]) for _ in range(2)], same2)
+    hold("g1_msm_fixed_1", bn.g1_msm_fixed, bn.g1_msm_py, [(scalars(1), [eq_pk.delta_g1]) for _ in range(32)],
+         same1)
+    hold("g2_msm_fixed_1", bn.g2_msm_fixed, bn.g2_msm_py, [(scalars(1), [eq_pk.vk.delta_g2]) for _ in range(16)],
+         same2)
+    hold("g1_msm_fixed_589", bn.g1_msm_fixed, bn.g1_msm_py,
+         [(scalars(589), mem_pk.a_query) for _ in range(2)], same1)
+    hold("g2_msm_fixed_589", bn.g2_msm_fixed, bn.g2_msm_py,
+         [(scalars(589), mem_pk.b_g2_query) for _ in range(1)], same2)
+    pair_sets = {n: [(g1s[i], g2s[i]) for i in range(n)] for n in (4, 35)}
+    hold("multi_pairing_4", bn.multi_pairing, bn.multi_pairing_py, [(pair_sets[4],)])
+    hold("multi_pairing_35", bn.multi_pairing, bn.multi_pairing_py, [(pair_sets[35],)])
+    for name, get_shape, assign in (
+            ("equality", snark_backend._equality_shape,
+             lambda v: snark_backend._equality_assignment(v, v, int.from_bytes(commit_value_snark(v), "little"))),
+            ("membership", snark_backend._membership_shape,
+             lambda i: snark_backend._membership_statement(items[i][0], items[i][1],
+                                                           commit_value_snark(items[i][0])))):
+        ni, csr = get_shape()
+        n = 512 if name == "equality" else MEM_H_N
+        keys = [v for v, _ in pairs[:16]] if name == "equality" else list(range(min(16, len(items))))
+        zs = [assign(k) for k in keys]
+        hold(f"groth16_spmv_{name}", spmv_native, spmv_golden, [(n, ni, csr, z) for z in zs])
+        hold(f"groth16_h_{name}", groth16._h_native, groth16._h_from_csr, [(n, ni, csr, z) for z in zs[:4]])
+
+    # the teams: one-point calls serial, the rest on the budget
+    spy = _TeamSpy(native.load())
+    teams = {}
+    saved_lib = native._lib
+    native._lib = spy
+    try:
+        for name, call in (("g1_scalar_mul", lambda: bn.g1_scalar_mul(5, G1)),
+                           ("g2_scalar_mul", lambda: bn.g2_scalar_mul(5, G2)),
+                           ("g1_msm_fixed_1", lambda: bn.g1_msm_fixed([5], [eq_pk.delta_g1])),
+                           ("g2_msm_fixed_1", lambda: bn.g2_msm_fixed([5], [eq_pk.vk.delta_g2])),
+                           ("g1_msm_fixed_589", lambda: bn.g1_msm_fixed(scalars(589), mem_pk.a_query)),
+                           ("multi_pairing_35", lambda: bn.multi_pairing(pair_sets[35]))):
+            spy.teams.clear()
+            call()
+            teams[name] = spy.teams[0]
+    finally:
+        native._lib = saved_lib
+    if any(teams[k] != 1 for k in ("g1_scalar_mul", "g2_scalar_mul", "g1_msm_fixed_1", "g2_msm_fixed_1")):
+        raise AssertionError(f"a one-point call ran on a team: {teams}")
+
+    # multi-pairings serial and on the team, in turns (the library opens its
+    # region from 4 pairs; the wrapper sets the team from TEAM_MIN_PAIRS)
+    lib = native.load()
+    budget = torch.get_num_threads()
+    sweep = {}
+    big = [(g1s[i % 130], g2s[i % 130]) for i in range(max(PAIRING_SWEEP))]
+    try:
+        for team in (1, budget, budget, 1):
+            lib.omp_set_num_threads(team)
+            for n in PAIRING_SWEEP:
+                g1b, g2b = native._pairs_wire(big[:n])
+                out = ctypes.create_string_buffer(384)
+                reps = 3 if n < 100 else 1
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    lib.zkp_bn254_multi_pairing(n, g1b, g2b, out)
+                sweep.setdefault(f"n {n}, team {team}", []).append((time.perf_counter() - t0) / reps * 1e3)
+    finally:
+        lib.omp_set_num_threads(budget)
+    emit({"phase": "native_groth16_hooks", "team": native.max_threads(), "torch_threads": budget,
+          "hooks": hooks, "one_point_teams": teams, "team_min_pairs": native.TEAM_MIN_PAIRS,
+          "multi_pairing_ms_by_team": sweep})
+
+    # the native baseline beside the card route, same statements and draws
+    rows = {}
+    with seam_tables_kept():
+        for name, pk, shape, zs in (
+                ("equality", eq_pk, snark_backend._equality_shape(),
+                 [snark_backend._equality_assignment(v, v, int.from_bytes(commit_value_snark(v), "little"))
+                  for v, _ in pairs]),
+                ("membership", mem_pk, snark_backend._membership_shape(),
+                 [snark_backend._membership_statement(v, s, commit_value_snark(v)) for v, s in items])):
+            ni, csr = shape
+            seeded = random.Random(77)
+            draws = [seeded.randrange(1, groth16.R) for _ in range(2 * len(zs))]
+            routes = {f"native_w{w}": (lambda w=w: groth16.prove_assigned_native(pk, zs, ni, csr, h_workers=w))
+                      for w in NATIVE_H_WORKERS}
+            routes["card"] = lambda: groth16.prove_assigned_many(pk, zs, ni, csr, device=dev)
+            turns = [*routes, *reversed(routes)]
+            want, ms = None, {r: [] for r in routes}
+            saved = groth16._rand_fr
+            for k, route in enumerate(["native_w2", "card", *turns]):
+                it = iter(draws)
+                groth16._rand_fr = lambda: next(it)
+                try:
+                    t0 = time.perf_counter()
+                    got = [groth16.proof_to_bytes(p) for p in routes[route]()]
+                    torch.cuda.synchronize()
+                finally:
+                    groth16._rand_fr = saved
+                if k >= 2:  # the first of each route warms it
+                    ms[route].append((time.perf_counter() - t0) * 1e3)
+                if want is None:
+                    want = got
+                elif got != want:
+                    raise AssertionError(f"{name}: the {route} route's proofs differ from the native route's")
+            per = {r: sum(v) / len(v) / len(zs) for r, v in ms.items()}
+            best = min((r for r in routes if r != "card"), key=per.get)
+            rows[name] = {"proofs": len(zs), "native_h_workers": int(best[len("native_w"):]),
+                          "native_ms_per_proof": per[best], "card_ms_per_proof": per["card"],
+                          "ms_per_proof_by_route": per,
+                          "runs_ms_per_proof": {r: [t / len(zs) for t in v] for r, v in ms.items()},
+                          "card_over_native": per["card"] / per[best], "identical": True, "proofs_": want}
+    emit({"phase": "native_groth16_baseline",
+          "routes": {"native": "prove_assigned_native", "card": "prove_assigned_many"},
+          **{k: {kk: vv for kk, vv in v.items() if kk != "proofs_"} for k, v in rows.items()}})
+
+    # the verifiers: verify against verify_py on NATIVE_VERIFY proofs of each
+    # scheme; verify_batch on all, ms a proof
+    out = {}
+    for name, pk in (("equality", eq_pk), ("membership", mem_pk)):
+        proofs = [groth16.proof_from_bytes(b) for b in rows[name]["proofs_"]]
+        if name == "equality":
+            public = [[int.from_bytes(commit_value_snark(v), "little")] for v, _ in pairs]
+        else:
+            public = [snark_backend._membership_public(s, int.from_bytes(commit_value_snark(v), "little"))
+                      for v, s in items]
+        sample = list(range(NATIVE_VERIFY))
+        cases = [(public[i], proofs[i]) for i in sample] + [(public[0], proofs[1])]
+        times, verdicts = {}, {}
+        for fn in (groth16.verify, groth16.verify_py):
+            t0 = time.perf_counter()
+            verdicts[fn.__name__] = [fn(pk.vk, x, p) for x, p in cases]
+            times[fn.__name__] = (time.perf_counter() - t0) * 1e3 / len(cases)
+        if verdicts["verify"] != verdicts["verify_py"] or verdicts["verify"] != [True] * NATIVE_VERIFY + [False]:
+            raise AssertionError(f"{name}: verify {verdicts['verify']} against verify_py {verdicts['verify_py']}")
+        t0 = time.perf_counter()
+        ok = groth16.verify_batch(pk.vk, list(zip(public, proofs)))
+        batch_ms = (time.perf_counter() - t0) * 1e3
+        if ok != [True] * len(proofs):
+            raise AssertionError(f"{name}: verify_batch rejected {ok.count(False)} proofs")
+        out[name] = {"verify_ms": times["verify"], "verify_py_ms": times["verify_py"],
+                     "py_over_native": times["verify_py"] / times["verify"],
+                     "verify_batch_ms_per_proof": batch_ms / len(proofs), "batch_proofs": len(proofs),
+                     "verify_over_batch_per_proof": times["verify"] / (batch_ms / len(proofs))}
+    emit({"phase": "native_groth16_verify", **out})
+    emit({"phase": "native_groth16", "seconds": time.perf_counter() - start})
+    return rows
+
+
 def native_phase(dev, main: dict = None) -> None:
     """The native host tier on the card machine's host: its hooks against
     their goldens, its whole-pipeline prover beside the card's route at 64
     bits (the main path's statements) and at 8, 16, 32 bits (bp_rest's), and
     its RLC verifier against the pure-Python one on the main path's
-    envelopes (proved here when ``main`` does not hold them)."""
+    envelopes (proved here when ``main`` does not hold them); then the BN254
+    and Groth16 half (:func:`native_groth16`) on phase 5's and phase 6b's
+    statements."""
     import libzkp_tpu_torch as zkp
 
     start = time.perf_counter()
@@ -2652,12 +3169,13 @@ def native_phase(dev, main: dict = None) -> None:
         triples = main_triples()
         main = {"envs": zkp.prove_range_batch(triples, device=dev), "triples": triples}
     native_verifier(main["envs"], main["triples"])
+    native_groth16(dev, equality_pairs(), membership_items())
     emit({"phase": "native", "seconds": time.perf_counter() - start})
 
 
 def main(argv: list) -> int:
     flags = ("--kernels", "--range", "--groth16", "--g1", "--mont", "--ed-tree", "--ed-pair", "--f32-chain",
-             "--ed-chain", "--mont-padd", "--fe-mul", "--bp-rest", "--native")
+             "--ed-chain", "--mont-padd", "--fe-mul", "--bp-rest", "--native", "--membership")
     if len(argv) > 1 or (argv and argv[0] not in flags):
         print(f"usage: python3 chip_smoke.py [{' | '.join(flags)}], got {argv}", file=sys.stderr)
         return 2
@@ -2744,17 +3262,23 @@ def main(argv: list) -> int:
     if argv == ["--native"]:  # the native host tier alone
         native_phase(dev)
         return 0
+    if argv == ["--membership"]:  # the membership path alone
+        membership(dev)
+        return 0
     tables: dict = {}
     checks = (check_kernels(dev, int_rate, tables) + check_bn254_kernels(dev, int_rate, tables)
               + check_sharded_kernels(dev, int_rate, tables)
               + check_probe_kernels(dev, int_rate, fp32_rate) + check_mont_kernels(dev, int_rate))
     del tables
+    check_membership_shapes(dev, int_rate)
     if argv == ["--kernels"]:  # the kernel checks alone, to time two checkouts in turns
         return 0
     main = main_path(dev)
     paths = [main]
     g16 = groth16_path(dev)
     paths += [g16, groth16_grouped(dev)]
+    with seam_tables_kept():  # its five query tables leave the LRU as they found it
+        paths.append(membership(dev))
     # the mesh route on one card: four positions, all cuda:0 (no interconnect)
     meshes = [("one_card", meshmod.get_mesh(dp=SHARD_DP, shard=SHARD_SHARD, devices=[dev] * 4))]
     if torch.cuda.device_count() > 1:

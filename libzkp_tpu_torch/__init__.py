@@ -7,17 +7,20 @@ path), threshold proofs (:func:`prove_threshold_batch`) and consistency
 proofs (:func:`prove_consistency_batch`): 64-bit single proofs on the
 batched device prover, narrower widths (:func:`prove_range_with_bits`,
 :func:`prove_threshold_with_bits`) on the lockstep host prover with its
-MSMs on the device; the batched Groth16 equality prover
-(:func:`prove_equality_batch`), whose query MSMs over BN254 G1 and G2 run on
-the same family of hand-written CUDA kernels (``ops/kernels.py``, sources in
-``csrc/``) and whose h polynomial runs on the device NTT over the Montgomery
-product kernel; and the MiMC batch (:func:`mimc_hash_batch`) on that kernel. The query MSMs also run
-sharded over a (dp, shard) device mesh (``parallel/``,
+MSMs on the device; the Groth16 backend, its equality proofs
+(:func:`prove_equality_batch`) and set-membership proofs
+(:func:`prove_membership_batch`, sets of up to 64 values) on one batched
+prover, whose query MSMs over BN254 G1 and G2 run on the same family of
+hand-written CUDA kernels (``ops/kernels.py``, sources in ``csrc/``) and
+whose h polynomial runs on the device NTT over the Montgomery product
+kernel; and the MiMC batch (:func:`mimc_hash_batch`) on that kernel. The
+query MSMs also run sharded over a (dp, shard) device mesh (``parallel/``,
 ``ops.curve.msm_many_sharded``) when ``parallel.mesh.set_mesh`` names one or
 more than one CUDA device is visible. The host primitives (the transcript's
-Keccak, Ristretto encode and decode, ed25519 scalar multiplication and MSMs)
-and range-proof verification run on the native host tier (``native/``, the
-JAX package's ``zkpcore.cpp``, built with ``g++`` at first use). Proofs and
+Keccak, Ristretto encode and decode, ed25519 scalar multiplication and MSMs,
+the BN254 group operations, the Groth16 sparse products and finish) and
+verification run on the native host tier (``native/``, the JAX package's
+``zkpcore.cpp``, built with ``g++`` at first use). Proofs and
 envelopes are byte-compatible with the JAX package's.
 
 Entry points run on the CUDA card unless called with ``device="cpu"``, which
@@ -42,6 +45,11 @@ from .models.schemes.range_proof import (  # noqa: F401
     prove_range_with_bits,
     verify_range,
 )
+from .models.schemes.set_membership import (  # noqa: F401
+    prove_membership,
+    prove_membership_batch,
+    verify_membership,
+)
 from .models.schemes.threshold_proof import (  # noqa: F401
     prove_threshold,
     prove_threshold_batch,
@@ -59,6 +67,8 @@ __all__ = [
     "prove_consistency_batch",
     "prove_equality",
     "prove_equality_batch",
+    "prove_membership",
+    "prove_membership_batch",
     "prove_range",
     "prove_range_batch",
     "prove_range_with_bits",
@@ -69,6 +79,7 @@ __all__ = [
     "verify_consistency",
     "verify_equality",
     "verify_equality_with_commitment",
+    "verify_membership",
     "verify_range",
     "verify_threshold",
 ]

@@ -3,32 +3,46 @@
 Port of the JAX package's ``libzkp_tpu/models/groth16.py`` (the
 ``ark-groth16`` pipeline of the Rust reference): circuit-specific setup
 (R1CS -> QAP over a radix-2 Fr domain), proving (the query MSMs on G1/G2 and
-the h query) and pairing-based verification, all on the pure-Python host
-tier, with no native hooks. The batched prover,
-:func:`prove_assigned_many`, runs its five query MSMs (four over G1, one
-over G2) on a device through ``bn254.g1_msm_fixed_many`` /
-``g2_msm_fixed_many`` and the MSM kernels, and the NTTs of h there too; the
-sparse products and the finishing fold of each proof stay on the host:
+the h query) and pairing-based verification. The host's group operations
+run where the JAX package runs them, on the native tier through the hooks
+of :mod:`..ops.bn254`. The batched prover, :func:`prove_assigned_many`, runs
+its five query MSMs (four over G1, one over G2) on a device through
+``bn254.g1_msm_fixed_many`` / ``g2_msm_fixed_many`` and the MSM kernels,
+and the NTTs of h there too; the sparse products and the finishing fold of
+each proof run on the native tier:
 
-* h for a distinct statement is a pure-Python sparse product over the CSR
+* h for a distinct statement is the native sparse product over the CSR
   rows of the constraint matrices (:func:`pack_csr`, built from the setup
-  circuit), then the NTTs of every distinct statement of the batch in one
-  ``h_batch_device`` program on the entry point's device (:func:`_h_many`;
-  the golden :func:`prove` keeps the host NTTs, :func:`_compute_h`);
+  circuit; ``native.groth16_spmv``), then the NTTs of every distinct
+  statement of the batch in one ``h_batch_device`` program on the entry
+  point's device, the rows going from the native tier to the device as
+  bytes (:func:`_h_many`; the golden :func:`prove` keeps the pure-Python
+  sparse products and host NTTs, :func:`_compute_h`, and
+  :func:`_abc_from_csr` is the pure-Python sparse product over the CSR);
 * statements repeated inside one batch are proved once up to the (r, s)
   blinding; a statement repeated 8 or more times folds its proofs as
   fixed-basis MSMs on the device (:func:`_finish_proof_group`).
 
-The JAX package's cross-batch accumulator memo is not carried over.
+:func:`prove_assigned_native` is the whole-pipeline host baseline (the
+native h and query MSMs); no entry point calls it. :func:`verify` runs the
+native pairing with the key's constant Miller value cached, and
+:func:`verify_batch` checks many proofs of one key with one final
+exponentiation. The JAX package's cross-batch accumulator memo is not
+carried over.
 """
 
 from __future__ import annotations
 
 import os
 import struct
+import threading
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
+import torch
+
+from .. import native
 from ..ops import bn254 as bn
 from ..ops import ntt as poly
 from ..ops.field import BN254_FR
@@ -278,10 +292,33 @@ def _spmv(csr, z: List[int], n: int) -> List[int]:
     return out
 
 
+_packed: dict = {}  # id(csr) -> (csr, packed rows): keeps csr alive so its id stays its own
+_packed_lock = threading.Lock()
+
+
+def _packed_csr(csr):
+    """``csr``'s rows packed for the native tier, once a circuit: per matrix
+    (uint32 ptr, uint32 idx, 32-byte little-endian coefficients, nnz), as the
+    JAX ``_pack_csr`` packs them."""
+    hit = _packed.get(id(csr))
+    if hit is not None and hit[0] is csr:
+        return hit[1]
+    packed = tuple(
+        (struct.pack(f"<{len(ptr)}I", *ptr), struct.pack(f"<{len(idx)}I", *idx),
+         b"".join(c.to_bytes(32, "little") for c in coef), len(idx))
+        for ptr, idx, coef in csr)
+    with _packed_lock:
+        if len(_packed) >= 16:
+            _packed.pop(next(iter(_packed)))
+        _packed[id(csr)] = (csr, packed)
+    return packed
+
+
 def _abc_from_csr(n: int, num_instance: int, csr, z: List[int]):
     """A, B, C over the domain for assignment ``z``: the sparse products of
-    the circuit's CSR rows, the instance-consistency rows adding z[i] to A
-    (the JAX ``native.groth16_spmv``)."""
+    the circuit's CSR rows in pure Python (:func:`_spmv`), the
+    instance-consistency rows adding z[i] to A (the golden of
+    ``native.groth16_spmv``)."""
     n_constraints = len(csr[0][0]) - 1
     az = _spmv(csr[0], z, n)
     bz = _spmv(csr[1], z, n)
@@ -297,15 +334,24 @@ def _h_from_csr(n: int, num_instance: int, csr, z: List[int]) -> List[int]:
     return _h_from_evals(n, *_abc_from_csr(n, num_instance, csr, z))
 
 
+def _h_native(n: int, num_instance: int, csr, z: List[int]) -> List[int]:
+    """h for assignment ``z`` in one native call (``native.groth16_h``: the
+    sparse products and the seven NTTs; the JAX ``_compute_h_native``)."""
+    return native.groth16_h(n, len(csr[0][0]) - 1, num_instance, R, BN254_FR.root_of_unity(n),
+                            COSET, _packed_csr(csr), z)
+
+
 def _h_many(pk: ProvingKey, distinct: List[List[int]], num_instance: int, csr, *,
             device) -> List[List[int]]:
-    """h for every distinct assignment of a batch: the sparse products on
-    the host, then the seven NTTs of all of them in one
-    :func:`~..ops.groth16_device.h_batch_device` program on ``device``."""
+    """h for every distinct assignment of a batch: the native sparse
+    products, their rows handed over as bytes, then the seven NTTs of all of
+    them in one :func:`~..ops.groth16_device.h_batch_device` program on
+    ``device``."""
     n = len(pk.h_query) + 1
-    abc = [_abc_from_csr(n, num_instance, csr, z) for z in distinct]
-    return h_batch_device(n, [t[0] for t in abc], [t[1] for t in abc], [t[2] for t in abc],
-                          COSET, device=device)
+    packed = _packed_csr(csr)
+    abc = [native.groth16_spmv(n, len(csr[0][0]) - 1, num_instance, R, packed, z)
+           for z in distinct]
+    return h_batch_device(n, abc, COSET, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -381,6 +427,24 @@ def prove_assigned_many(
     """
     if not z_list:
         return []
+    distinct, assign = _distinct(z_list)
+    h_list = _h_many(pk, distinct, num_instance, csr, device=device)
+    accs = _accs_many(pk, distinct, num_instance, h_list, device=device)
+
+    out: List[Optional[Proof]] = [None] * len(assign)
+    for slot, idxs in _by_slot(assign).items():
+        if len(idxs) >= GROUP_MIN:
+            for i, pr in zip(idxs, _finish_proof_group(pk, accs[slot], len(idxs), device=device)):
+                out[i] = pr
+        else:
+            for i in idxs:
+                out[i] = _finish_proof(pk, *accs[slot])
+    return out  # type: ignore[return-value]
+
+
+def _distinct(z_list: List[List[int]]):
+    """The distinct assignments of a batch in order of first occurrence, and
+    each proof's index among them."""
     slot_of: dict = {}
     distinct: List[List[int]] = []
     assign: List[int] = []
@@ -391,21 +455,57 @@ def prove_assigned_many(
             slot = slot_of[zk] = len(distinct)
             distinct.append(z)
         assign.append(slot)
-    h_list = _h_many(pk, distinct, num_instance, csr, device=device)
-    accs = _accs_many(pk, distinct, num_instance, h_list, device=device)
+    return distinct, assign
 
+
+def prove_assigned_native(pk: ProvingKey, z_list: List[List[int]], num_instance: int,
+                          csr, *, h_workers: Optional[int] = None) -> List[Proof]:
+    """The whole-pipeline host baseline of :func:`prove_assigned_many`: for
+    each distinct statement the native h (``native.groth16_h``, the
+    statements spread over a thread pool as the JAX ``_h_many`` spreads
+    them), then the five query MSMs in one native call
+    (``native.groth16_prove_msms``, on the thread budget's team), then
+    :func:`_finish_proof` per proof. Proofs draw r then s in the order
+    :func:`prove_assigned_many` draws them, so under the same draws both
+    give the same bytes. ``h_workers`` sizes the pool of the native h calls
+    (default: the thread budget, ``torch.get_num_threads()``; of 1, 2, 4
+    and 8 workers on an 8-core host, 8 proved membership fastest and
+    equality within 0.5 % of the fastest, PERF.md §5). No entry point calls
+    it."""
+    if not z_list:
+        return []
+    distinct, assign = _distinct(z_list)
+    n = len(pk.h_query) + 1
+    workers = min(len(distinct), h_workers or torch.get_num_threads())
+    h_of = lambda z: _h_native(n, num_instance, csr, z)  # noqa: E731
+    if workers > 1:
+        with ThreadPoolExecutor(workers) as pool:
+            h_list = list(pool.map(h_of, distinct))
+    else:
+        h_list = [h_of(z) for z in distinct]
+    tier = bn.native_tier()
+    handles = [tier.g1_fixed_handle(tuple(q), q)
+               for q in (pk.a_query, pk.b_g1_query, pk.h_query, pk.l_query)]
+    handles.append(tier.g2_fixed_handle(tuple(pk.b_g2_query), pk.b_g2_query))
+    accs = []
+    for z, h in zip(distinct, h_list):
+        a_acc, b_g1_acc, h_acc, l_acc, b_g2_acc = tier.groth16_prove_msms(*handles, z, h,
+                                                                          num_instance)
+        accs.append((a_acc, b_g2_acc, b_g1_acc, h_acc, l_acc))
+    out: List[Optional[Proof]] = [None] * len(assign)
+    for slot, idxs in _by_slot(assign).items():
+        for i in idxs:
+            out[i] = _finish_proof(pk, *accs[slot])
+    return out  # type: ignore[return-value]
+
+
+def _by_slot(assign: List[int]) -> dict:
+    """Each distinct statement's proof indices, statements in order of first
+    occurrence."""
     by_slot: dict = {}
     for i, slot in enumerate(assign):
         by_slot.setdefault(slot, []).append(i)
-    out: List[Optional[Proof]] = [None] * len(assign)
-    for slot, idxs in by_slot.items():
-        if len(idxs) >= GROUP_MIN:
-            for i, pr in zip(idxs, _finish_proof_group(pk, accs[slot], len(idxs), device=device)):
-                out[i] = pr
-        else:
-            for i in idxs:
-                out[i] = _finish_proof(pk, *accs[slot])
-    return out  # type: ignore[return-value]
+    return by_slot
 
 
 def _finish_proof_group(pk: ProvingKey, acc, count: int, *, device) -> List[Proof]:
@@ -447,27 +547,126 @@ def _finish_proof_group(pk: ProvingKey, acc, count: int, *, device) -> List[Proo
 # ---------------------------------------------------------------------------
 
 
+def _verify_pairs(vk: VerifyingKey, public_inputs: List[int], proof: Proof, scalar_mul):
+    """The pairs (A, B), (-IC, gamma), (-C, delta) of one proof's check, or
+    None when the proof or its inputs are malformed."""
+    if len(public_inputs) != len(vk.gamma_abc_g1) - 1:
+        return None
+    if not (bn.g1_is_on_curve(proof.a) and bn.g1_is_on_curve(proof.c)):
+        return None
+    if not bn.g2_is_on_curve(proof.b) or not bn.g2_in_subgroup(proof.b):
+        return None
+    ic = vk.gamma_abc_g1[0]
+    for x, base in zip(public_inputs, vk.gamma_abc_g1[1:]):
+        ic = bn.g1_add(ic, scalar_mul(x % R, base))
+    return [(proof.a, proof.b), (bn.g1_neg(ic), vk.gamma_g2), (bn.g1_neg(proof.c), vk.delta_g2)]
+
+
+_vk_miller: dict = {}  # id(vk) -> (Miller value bytes, vk): keeps vk alive so its id stays its own
+_vk_miller_lock = threading.Lock()
+
+
+def _vk_miller_bytes(vk: VerifyingKey) -> bytes:
+    """The Miller value of (-alpha, beta), constant per verifying key."""
+    hit = _vk_miller.get(id(vk))
+    if hit is not None and hit[1] is vk:
+        return hit[0]
+    f = bn.native_tier().bn254_miller_bytes(bn.g1_neg(vk.alpha_g1), vk.beta_g2)
+    with _vk_miller_lock:
+        if len(_vk_miller) >= 64:
+            _vk_miller.pop(next(iter(_vk_miller)))
+        _vk_miller[id(vk)] = (f, vk)
+    return f
+
+
 def verify(vk: VerifyingKey, public_inputs: List[int], proof: Proof) -> bool:
-    """e(A,B) == e(alpha,beta) e(ic,gamma) e(C,delta); returns False on error."""
+    """e(A,B) == e(alpha,beta) e(ic,gamma) e(C,delta) on the native tier,
+    the (-alpha, beta) Miller value cached per key; returns False on error."""
     try:
-        if len(public_inputs) != len(vk.gamma_abc_g1) - 1:
+        pairs = _verify_pairs(vk, public_inputs, proof, bn.g1_scalar_mul)
+        if pairs is None:
             return False
-        if not (bn.g1_is_on_curve(proof.a) and bn.g1_is_on_curve(proof.c)):
-            return False
-        if not bn.g2_is_on_curve(proof.b) or not bn.g2_in_subgroup(proof.b):
-            return False
-        ic = vk.gamma_abc_g1[0]
-        for x, base in zip(public_inputs, vk.gamma_abc_g1[1:]):
-            ic = bn.g1_add(ic, bn.g1_scalar_mul(x % R, base))
-        pairs = [
-            (proof.a, proof.b),
-            (bn.g1_neg(ic), vk.gamma_g2),
-            (bn.g1_neg(proof.c), vk.delta_g2),
-            (bn.g1_neg(vk.alpha_g1), vk.beta_g2),
-        ]
-        return bn.multi_pairing(pairs) == bn.FQ12_ONE
+        f_pre = _vk_miller_bytes(vk)
+        return bn.native_tier().bn254_multi_pairing_premul(f_pre, pairs) == bn.FQ12_ONE
     except Exception:
         return False
+
+
+def verify_py(vk: VerifyingKey, public_inputs: List[int], proof: Proof) -> bool:
+    """:func:`verify` in pure Python (the golden)."""
+    try:
+        pairs = _verify_pairs(vk, public_inputs, proof, bn.g1_scalar_mul_py)
+        if pairs is None:
+            return False
+        pairs.append((bn.g1_neg(vk.alpha_g1), vk.beta_g2))
+        return bn.multi_pairing_py(pairs) == bn.FQ12_ONE
+    except Exception:
+        return False
+
+
+def verify_batch(vk: VerifyingKey, items: List[Tuple[List[int], Proof]]) -> List[bool]:
+    """Verdicts of :func:`verify` for ``(public_inputs, proof)`` items of one
+    key, by a random linear combination of their pairing checks: with
+    128-bit weights w_i (:func:`_rlc_weight`) the check
+
+        prod_i e(w_i A_i, B_i) * e(-sum_i w_i IC_i, gamma)
+             * e(-sum_i w_i C_i, delta) * e(-(sum_i w_i) alpha, beta) == 1
+
+    is one multi-pairing over N + 3 pairs with one final exponentiation, the
+    IC sum one MSM over gamma_abc (Pippenger: it registers no table, so a
+    full fixed-basis registry leaves the verdicts alone). On failure the set is halved
+    until each bad proof stands alone, so a few bad proofs still get exact
+    verdicts."""
+    results = [False] * len(items)
+    n_pub = len(vk.gamma_abc_g1) - 1
+    live: List[int] = []
+    for i, (public_inputs, proof) in enumerate(items):
+        try:
+            if (len(public_inputs) == n_pub and bn.g1_is_on_curve(proof.a)
+                    and bn.g1_is_on_curve(proof.c) and bn.g2_is_on_curve(proof.b)
+                    and bn.g2_in_subgroup(proof.b)):
+                live.append(i)
+        except Exception:
+            continue
+    neg_alpha = bn.g1_neg(vk.alpha_g1)
+
+    def check(idxs: List[int]) -> None:
+        try:
+            weights = [_rlc_weight() for _ in idxs]
+            pairs = []
+            ic_scalars = [0] * (n_pub + 1)
+            for w, i in zip(weights, idxs):
+                public_inputs, proof = items[i]
+                pairs.append((bn.g1_scalar_mul(w, proof.a), proof.b))
+                ic_scalars[0] = (ic_scalars[0] + w) % R
+                for j, x in enumerate(public_inputs):
+                    ic_scalars[j + 1] = (ic_scalars[j + 1] + w * (x % R)) % R
+            ic = bn.g1_msm(ic_scalars, vk.gamma_abc_g1)
+            c_sum = bn.g1_msm(weights, [items[i][1].c for i in idxs])
+            pairs.append((bn.g1_neg(ic), vk.gamma_g2))
+            pairs.append((bn.g1_neg(c_sum), vk.delta_g2))
+            pairs.append((bn.g1_scalar_mul(sum(weights) % R, neg_alpha), vk.beta_g2))
+            ok = bn.multi_pairing(pairs) == bn.FQ12_ONE
+        except Exception:
+            ok = False
+        if ok:
+            for i in idxs:
+                results[i] = True
+        elif len(idxs) > 1:
+            check(idxs[: len(idxs) // 2])
+            check(idxs[len(idxs) // 2 :])
+
+    if live:
+        check(live)
+    return results
+
+
+def _rlc_weight() -> int:
+    """A nonzero 128-bit random weight of :func:`verify_batch`."""
+    w = 0
+    while w == 0:
+        w = int.from_bytes(os.urandom(16), "little")
+    return w
 
 
 # ---------------------------------------------------------------------------

@@ -1,13 +1,12 @@
 """Shared envelope parse/build helpers for the proof layer.
 
-Copy of the JAX package's ``libzkp_tpu/models/schemes/common.py`` (its
-Bulletproofs half), and :func:`prove_prepared`, the batch variants' shared
-tail.
+Copy of the JAX package's ``libzkp_tpu/models/schemes/common.py``, and
+:func:`prove_prepared`, the Bulletproofs batch variants' shared tail.
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 from ...utils.encoding import u32_le
 from ...utils.envelope import PROOF_VERSION, Proof
@@ -62,6 +61,23 @@ def reconstruct_bulletproofs_proof(proof_bytes: bytes, commitment: bytes) -> byt
 
 def create_proof(scheme_id: int, proof_bytes: bytes, commitment: bytes) -> bytes:
     return Proof.new(scheme_id, proof_bytes, commitment).to_bytes()
+
+
+def deserialize_embedded_set_prefix(data: bytes,
+                                    max_set_len: int) -> Optional[Tuple[List[int], bytes]]:
+    """Parse a ``[u32 set_len][u64 x set_len]`` prefix: (the set, the rest),
+    or None for an empty or oversized set or a payload with nothing after
+    the set."""
+    if len(data) < 4:
+        return None
+    set_size = int.from_bytes(data[0:4], "little")
+    if set_size == 0 or set_size > max_set_len:
+        return None
+    needed = 4 + set_size * 8
+    if len(data) <= needed:
+        return None
+    out = [int.from_bytes(data[4 + i * 8 : 12 + i * 8], "little") for i in range(set_size)]
+    return out, data[needed:]
 
 
 def validate_standard_commitment(commitment: bytes) -> None:

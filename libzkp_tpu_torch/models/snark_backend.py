@@ -1,20 +1,27 @@
-"""SNARK backend, equality part: Groth16 equality proofs with MiMC-5
+"""SNARK backend: Groth16 equality and set-membership proofs with MiMC-5
 commitments.
 
-Port of the equality half of the JAX package's
-``libzkp_tpu/models/snark_backend.py`` (the Rust reference's
-``src/backend/snark.rs``):
+Port of the JAX package's ``libzkp_tpu/models/snark_backend.py`` (the Rust
+reference's ``src/backend/snark.rs``):
 
 * ``EqualityCircuit``: witnesses a, b; enforce ``a == b``; in-circuit MiMC-5
   of a (3 constraints per round); public input ``[commitment]``.
+* ``MembershipCircuit``: witness value and a one-hot boolean selector;
+  public inputs ``[commitment, set[0..64], is_real[0..64]]`` (129);
+  :data:`MAX_SET_SIZE` = 64.
 * Key directory: :func:`set_snark_key_dir` before the first setup; files
-  ``equality_mimc_{pk,vk}.bin`` with load-else-generate-then-persist
-  semantics, in the JAX package's format, so the two packages can share one
-  key. The port reads no environment variable for it.
-* The batched prover (:meth:`SnarkBackend.prove_equality_zk_many`) builds
-  each statement's assignment vector directly and proves the batch with
+  ``{equality_mimc,membership_mimc}_{pk,vk}.bin`` with
+  load-else-generate-then-persist semantics, in the JAX package's format,
+  so the two packages can share one key. The port reads no environment
+  variable for it.
+* The batched provers (:meth:`SnarkBackend.prove_equality_zk_many`,
+  :meth:`SnarkBackend.prove_membership_zk_many`) build each statement's
+  assignment vector directly and prove the batch with
   :func:`.groth16.prove_assigned_many` on the caller's device, with the CSR
-  rows of the setup circuit.
+  rows of the setup circuit; the batch verifiers run
+  :func:`.groth16.verify_batch`.
+* The byte interface ``prove([a:8][b:8][commitment:32])`` /
+  ``verify(proof, commitment)`` of the reference's backend trait.
 """
 
 from __future__ import annotations
@@ -26,17 +33,21 @@ from typing import List, Optional, Tuple
 
 from ..ops.field import BN254_FR
 from ..ops.mimc import fr_from_commitment, mimc_constants
+from ..utils.encoding import read_u64_le
 from ..utils.errors import ConfigError
 from . import groth16
-from .r1cs import ConstraintSystem
+from .r1cs import ONE, ConstraintSystem
 
 R = BN254_FR.p
+
+MAX_SET_SIZE = 64
 
 _key_dir_lock = threading.Lock()
 _key_dir_override: Optional[Path] = None
 
 _setup_lock = threading.Lock()
 _equality_setup: Optional[groth16.ProvingKey] = None
+_membership_setup: Optional[groth16.ProvingKey] = None
 
 
 def set_snark_key_dir(path: str) -> None:
@@ -58,14 +69,15 @@ def set_snark_key_dir(path: str) -> None:
 
 
 def is_snark_initialized() -> bool:
-    return _equality_setup is not None
+    return _equality_setup is not None or _membership_setup is not None
 
 
 def _reset_for_tests() -> None:
-    """Drop the setup cache and the key directory (a fresh process)."""
-    global _equality_setup, _key_dir_override
+    """Drop the setup caches and the key directory (a fresh process)."""
+    global _equality_setup, _membership_setup, _key_dir_override
     with _setup_lock:
         _equality_setup = None
+        _membership_setup = None
     with _key_dir_lock:
         _key_dir_override = None
 
@@ -130,6 +142,41 @@ def build_equality_circuit(a: int, b: int, commitment_fr: int) -> ConstraintSyst
     return cs
 
 
+def build_membership_circuit(value: int, sel: List[bool], set_values: List[int],
+                             is_real: List[bool], commitment_fr: int) -> ConstraintSystem:
+    assert len(sel) == len(set_values) == len(is_real) == MAX_SET_SIZE
+    cs = ConstraintSystem()
+    value_var = cs.new_witness(value)
+    hash_lc, _ = _mimc_gadget(cs, value_var, value)
+    commitment_var = cs.new_input(commitment_fr)
+    cs.enforce_equal(hash_lc, cs.lc((1, commitment_var)))
+
+    set_vars = [cs.new_input(v) for v in set_values]
+    is_real_vars = [cs.new_boolean_input(b) for b in is_real]
+    sel_vars = [cs.new_boolean_witness(s) for s in sel]
+
+    # one-hot: sum(sel) == 1 and sel[i] <= is_real[i]
+    cs.enforce_equal(cs.lc(*[(1, sv) for sv in sel_vars]), cs.lc((1, ONE)))
+    for sv, rv in zip(sel_vars, is_real_vars):
+        cs.enforce(cs.lc((1, sv)), cs.lc((1, ONE), (R - 1, rv)), {})  # sel * (1 - is_real) == 0
+
+    # sum_i sel[i] * (value - set[i]) == 0, the set through its input
+    # variables, so the matrices do not depend on the set's values (the
+    # setup's circuit has the same QAP as every statement's)
+    acc_terms = []
+    for i, sv in enumerate(sel_vars):
+        prod = cs.new_witness((1 if sel[i] else 0) * ((value - set_values[i]) % R) % R)
+        cs.enforce(cs.lc((1, sv)), cs.lc((1, value_var), (R - 1, set_vars[i])), cs.lc((1, prod)))
+        acc_terms.append((1, prod))
+    cs.enforce_equal(cs.lc(*acc_terms), {})
+    return cs
+
+
+def _membership_setup_circuit() -> ConstraintSystem:
+    return build_membership_circuit(0, [False] * MAX_SET_SIZE, [0] * MAX_SET_SIZE,
+                                    [False] * MAX_SET_SIZE, 0)
+
+
 def _get_equality_setup() -> groth16.ProvingKey:
     global _equality_setup
     with _setup_lock:
@@ -138,6 +185,23 @@ def _get_equality_setup() -> groth16.ProvingKey:
                 "equality_mimc", lambda: groth16.setup(build_equality_circuit(0, 0, 0))
             )
         return _equality_setup
+
+
+def _get_membership_setup() -> groth16.ProvingKey:
+    global _membership_setup
+    with _setup_lock:
+        if _membership_setup is None:
+            _membership_setup = _load_or_generate(
+                "membership_mimc", lambda: groth16.setup(_membership_setup_circuit()))
+        return _membership_setup
+
+
+@functools.lru_cache(maxsize=1)
+def _membership_shape():
+    """(num_instance, CSR rows) of the membership circuit, from the setup
+    circuit."""
+    cs = _membership_setup_circuit()
+    return cs.num_instance, groth16.pack_csr(cs)
 
 
 @functools.lru_cache(maxsize=1)
@@ -168,6 +232,47 @@ def _mimc_wires(x: int) -> List[int]:
 
 def _equality_assignment(a: int, b: int, commitment_fr: int) -> List[int]:
     return [1, commitment_fr % R, a % R, b % R] + _mimc_wires(a)
+
+
+def _membership_assignment(value: int, sel, set_values, is_real, commitment_fr: int) -> List[int]:
+    """The membership circuit's assignment vector, in its allocation order:
+    one, the commitment, the set, is_real, the value, the MiMC wires, the
+    selector, the products sel[i] * (value - set[i])."""
+    z = [1, commitment_fr % R]
+    z += [v % R for v in set_values]
+    z += [1 if b else 0 for b in is_real]
+    z.append(value % R)
+    z += _mimc_wires(value)
+    z += [1 if s else 0 for s in sel]
+    z += [(1 if sel[i] else 0) * ((value - set_values[i]) % R) % R for i in range(len(sel))]
+    return z
+
+
+def _membership_public(the_set: List[int], commitment_fr: int) -> List[int]:
+    """Public inputs: [commitment, set[0..64], is_real[0..64]]."""
+    pad = MAX_SET_SIZE - len(the_set)
+    return [commitment_fr] + list(the_set) + [0] * pad + [1] * len(the_set) + [0] * pad
+
+
+def _membership_statement(value: int, the_set: List[int], commitment: bytes) -> Optional[List[int]]:
+    """The assignment of ``value in the_set`` under ``commitment``, or None
+    when the statement cannot be proved: an empty set or one over
+    :data:`MAX_SET_SIZE`, a non-canonical commitment, a value outside the
+    set, or a commitment other than MiMC5(value)."""
+    if not the_set or len(the_set) > MAX_SET_SIZE:
+        return None
+    commitment_fr = fr_from_commitment(bytes(commitment))
+    if commitment_fr is None or value not in the_set:
+        return None
+    pad = MAX_SET_SIZE - len(the_set)
+    sel = [False] * MAX_SET_SIZE
+    sel[the_set.index(value)] = True
+    z = _membership_assignment(value, sel, list(the_set) + [0] * pad,
+                               [True] * len(the_set) + [False] * pad, commitment_fr)
+    # the last MiMC wire, at 2 + 2 * 64 + 1 + 3 * rounds - 1, is MiMC5(value)
+    if z[2 * MAX_SET_SIZE + 2 + 3 * len(mimc_constants())] != commitment_fr:
+        return None
+    return z
 
 
 # ===== Backend API =====
@@ -202,7 +307,6 @@ class SnarkBackend:
         non-canonical commitment, a commitment other than MiMC5(a)) gets
         empty bytes; the rest are proved."""
         pk = _get_equality_setup()
-        num_instance, csr = _equality_shape()
         z_list, where = [], []
         for i, (a, b, commitment) in enumerate(entries):
             commitment_fr = fr_from_commitment(bytes(commitment))
@@ -213,8 +317,112 @@ class SnarkBackend:
                 continue
             z_list.append(z)
             where.append(i)
-        out = [b""] * len(entries)
-        proofs = groth16.prove_assigned_many(pk, z_list, num_instance, csr, device=device)
-        for i, proof in zip(where, proofs):
-            out[i] = groth16.proof_to_bytes(proof)
-        return out
+        return _prove_many(pk, _equality_shape(), z_list, where, len(entries), device=device)
+
+    @staticmethod
+    def prove_membership_zk(value: int, the_set: List[int], commitment: bytes, *,
+                            device) -> bytes:
+        """Prove MiMC5(value) == commitment AND value in the_set. Empty bytes
+        on failure."""
+        return SnarkBackend.prove_membership_zk_many([(value, the_set, commitment)],
+                                                     device=device)[0]
+
+    @staticmethod
+    def prove_membership_zk_many(entries: List[Tuple[int, List[int], bytes]], *,
+                                 device) -> List[bytes]:
+        """Batched membership proving of ``(value, set, commitment)`` entries
+        on ``device`` (as :meth:`prove_equality_zk_many`). An entry that
+        cannot be proved gets empty bytes; the rest are proved."""
+        pk = _get_membership_setup()
+        z_list, where = [], []
+        for i, (value, the_set, commitment) in enumerate(entries):
+            z = _membership_statement(value, list(the_set), commitment)
+            if z is not None:
+                z_list.append(z)
+                where.append(i)
+        return _prove_many(pk, _membership_shape(), z_list, where, len(entries), device=device)
+
+    @staticmethod
+    def verify_membership_zk(proof_data: bytes, the_set: List[int], commitment: bytes) -> bool:
+        if not the_set or len(the_set) > MAX_SET_SIZE or len(commitment) != 32:
+            return False
+        proof = groth16.proof_from_bytes(proof_data)
+        if proof is None:
+            return False
+        commitment_fr = fr_from_commitment(bytes(commitment))
+        if commitment_fr is None:
+            return False
+        try:
+            pk = _get_membership_setup()
+        except Exception:
+            return False
+        return groth16.verify(pk.vk, _membership_public(list(the_set), commitment_fr), proof)
+
+    @staticmethod
+    def verify_equality_batch(entries: List[Tuple[bytes, bytes]]) -> List[bool]:
+        """Verdicts of :meth:`verify_equality_zk` for ``(proof_data,
+        commitment)`` entries, their pairing checks combined into one
+        multi-pairing (:func:`.groth16.verify_batch`)."""
+        items, where = [], []
+        for i, (proof_data, commitment) in enumerate(entries):
+            proof = groth16.proof_from_bytes(proof_data)
+            commitment_fr = fr_from_commitment(bytes(commitment))
+            if proof is not None and commitment_fr is not None:
+                items.append(([commitment_fr], proof))
+                where.append(i)
+        return _verify_many(_get_equality_setup, items, where, len(entries))
+
+    @staticmethod
+    def verify_membership_batch(entries: List[Tuple[bytes, List[int], bytes]]) -> List[bool]:
+        """Verdicts of :meth:`verify_membership_zk` for ``(proof_data, set,
+        commitment)`` entries, as :meth:`verify_equality_batch`."""
+        items, where = [], []
+        for i, (proof_data, the_set, commitment) in enumerate(entries):
+            if not the_set or len(the_set) > MAX_SET_SIZE or len(commitment) != 32:
+                continue
+            proof = groth16.proof_from_bytes(proof_data)
+            commitment_fr = fr_from_commitment(bytes(commitment))
+            if proof is not None and commitment_fr is not None:
+                items.append((_membership_public(list(the_set), commitment_fr), proof))
+                where.append(i)
+        return _verify_many(_get_membership_setup, items, where, len(entries))
+
+    # -- the reference's backend trait: prove([a:8][b:8][commitment:32]) --
+    @staticmethod
+    def prove(data: bytes, *, device) -> bytes:
+        if len(data) != 48:
+            return b""
+        a = read_u64_le(data, 0)
+        b = read_u64_le(data, 8)
+        if a is None or b is None:
+            return b""
+        return SnarkBackend.prove_equality_zk(a, b, data[16:48], device=device)
+
+    @staticmethod
+    def verify(proof: bytes, data: bytes) -> bool:
+        return SnarkBackend.verify_equality_zk(proof, data)
+
+
+def _prove_many(pk: groth16.ProvingKey, shape, z_list: List[List[int]], where: List[int],
+                count: int, *, device) -> List[bytes]:
+    """``count`` proof slots: the proofs of ``z_list`` at ``where``, empty
+    bytes elsewhere."""
+    num_instance, csr = shape
+    out = [b""] * count
+    proofs = groth16.prove_assigned_many(pk, z_list, num_instance, csr, device=device)
+    for i, proof in zip(where, proofs):
+        out[i] = groth16.proof_to_bytes(proof)
+    return out
+
+
+def _verify_many(get_setup, items, where: List[int], count: int) -> List[bool]:
+    """``count`` verdicts: :func:`.groth16.verify_batch` of ``items`` at
+    ``where``, False elsewhere."""
+    results = [False] * count
+    try:
+        pk = get_setup()
+    except Exception:
+        return results
+    for i, ok in zip(where, groth16.verify_batch(pk.vk, items)):
+        results[i] = ok
+    return results

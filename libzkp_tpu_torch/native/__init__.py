@@ -3,9 +3,15 @@
 ``zkpcore.cpp`` is the JAX package's C++ host tier, kept here as the port's
 own copy: Keccak-f[1600] for the STROBE transcript, the curve25519 group
 (point add, scalar multiplication, Pippenger and fixed-basis MSMs),
-Ristretto255 encode and decode, and the whole-pipeline Bulletproofs batch
-prover and RLC batch verifier. Every hook is held against the pure-Python
-goldens (``*_py`` in :mod:`..ops.keccak` and :mod:`..ops.ed25519`).
+Ristretto255 encode and decode, the whole-pipeline Bulletproofs batch
+prover and RLC batch verifier, and the BN254 and Groth16 host half: G1 and
+G2 scalar multiplication, Pippenger and fixed-basis MSMs, the five query
+MSMs of a proof in one call, the sparse products and the whole h pipeline
+of a circuit, and the optimal-ate multi-pairing. Every hook is held against
+the pure-Python goldens (``*_py`` in :mod:`..ops.keccak`,
+:mod:`..ops.ed25519` and :mod:`..ops.bn254`). The BN254 calls need the
+curve's constants, handed over once a process by :func:`bn254_init` (which
+:mod:`..ops.bn254` calls on its first hook call); before that they raise.
 
 The library is compiled by ``g++`` (:data:`CXXFLAGS`) on the first call that
 needs it, never at import, into ``libzkp_tpu_torch/_build/``, under a name
@@ -21,10 +27,12 @@ links is the runtime torch loaded (a wheel may bundle its own, which
 thread budget, ``torch.get_num_threads()``, runs the batch prover, the
 verifier from 8 instances (where its own loop goes two-wide) and an MSM of
 at least :data:`TEAM_MIN_POINTS` points, whose windows a fixed-basis MSM
-splits into one chunk a thread; smaller calls run serial. On an H100
-machine's 8-core host a team of 4 or 8 took an MSM of 1 to 7 points up to
-13 times longer than one thread, and an MSM of 33 or 130 points 2 to 6
-times shorter (PERF.md §5).
+splits into one chunk a thread, the five Groth16 query MSMs of a proof and
+a multi-pairing of at least :data:`TEAM_MIN_PAIRS` pairs; smaller calls run
+serial. On an H100 machine's 8-core host a team of 4 or 8 took an MSM of 1
+to 7 points up to 13 times longer than one thread, and an MSM of 33 or 130
+points 2 to 6 times shorter; a team of 8 took a multi-pairing of 4 pairs
+1.5-2 times and one of 259 pairs 6-7 times shorter (PERF.md §5).
 """
 
 from __future__ import annotations
@@ -48,8 +56,12 @@ CXX = "g++"
 CXXFLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-march=native", "-fopenmp")
 # the smallest MSM that runs on the thread budget's team (see above)
 TEAM_MIN_POINTS = 32
+# the smallest multi-pairing whose Miller loops run on the team (the
+# library opens its region from 4 pairs)
+TEAM_MIN_PAIRS = 4
 # the registries keep every table (the C++ side never frees one): cap the
-# distinct bases a process may register
+# distinct bases a process may register, in each registry (ed25519, G1, G2,
+# and the Groth16 h circuits)
 MAX_FIXED_BASES = 64
 
 _ZERO32 = bytes(32)
@@ -61,6 +73,11 @@ _lib: Optional[ctypes.CDLL] = None
 _load_lock = threading.Lock()
 _reg_lock = threading.Lock()
 _ed_handles: dict = {}
+_g1_handles: dict = {}
+_g2_handles: dict = {}
+_g16h_handles: dict = {}
+_bn254_lock = threading.Lock()
+_bn254: Optional[tuple] = None  # (q, r, frob, hard) once bn254_init has run
 
 
 def library_path() -> Path:
@@ -264,20 +281,27 @@ def ed_msm(scalars: Sequence[int], points: Sequence[Point], order: int) -> Point
     return _from_wire(out.raw)
 
 
+def _handle(registry: dict, key, register, what: str = "fixed-basis") -> int:
+    """The handle ``registry`` holds for ``key``, registered on first use by
+    ``register()``. Raises ``MemoryError`` past :data:`MAX_FIXED_BASES`
+    entries."""
+    h = registry.get(key)
+    if h is None:
+        with _reg_lock:
+            h = registry.get(key)
+            if h is None:
+                if len(registry) >= MAX_FIXED_BASES:
+                    raise MemoryError(f"the native {what} registry holds {MAX_FIXED_BASES} "
+                                      "entries and never frees one")
+                h = registry[key] = register()
+    return h
+
+
 def ed_fixed_handle(key, points: Sequence[Point]) -> int:
     """Registered-table handle of a process-constant basis, registered on
     first use. Raises ``MemoryError`` past :data:`MAX_FIXED_BASES` bases."""
-    h = _ed_handles.get(key)
-    if h is None:
-        with _reg_lock:
-            h = _ed_handles.get(key)
-            if h is None:
-                if len(_ed_handles) >= MAX_FIXED_BASES:
-                    raise MemoryError(f"the native fixed-basis registry holds {MAX_FIXED_BASES} "
-                                      "bases and never frees one")
-                h = _ed_handles[key] = load().zkp_ed_msm_register(
-                    len(points), b"".join(_to_wire(p) for p in points))
-    return h
+    return _handle(_ed_handles, key, lambda: load().zkp_ed_msm_register(
+        len(points), b"".join(_to_wire(p) for p in points)))
 
 
 def ed_msm_fixed(key, scalars: Sequence[int], points: Sequence[Point], order: int) -> Point:
@@ -373,3 +397,266 @@ def bp_verify_rlc(h_fix: int, ns: Sequence[int], proofs: Sequence[bytes], vs: Se
             h_fix, count, bytes(ns), offs, bytes(blob), b"".join(vs), b"".join(transcripts),
             b"".join(rhos), b"".join(sigmas), bad)
     return rc, list(bad.raw[:count])
+
+
+# ---------------------------------------------------------------------------
+# BN254: wire formats G1 Jacobian X||Y||Z (96 bytes), G2 Jacobian over Fq2
+# x.c0||x.c1||y.c0||y.c1||z.c0||z.c1 (192 bytes), Fq12 12 x 32 bytes in the
+# tower's nesting order; every field element 32 bytes little-endian
+# ---------------------------------------------------------------------------
+
+
+def bn254_init(q: int, r: int, frob_gamma1, hard_exp: int) -> None:
+    """Hand the library BN254's constants, once a process: the base field's
+    modulus q, the group order r (scalars are reduced mod r), the Frobenius
+    coefficients gamma_1 (six Fq2 pairs) and the final exponentiation's hard
+    part (q^4 - q^2 + 1) / r. Builds the library if needed. A second call
+    with the same values does nothing; with other values it raises
+    ``ValueError``."""
+    global _bn254
+    consts = (q, r, tuple(tuple(pair) for pair in frob_gamma1), hard_exp)
+    with _bn254_lock:
+        if _bn254 is not None:
+            if _bn254 != consts:
+                raise ValueError("bn254_init: the library holds other BN254 constants")
+            return
+        frob = b"".join(c.to_bytes(32, "little") for pair in consts[2] for c in pair)
+        he = hard_exp.to_bytes((hard_exp.bit_length() + 7) // 8, "little")
+        load().zkp_bn254_init(q.to_bytes(32, "little"), frob, he, len(he))
+        _bn254 = consts
+
+
+def _bn254_consts() -> tuple:
+    if _bn254 is None:
+        raise RuntimeError("BN254 constants not set: call native.bn254_init first "
+                           "(ops.bn254 does on its first hook call)")
+    return _bn254
+
+
+def _bn254_lib() -> ctypes.CDLL:
+    """The library, once :func:`bn254_init` has set its BN254 constants."""
+    _bn254_consts()
+    return load()
+
+
+def _bn254_team(parallel: bool = True):
+    """:func:`_team` over the library with its BN254 constants set."""
+    _bn254_lib()
+    return _team(parallel)
+
+
+def _scalars(scalars: Sequence[int]) -> bytes:
+    r = _bn254_consts()[1]
+    return b"".join((s % r).to_bytes(32, "little") for s in scalars)
+
+
+def _g1_to_wire(p) -> bytes:
+    q = _bn254_consts()[0]
+    return b"".join((int(v) % q).to_bytes(32, "little") for v in p)
+
+
+def _g1_from_wire(b: bytes):
+    return tuple(int.from_bytes(b[i : i + 32], "little") for i in range(0, 96, 32))
+
+
+def _g2_to_wire(p) -> bytes:
+    q = _bn254_consts()[0]
+    return b"".join((int(c) % q).to_bytes(32, "little") for coord in p for c in coord)
+
+
+def _g2_from_wire(b: bytes):
+    v = [int.from_bytes(b[i : i + 32], "little") for i in range(0, 192, 32)]
+    return ((v[0], v[1]), (v[2], v[3]), (v[4], v[5]))
+
+
+def _fq12_from_wire(b: bytes):
+    v = [int.from_bytes(b[i : i + 32], "little") for i in range(0, 384, 32)]
+    return (((v[0], v[1]), (v[2], v[3]), (v[4], v[5])),
+            ((v[6], v[7]), (v[8], v[9]), (v[10], v[11])))
+
+
+# proving-key query points are process-constant and reused by every MSM:
+# memoize their wire encoding
+_g1_wire_cache: dict = {}
+_g2_wire_cache: dict = {}
+
+
+def _wire_cached(cache: dict, encode, p) -> bytes:
+    w = cache.get(p)
+    if w is None:
+        if len(cache) > 1 << 16:
+            cache.clear()
+        w = cache[p] = encode(p)
+    return w
+
+
+def _msm(g: str, scalars: Sequence[int], points) -> bytes:
+    if len(scalars) != len(points):
+        raise ValueError(f"{len(scalars)} scalars for {len(points)} points")
+    cache, encode, size = ((_g1_wire_cache, _g1_to_wire, 96) if g == "g1"
+                           else (_g2_wire_cache, _g2_to_wire, 192))
+    pb = b"".join(_wire_cached(cache, encode, p) for p in points)
+    out = ctypes.create_string_buffer(size)
+    with _bn254_team(len(points) >= TEAM_MIN_POINTS) as lib:
+        getattr(lib, f"zkp_bn254_{g}_msm")(len(points), _scalars(scalars), pb, out)
+    return out.raw
+
+
+def bn254_g1_msm(scalars: Sequence[int], points):
+    """Pippenger MSM over G1 (Jacobian points), its windows across the team
+    from :data:`TEAM_MIN_POINTS` points."""
+    return _g1_from_wire(_msm("g1", scalars, points))
+
+
+def bn254_g2_msm(scalars: Sequence[int], points):
+    """Pippenger MSM over G2, as :func:`bn254_g1_msm`."""
+    return _g2_from_wire(_msm("g2", scalars, points))
+
+
+def bn254_g1_scalar_mul(k: int, p):
+    """k * p over G1 (a one-point MSM), serial."""
+    out = ctypes.create_string_buffer(96)
+    with _bn254_team(False) as lib:
+        lib.zkp_bn254_g1_scalar_mul(_scalars([k]), _g1_to_wire(p), out)
+    return _g1_from_wire(out.raw)
+
+
+def bn254_g2_scalar_mul(k: int, p):
+    """k * p over G2, serial."""
+    out = ctypes.create_string_buffer(192)
+    with _bn254_team(False) as lib:
+        lib.zkp_bn254_g2_scalar_mul(_scalars([k]), _g2_to_wire(p), out)
+    return _g2_from_wire(out.raw)
+
+
+def g1_fixed_handle(key, points) -> int:
+    """Registered-table handle of a process-constant G1 basis (as
+    :func:`ed_fixed_handle`)."""
+    return _handle(_g1_handles, key, lambda: _bn254_lib().zkp_bn254_g1_msm_register(
+        len(points), b"".join(_g1_to_wire(p) for p in points)))
+
+
+def g2_fixed_handle(key, points) -> int:
+    """Registered-table handle of a process-constant G2 basis."""
+    return _handle(_g2_handles, key, lambda: _bn254_lib().zkp_bn254_g2_msm_register(
+        len(points), b"".join(_g2_to_wire(p) for p in points)))
+
+
+def _msm_fixed(g: str, key, scalars: Sequence[int], points) -> bytes:
+    if len(scalars) != len(points):
+        raise ValueError(f"{len(scalars)} scalars for {len(points)} points")
+    h = (g1_fixed_handle if g == "g1" else g2_fixed_handle)(key, points)
+    out = ctypes.create_string_buffer(96 if g == "g1" else 192)
+    with _bn254_team(len(points) >= TEAM_MIN_POINTS) as lib:
+        getattr(lib, f"zkp_bn254_{g}_msm_fixed_mt")(h, _scalars(scalars), out,
+                                                     lib.omp_get_max_threads())
+    return out.raw
+
+
+def bn254_g1_msm_fixed(key, scalars: Sequence[int], points):
+    """One MSM over the registered G1 basis ``key`` (``points``): one window
+    chunk a thread of the team from :data:`TEAM_MIN_POINTS` points, else
+    serial."""
+    return _g1_from_wire(_msm_fixed("g1", key, scalars, points))
+
+
+def bn254_g2_msm_fixed(key, scalars: Sequence[int], points):
+    """One MSM over the registered G2 basis ``key``, as
+    :func:`bn254_g1_msm_fixed`."""
+    return _g2_from_wire(_msm_fixed("g2", key, scalars, points))
+
+
+def groth16_prove_msms(ha: int, hb1: int, hh: int, hl: int, hb2: int, z: Sequence[int],
+                       h: Sequence[int], wit_off: int):
+    """The five query MSMs of one Groth16 proof in one call over the
+    registered a, b_g1, h, l (G1) and b_g2 (G2) queries: every MSM cut into
+    two window halves, all ten tasks under one OpenMP loop on the team.
+    Returns (a, b_g1, h, l, b_g2) accumulators."""
+    out = ctypes.create_string_buffer(4 * 96 + 192)
+    with _bn254_team() as lib:
+        lib.zkp_groth16_prove_msms(ha, hb1, hh, hl, hb2, len(z), len(h), wit_off, _scalars(z),
+                                   _scalars(h), out)
+    raw = out.raw
+    return (*(_g1_from_wire(raw[i * 96 : (i + 1) * 96]) for i in range(4)),
+            _g2_from_wire(raw[384:576]))
+
+
+def _unpack(raw: bytes, count: int) -> List[int]:
+    return [int.from_bytes(raw[i * 32 : (i + 1) * 32], "little") for i in range(count)]
+
+
+def groth16_h(n: int, n_constraints: int, n_instance: int, p: int, root: int, coset_g: int,
+              csr, z: Sequence[int]) -> List[int]:
+    """h of assignment ``z`` in one call: the sparse products, seven NTTs
+    over Fr of size ``n``, the coset scalings and the pointwise combine (the
+    library runs the three vectors' chains as three OpenMP sections of its
+    own from n = 256). ``csr`` is the circuit's packed rows, ``((ptr, idx,
+    coef, nnz),) * 3`` (A, B, C; uint32 ptr and idx, 32-byte little-endian
+    coefficients). The circuit's constants register once, keyed by ``csr``
+    (at most :data:`MAX_FIXED_BASES` circuits, then ``MemoryError``). Raises
+    ``AssertionError`` when h has degree above n - 2 (an unsatisfied
+    constraint system)."""
+    key = (n, n_constraints, n_instance, len(z), p, root, coset_g, csr)
+
+    def register():
+        (ap, ai, ac, an), (bp, bi, bc, bn_), (cp, ci, cc, cn) = csr
+        return load().zkp_groth16_h_register(
+            n, n_constraints, n_instance, len(z), p.to_bytes(32, "little"),
+            (root % p).to_bytes(32, "little"), (coset_g % p).to_bytes(32, "little"),
+            ap, ai, ac, an, bp, bi, bc, bn_, cp, ci, cc, cn)
+
+    h = _handle(_g16h_handles, key, register, "Groth16 h circuit")
+    out = ctypes.create_string_buffer(32 * (n - 1))
+    if load().zkp_groth16_h_run(h, b"".join((v % p).to_bytes(32, "little") for v in z), out) != 0:
+        raise AssertionError("h degree exceeds n-2: unsatisfied constraint system?")
+    return _unpack(out.raw, n - 1)
+
+
+def groth16_spmv(n: int, n_constraints: int, n_instance: int, p: int, csr,
+                 z: Sequence[int]) -> Tuple[bytes, bytes, bytes]:
+    """The sparse half of the h pipeline: A, B and C over the size-``n``
+    domain for assignment ``z`` (``csr`` as in :func:`groth16_h`; the
+    instance-consistency rows add z[i] to A), each as ``n`` canonical
+    32-byte little-endian values, the rows the device h takes. Serial;
+    registers nothing."""
+    (ap, ai, ac, an), (bp, bi, bc, bn_), (cp, ci, cc, cn) = csr
+    bufs = [ctypes.create_string_buffer(32 * n) for _ in range(3)]
+    load().zkp_groth16_spmv(n, n_constraints, n_instance, len(z), p.to_bytes(32, "little"),
+                            ap, ai, ac, an, bp, bi, bc, bn_, cp, ci, cc, cn,
+                            b"".join((v % p).to_bytes(32, "little") for v in z), *bufs)
+    return tuple(b.raw for b in bufs)
+
+
+def _pairs_wire(pairs) -> Tuple[bytes, bytes]:
+    return (b"".join(_g1_to_wire(p) for p, _ in pairs), b"".join(_g2_to_wire(q) for _, q in pairs))
+
+
+def bn254_multi_pairing(pairs):
+    """prod e(P_i, Q_i) over ``(G1, G2)`` pairs with one final
+    exponentiation (pairs with a point at infinity skipped): the Miller
+    loops across the team from :data:`TEAM_MIN_PAIRS` pairs. -> Fq12."""
+    pairs = list(pairs)
+    g1b, g2b = _pairs_wire(pairs)
+    out = ctypes.create_string_buffer(384)
+    with _bn254_team(len(pairs) >= TEAM_MIN_PAIRS) as lib:
+        lib.zkp_bn254_multi_pairing(len(pairs), g1b, g2b, out)
+    return _fq12_from_wire(out.raw)
+
+
+def bn254_miller_bytes(g1, g2) -> bytes:
+    """The Miller loop of (g1, g2) before the final exponentiation, as wire
+    bytes (for a pair that is constant per key)."""
+    out = ctypes.create_string_buffer(384)
+    _bn254_lib().zkp_bn254_miller(_g1_to_wire(g1), _g2_to_wire(g2), out)
+    return out.raw
+
+
+def bn254_multi_pairing_premul(f_pre: bytes, pairs):
+    """:func:`bn254_multi_pairing` with the Miller value ``f_pre``
+    (:func:`bn254_miller_bytes`) multiplied in before the final
+    exponentiation. Serial."""
+    pairs = list(pairs)
+    g1b, g2b = _pairs_wire(pairs)
+    out = ctypes.create_string_buffer(384)
+    _bn254_lib().zkp_bn254_multi_pairing_premul(bytes(f_pre), len(pairs), g1b, g2b, out)
+    return _fq12_from_wire(out.raw)

@@ -1,11 +1,17 @@
 """BN254 (alt_bn128) curve: tower fields, G1/G2, optimal-ate pairing.
 
-Pure-Python copy of the JAX package's ``libzkp_tpu/ops/bn254.py`` (the host
-golden tier) without its native C++ hooks: Fq/Fq2/Fq6/Fq12 arithmetic, G1/G2
-Jacobian group ops, scalar multiplication and Pippenger MSM, and the
-optimal-ate pairing Groth16 verification needs. The batched fixed-basis
-MSMs (``g1_msm_fixed_many`` / ``g2_msm_fixed_many``) run on the entry
-point's device through :mod:`.msm_device` and the MSM kernels.
+Copy of the JAX package's ``libzkp_tpu/ops/bn254.py``: Fq/Fq2/Fq6/Fq12
+arithmetic, G1/G2 Jacobian group ops, scalar multiplication and Pippenger
+MSM, and the optimal-ate pairing Groth16 verification needs. As in the JAX
+package, :func:`g1_msm`, :func:`g2_msm`, :func:`g1_msm_fixed`,
+:func:`g2_msm_fixed`, :func:`g1_scalar_mul`, :func:`g2_scalar_mul`,
+:func:`multi_pairing` and :func:`pairing` run on the native host tier
+(:mod:`libzkp_tpu_torch.native`, built at the first call, never at import);
+their pure-Python goldens stay as ``g1_msm_py``, ``g2_msm_py``,
+``g1_scalar_mul_py``, ``g2_scalar_mul_py``, ``multi_pairing_py`` and
+``pairing_py``. The batched fixed-basis MSMs (``g1_msm_fixed_many`` /
+``g2_msm_fixed_many``) run on the entry point's device through
+:mod:`.msm_device` and the MSM kernels.
 
 Tower: Fq2 = Fq[u]/(u^2+1); Fq6 = Fq2[v]/(v^3 - xi), xi = 9+u;
 Fq12 = Fq6[w]/(w^2 - v).
@@ -15,6 +21,7 @@ from __future__ import annotations
 
 from typing import List, Optional, Sequence, Tuple
 
+from .. import native
 from .field import BN254_FQ, BN254_FR
 
 P = BN254_FQ.p
@@ -316,7 +323,7 @@ def g1_neg(p: G1) -> G1:
     return (p[0], (P - p[1]) % P, p[2])
 
 
-def g1_scalar_mul(k: int, p: G1) -> G1:
+def g1_scalar_mul_py(k: int, p: G1) -> G1:
     k %= R
     acc = G1_INF
     while k:
@@ -327,8 +334,8 @@ def g1_scalar_mul(k: int, p: G1) -> G1:
     return acc
 
 
-def g1_msm(scalars: Sequence[int], points: Sequence[G1], window: int = 6) -> G1:
-    """Pippenger MSM over G1 (host tier)."""
+def g1_msm_py(scalars: Sequence[int], points: Sequence[G1], window: int = 6) -> G1:
+    """Pippenger MSM over G1 (the golden)."""
     pairs = [(s % R, pt) for s, pt in zip(scalars, points) if s % R != 0 and pt[2] != 0]
     if not pairs:
         return G1_INF
@@ -435,7 +442,7 @@ def g2_neg(p: G2) -> G2:
     return (p[0], fq2_neg(p[1]), p[2])
 
 
-def g2_scalar_mul(k: int, p: G2) -> G2:
+def g2_scalar_mul_py(k: int, p: G2) -> G2:
     k %= R
     acc = G2_INF
     while k:
@@ -446,8 +453,8 @@ def g2_scalar_mul(k: int, p: G2) -> G2:
     return acc
 
 
-def g2_msm(scalars: Sequence[int], points: Sequence[G2], window: int = 6) -> G2:
-    """Pippenger MSM over G2."""
+def g2_msm_py(scalars: Sequence[int], points: Sequence[G2], window: int = 6) -> G2:
+    """Pippenger MSM over G2 (the golden)."""
     pairs = [
         (s % R, pt) for s, pt in zip(scalars, points) if s % R != 0 and not g2_is_inf(pt)
     ]
@@ -608,12 +615,12 @@ def final_exponentiation(f: Fq12) -> Fq12:
     return fq12_pow(f2, hard)
 
 
-def pairing(q: G2, p: G1) -> Fq12:
+def pairing_py(q: G2, p: G1) -> Fq12:
     return final_exponentiation(miller_loop(q, p))
 
 
-def multi_pairing(pairs: Sequence[Tuple[G1, G2]]) -> Fq12:
-    """prod e(P_i, Q_i) with one shared final exponentiation."""
+def multi_pairing_py(pairs: Sequence[Tuple[G1, G2]]) -> Fq12:
+    """prod e(P_i, Q_i) with one shared final exponentiation (the golden)."""
     f = FQ12_ONE
     for p, q in pairs:
         if g1_is_inf(p) or g2_is_inf(q):
@@ -622,13 +629,64 @@ def multi_pairing(pairs: Sequence[Tuple[G1, G2]]) -> Fq12:
     return final_exponentiation(f)
 
 
+# ---------------------------------------------------------------------------
+# The native tier: the same functions on zkpcore.cpp (native/), at the JAX
+# package's call sites
+# ---------------------------------------------------------------------------
+
+
+_native_ready = False
+
+
+def native_tier():
+    """:mod:`..native` with this module's constants handed over
+    (``native.bn254_init``: P, R, the Frobenius coefficients and the final
+    exponentiation's hard part), once a process, on the first call."""
+    global _native_ready
+    if not _native_ready:
+        native.bn254_init(P, R, _FROB_GAMMA1, (P**4 - P**2 + 1) // R)
+        _native_ready = True
+    return native
+
+
+def g1_msm(scalars: Sequence[int], points: Sequence[G1]) -> G1:
+    """Pippenger MSM over G1 on the native tier."""
+    return native_tier().bn254_g1_msm(scalars, points)
+
+
+def g2_msm(scalars: Sequence[int], points: Sequence[G2]) -> G2:
+    """Pippenger MSM over G2 on the native tier."""
+    return native_tier().bn254_g2_msm(scalars, points)
+
+
 def g1_msm_fixed(scalars, points) -> G1:
-    """MSM over a process-constant basis (proving-key query vectors)."""
-    return g1_msm(scalars, points)
+    """MSM over a process-constant basis (proving-key query vectors, key
+    points) on the native tier's precomputed tables, registered on first
+    use under the basis's value."""
+    return native_tier().bn254_g1_msm_fixed(tuple(points), scalars, points)
 
 
 def g2_msm_fixed(scalars, points) -> G2:
-    return g2_msm(scalars, points)
+    return native_tier().bn254_g2_msm_fixed(tuple(points), scalars, points)
+
+
+def g1_scalar_mul(k: int, p: G1) -> G1:
+    """k * p on the native tier."""
+    return native_tier().bn254_g1_scalar_mul(k, p)
+
+
+def g2_scalar_mul(k: int, p: G2) -> G2:
+    return native_tier().bn254_g2_scalar_mul(k, p)
+
+
+def multi_pairing(pairs: Sequence[Tuple[G1, G2]]) -> Fq12:
+    """prod e(P_i, Q_i) with one shared final exponentiation, on the native
+    tier."""
+    return native_tier().bn254_multi_pairing(list(pairs))
+
+
+def pairing(q: G2, p: G1) -> Fq12:
+    return native_tier().bn254_multi_pairing([(p, q)])
 
 
 def g1_msm_fixed_many(scalar_vecs, points, *, device, cache: bool = True) -> List[G1]:

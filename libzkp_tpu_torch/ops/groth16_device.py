@@ -5,9 +5,10 @@ sparse products (az, bz, cz over the domain, on the host), h is seven radix-2
 NTTs over BN254 Fr per proof: interpolate az, bz, cz, evaluate each on the
 coset g * <w>, take (az * bz - cz) / Z there, interpolate back off the coset.
 This module runs them for a whole batch of proofs at once
-(:func:`~.ntt.ntt_device` batched over proofs x 3 vectors) on the caller's
-device: on the ``mont_mul`` kernel on a CUDA device, on its plain version on
-the CPU. The limbs equal the JAX ``_h_jitted``'s.
+(:func:`~.ntt.ntt_device` batched over proofs x 3 vectors, which arrive as
+the native sparse products' bytes) on the caller's device: on the
+``mont_mul`` kernel on a CUDA device, on its plain version on the CPU. The
+limbs equal the JAX ``_h_jitted``'s.
 """
 
 from __future__ import annotations
@@ -66,20 +67,22 @@ def h_body(ctx: LimbContext, abc: torch.Tensor, g_pows: torch.Tensor, gi_pows: t
     return ctx.from_mont(h)
 
 
-def h_batch_device(n: int, az_list: Sequence, bz_list: Sequence, cz_list: Sequence,
-                   coset_g: int = 5, *, device=None) -> List[List[int]]:
+def h_batch_device(n: int, abc: Sequence, coset_g: int = 5, *, device=None) -> List[List[int]]:
     """h coefficient vectors for a batch of proofs, one device program.
 
-    Inputs are each proof's az, bz, cz over the size-n domain; returns each
-    proof's ``h[: n-1]``, as the host ``_h_from_evals``. Raises
-    AssertionError when an h has degree above n - 2 (an unsatisfied
-    constraint system, the host tier's check). ``device`` defaults to the
-    CUDA card; ``device="cpu"`` runs the plain versions."""
+    ``abc`` holds each proof's (az, bz, cz) over the size-n domain, each as
+    ``n`` canonical 32-byte little-endian values (the native sparse
+    products' rows, ``native.groth16_spmv``), which go to the limbs with no
+    Python ints between; returns each proof's ``h[: n-1]``, as the host
+    ``_h_from_evals``. Raises AssertionError when an h has degree above
+    n - 2 (an unsatisfied constraint system, the host tier's check).
+    ``device`` defaults to the CUDA card; ``device="cpu"`` runs the plain
+    versions."""
     dev = resolve(device)
     ctx = get_context(BN254_FR.p, "bn254_fr")
-    B = len(az_list)
-    flat = [v for vec in list(az_list) + list(bz_list) + list(cz_list) for v in vec]
-    x = ctx.encode(flat, device=dev).reshape(3 * B, n, ctx.n)
+    B = len(abc)
+    buf = b"".join(rows[k] for k in range(3) for rows in abc)
+    x = ctx.encode_bytes(buf, device=dev).reshape(3 * B, n, ctx.n)
     out = h_body(ctx, x, *_device_h_tables(n, coset_g, dev))
     ints = ctx.decode(out)
     res = []

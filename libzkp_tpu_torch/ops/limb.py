@@ -34,7 +34,13 @@ import numpy as np
 import torch
 
 from . import kernels
-from .limbfold import LIMB_BITS, LIMB_MASK, ints_to_limb_rows, limb_rows_to_ints  # noqa: F401
+from .limbfold import (  # noqa: F401
+    LIMB_BITS,
+    LIMB_MASK,
+    bytes_to_limb_rows,
+    ints_to_limb_rows,
+    limb_rows_to_ints,
+)
 from .limbfold import int_to_limbs as _int_to_limbs
 
 
@@ -88,6 +94,11 @@ class LimbContext:
         """Python ints -> (B, n) canonical limbs (vectorised)."""
         rows = ints_to_limb_rows([int(v) % self.p for v in values], self.n)
         return torch.from_numpy(rows).to(device)
+
+    def encode_bytes(self, buf: bytes, *, device="cpu") -> torch.Tensor:
+        """Canonical 32-byte little-endian values -> (B, n) canonical limbs,
+        as :meth:`encode` gives them, with no Python ints between."""
+        return torch.from_numpy(bytes_to_limb_rows(buf, 32, self.n)).to(device)
 
     def encode_scalar(self, value: int, *, device="cpu") -> torch.Tensor:
         return self.encode([value], device=device)[0]

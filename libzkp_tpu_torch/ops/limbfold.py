@@ -46,9 +46,20 @@ def ints_to_limb_rows(vals: Sequence[int], n: int) -> np.ndarray:
     Vectorized form of ``int_to_limbs`` over many values: bytes in, 12-bit
     fields out by numpy shifts."""
     nbytes = (LIMB_BITS * n + 7) // 8 + 1
-    buf = b"".join(int(v).to_bytes(nbytes, "little") for v in vals)
-    b = np.frombuffer(buf, dtype=np.uint8).reshape(len(vals), nbytes).astype(np.int32)
-    out = np.empty((len(vals), n), dtype=np.int32)
+    return bytes_to_limb_rows(b"".join(int(v).to_bytes(nbytes, "little") for v in vals), nbytes, n)
+
+
+def bytes_to_limb_rows(buf: bytes, width: int, n: int) -> np.ndarray:
+    """Non-negative little-endian values of ``width`` bytes each, below
+    2^(12n), -> (count, n) strict int32 limbs: :func:`ints_to_limb_rows`
+    for values that are bytes already (a native call's output rows)."""
+    nbytes = (LIMB_BITS * n + 7) // 8 + 1
+    if width > nbytes:
+        raise ValueError(f"{width}-byte values do not fit {n} limbs")
+    raw = np.frombuffer(buf, dtype=np.uint8).reshape(-1, width)
+    b = np.zeros((raw.shape[0], nbytes), dtype=np.int32)
+    b[:, :width] = raw
+    out = np.empty((raw.shape[0], n), dtype=np.int32)
     for i in range(n):
         j, off = divmod(LIMB_BITS * i, 8)
         out[:, i] = ((b[:, j] | (b[:, j + 1] << 8)) >> off) & LIMB_MASK

@@ -352,11 +352,13 @@ def test_horner_g1_geometry_raises_without_lanes():
 # (Kp, lanes) -> G the rule gives on an H100: the h query and the a, b_g1, l
 # queries at 256 statements (two waves of kernel 1 blocks), a statement's
 # table on the grouped route and the h query at its 8 statements (the
-# fewest dependent padd steps)
-WS4_G1_PATH_G = {(512, 1024): 32, (352, 1024): 44, (8, 128): 8, (512, 32): 128}
+# fewest dependent padd steps); the membership key's a and b_g1 (Kp 608 =
+# 19 * 32), h (1024) and l (480 = 15 * 32) queries at 256 statements
+WS4_G1_PATH_G = {(512, 1024): 32, (352, 1024): 44, (8, 128): 8, (512, 32): 128,
+                 (608, 1024): 38, (1024, 1024): 32, (480, 1024): 30}
 
 
-@pytest.mark.parametrize("Kp", [8, 352, 512])
+@pytest.mark.parametrize("Kp", [8, 352, 512, 480, 608, 1024])
 @pytest.mark.parametrize("B", [1, 8, 32, 256])
 def test_window_sum4_g1_geometry_fits_every_path_shape(Kp, B):
     """Kernel 1's blocks fit WS4_G1_NODE_BLOCKS to an SM (their launch

@@ -308,6 +308,20 @@ def test_g2_geometry_fits_every_path_shape(kernel, B):
             assert 2 * (smem + 1024) <= kernels.SMEM_SM
 
 
+@pytest.mark.parametrize("B", [1, 128, 256])
+def test_window_sum4_g2_geometry_fits_the_membership_query(B):
+    """The membership key's b_g2 query, 589 points padded to Kp 608: one
+    block a lane within a block's shared memory, two blocks an SM from 256
+    statements."""
+    K, lanes = 608, kernels.WIN_GROUP * B
+    warps, smem = kernels.coop_sum_geometry(CURVE, K, lanes, H100_SMS)
+    assert 1 <= warps <= max(1, -(-(K // 2) // kernels.COOP_PADDS_PER_WARP[CURVE]))
+    per_warp = kernels.COOP_PADDS_PER_WARP[CURVE] * kernels.COOP_SCRATCH_BYTES[CURVE]
+    assert smem == (K + 1) // 2 * kernels.POINT_BYTES[CURVE] + warps * per_warp <= kernels.SMEM_BLOCK_MAX
+    if lanes >= 2 * H100_SMS:
+        assert 2 * (smem + 1024) <= kernels.SMEM_SM
+
+
 def test_g2_geometry_raises_above_a_blocks_shared_memory():
     per_warp = kernels.COOP_PADDS_PER_WARP[CURVE] * kernels.COOP_SCRATCH_BYTES[CURVE]
     k_max = (kernels.SMEM_BLOCK_MAX - per_warp) // kernels.POINT_BYTES[CURVE] * 2

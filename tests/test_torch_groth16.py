@@ -6,7 +6,10 @@ both (numpy-seeded, injected as ``_rand_fr``), the port's
 ``prove_equality_batch(device="cpu")`` gives envelopes byte-identical to the
 JAX package's ``prove_equality``; proofs verify across the packages; a
 statement repeated 8 times takes the grouped finish, still verifies, and
-gives the bytes of the per-proof finish under the same draws.
+gives the bytes of the per-proof finish under the same draws; the native
+whole-pipeline baseline ``prove_assigned_native`` gives the card route's
+bytes under the same draws; the native ``verify`` gives the verdicts of its
+pure-Python golden ``verify_py``.
 """
 
 from __future__ import annotations
@@ -195,3 +198,34 @@ def test_equality_rejects_bad_statements(keys):
     assert tsb.SnarkBackend.prove_equality_zk(5, 6, commit_value_snark(5), device="cpu") == b""
     assert not zkpt.verify_equality(b"\x00" * 10, 5, 5)
     assert not zkpt.verify_equality(b"", 5, 6)
+
+
+def test_card_route_equals_native_baseline(batch, keys):
+    """``prove_assigned_native`` (native h, the five query MSMs in one native
+    call, the host finish) on the batch's statements, three distinct and one
+    8 times, under the same draws: the bytes of the card route's CPU batch,
+    the grouped finish's included."""
+    draws, pairs, ours, _ = batch
+    _, pk = keys
+    num_instance, csr = tsb._equality_shape()
+    z_list = [tsb._equality_assignment(v, v, int.from_bytes(commit_value_snark(v), "little"))
+              for v, _ in pairs]
+    saved = tg._rand_fr
+    tg._rand_fr = _feeder(draws)
+    try:
+        native = tg.prove_assigned_native(pk, z_list, num_instance, csr)
+    finally:
+        tg._rand_fr = saved
+    assert [tg.proof_to_bytes(p) for p in native] == [Envelope.from_bytes(e).proof for e in ours]
+
+
+def test_verify_equals_verify_py(batch, keys):
+    _, pairs, ours, _ = batch
+    _, pk = keys
+    proof = tg.proof_from_bytes(Envelope.from_bytes(ours[0]).proof)
+    fr = int.from_bytes(commit_value_snark(pairs[0][0]), "little")
+    other = int.from_bytes(commit_value_snark(pairs[1][0]), "little")
+    for public in ([fr], [other], [fr, fr], []):
+        assert tg.verify(pk.vk, public, proof) == tg.verify_py(pk.vk, public, proof) == (public == [fr])
+    swapped = tg.Proof(a=proof.c, b=proof.b, c=proof.a)
+    assert not tg.verify(pk.vk, [fr], swapped) and not tg.verify_py(pk.vk, [fr], swapped)

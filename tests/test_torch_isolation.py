@@ -1,5 +1,7 @@
 """The port stands alone: it imports neither jax nor the JAX package, and its
-entry points run on CUDA unless the CPU is asked for by name."""
+entry points run on CUDA unless the CPU is asked for by name. The JAX
+package is imported here only to make a membership key and proof, which a
+subprocess of the port alone verifies."""
 
 from __future__ import annotations
 
@@ -10,6 +12,10 @@ import sys
 from pathlib import Path
 
 import pytest
+
+from libzkp_tpu.models import groth16 as jg
+from libzkp_tpu.models import snark_backend as jsb
+from libzkp_tpu.models.schemes import set_membership as jsm
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -26,14 +32,19 @@ def _run(code: str, hide_gpus: bool = False) -> subprocess.CompletedProcess:
     )
 
 
-def test_port_imports_neither_jax_nor_reference():
-    code = """
+def test_port_imports_neither_jax_nor_reference(tmp_path):
+    jpk = jsb._get_membership_setup()
+    (tmp_path / "membership_mimc_pk.bin").write_bytes(jg.pk_to_bytes(jpk))
+    (tmp_path / "membership_mimc_vk.bin").write_bytes(jg.vk_to_bytes(jpk.vk))
+    membership = jsm.prove_membership(25, [10, 20, 25])
+    code = f"""
 import json, sys
 import libzkp_tpu_torch as zkp
 from libzkp_tpu_torch import convert, native, probes
 from libzkp_tpu_torch.parallel import collective, mesh
 from libzkp_tpu_torch.models import groth16, r1cs, snark_backend
-from libzkp_tpu_torch.models.schemes import consistency_proof, equality_proof, threshold_proof
+from libzkp_tpu_torch.models.schemes import consistency_proof, equality_proof, set_membership
+from libzkp_tpu_torch.models.schemes import threshold_proof
 from libzkp_tpu_torch.ops import bn254, field, kernels, mimc, msm_device, ntt, ristretto, weierstrass
 from libzkp_tpu_torch.ops import groth16_device, limb
 from libzkp_tpu_torch.utils.commitment import commit_value_snark
@@ -54,12 +65,20 @@ z = snark_backend._equality_assignment(v, v, fr)
 h = groth16._h_from_csr(512, num_instance, csr, z)
 ok = ok and cs.is_satisfied() and h == groth16._compute_h(cs, 512)
 # the device h and the MiMC batch on their plain versions
-abc = groth16._abc_from_csr(512, num_instance, csr, z)
-ok = ok and groth16_device.h_batch_device(512, *([t] for t in abc), device="cpu") == [h]
+rows = native.groth16_spmv(512, len(csr[0][0]) - 1, num_instance, groth16.R,
+                           groth16._packed_csr(csr), z)
+ok = ok and groth16_device.h_batch_device(512, [rows], device="cpu") == [h]
 ok = ok and zkp.mimc_hash_batch([v], device="cpu") == [mimc.mimc_hash_native(v)] == [fr]
+# a membership proof of the JAX package's key verifies on one native pairing
+snark_backend.set_snark_key_dir({str(tmp_path)!r})
+pairings = []
+premul = native.bn254_multi_pairing_premul
+native.bn254_multi_pairing_premul = lambda *a: pairings.append(1) or premul(*a)
+ok = ok and zkp.verify_membership(bytes.fromhex("{membership.hex()}"), [25, 10, 20])
+ok = ok and len(pairings) == 1
 mods = [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "libzkp_tpu."))
         or m == "libzkp_tpu"]
-print(json.dumps({"ok": ok, "mods": mods}))
+print(json.dumps({{"ok": ok, "mods": mods}}))
 """
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
@@ -78,6 +97,8 @@ print(json.dumps({"ok": ok, "mods": mods}))
     "bp.prove_single_batch([(Transcript(b'x'), 7, 1, 64)])",
     "zkp.prove_equality(7, 7)",
     "zkp.prove_equality_batch([(7, 7), (8, 8)])",
+    "zkp.prove_membership(7, [3, 7])",
+    "zkp.prove_membership_batch([(7, [7]), (8, [8, 9])])",
     "mesh.get_mesh()",
     "probes.run()",
     "zkp.mimc_hash_batch([1, 2])",

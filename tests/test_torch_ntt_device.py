@@ -44,7 +44,7 @@ def _ctxs():
     return jlimb.get_context(P, "bn254_fr"), get_context(P, "bn254_fr")
 
 
-@pytest.mark.parametrize("n", [8, 64, 512])
+@pytest.mark.parametrize("n", [8, 64, 512, 1024])
 def test_tables_equal_jax(n):
     for invert in (False, True):
         want = convert.limb_table(jntt._twiddle_table(P, n, invert), device="cpu")
@@ -54,7 +54,7 @@ def test_tables_equal_jax(n):
         assert torch.equal(torch.from_numpy(ours), convert.limb_table(theirs, device="cpu"))
 
 
-@pytest.mark.parametrize("n", [8, 64, 512])
+@pytest.mark.parametrize("n", [8, 64, 512, 1024])
 def test_ntt_device_exact_limbs_vs_jax(n):
     """Forward and inverse over a batch of two: the JAX ``ntt_batch`` limbs,
     decoding to the host NTT."""
@@ -101,14 +101,21 @@ def _assignments(values):
     return num_instance, csr, zs
 
 
+def _rows(abc):
+    """(az, bz, cz) as the 32-byte little-endian rows ``h_batch_device``
+    takes."""
+    return tuple(b"".join(v.to_bytes(32, "little") for v in vec) for vec in abc)
+
+
 def test_h_batch_device_equals_jax_and_host():
     """Three real equality assignments (az, bz, cz from the port's sparse
     products) at n = 512: the JAX ``h_batch_device`` and the port's host
-    ``_h_from_csr``; the batch prover's ``_h_many`` is the same call."""
+    ``_h_from_csr``; the batch prover's ``_h_many`` (the native sparse
+    products' rows) gives the same h."""
     num_instance, csr, zs = _assignments([3, 77, (1 << 64) - 1])
     abc = [tg._abc_from_csr(512, num_instance, csr, z) for z in zs]
     args = ([t[0] for t in abc], [t[1] for t in abc], [t[2] for t in abc])
-    got = tg16.h_batch_device(512, *args, device="cpu")
+    got = tg16.h_batch_device(512, [_rows(t) for t in abc], device="cpu")
     assert got == jg16.h_batch_device(512, *args)
     assert got == [tg._h_from_csr(512, num_instance, csr, z) for z in zs]
     key = SimpleNamespace(h_query=[None] * 511)  # _h_many reads the domain size off the key
@@ -123,6 +130,6 @@ def test_h_batch_device_rejects_unsatisfied_assignment():
     z[-1] = (z[-1] + 1) % P
     abc = tg._abc_from_csr(512, num_instance, csr, z)
     with pytest.raises(AssertionError, match="degree"):
-        tg16.h_batch_device(512, *([t] for t in abc), device="cpu")
+        tg16.h_batch_device(512, [_rows(abc)], device="cpu")
     with pytest.raises(AssertionError, match="degree"):
         tg._h_from_csr(512, num_instance, csr, z)
