@@ -15,6 +15,7 @@
     python3 chip_smoke.py --bp-rest    # phases 1, 2 and 13 only, no last line
     python3 chip_smoke.py --native     # phases 1, 2 and 12 only, no last line
     python3 chip_smoke.py --membership # phases 1, 2 and 6b only, no last line
+    python3 chip_smoke.py --improvement  # phases 1, 2, mont_mul's checks (3e) and 6c only, no last line
 
 Phases, each printing one JSON line:
 
@@ -41,7 +42,11 @@ Phases, each printing one JSON line:
    (b = a, and one row), at ragged last blocks, at b rows that are no
    contiguous run of a block, from bases not 16-byte aligned and at P6's
    2^20 rows, the timed ones also with the card's time a launch from the
-   profiler. The cooperative kernels (window_sum and horner ed25519,
+   profiler; mont_mul_n11 (f128, 11 limbs), limb for limb, at the
+   improvement batch's shapes (the forward NTT's last stage at N = 64 over
+   256 traces, to_mont, the coset shift), at rows near p and its multiples
+   with relaxed negative and unreduced limbs, at ragged and odd row counts
+   and from bases one 44-byte row past an aligned one. The cooperative kernels (window_sum and horner ed25519,
    window_sum4 G1 and G2, tree_sum on every curve, horner G1 and G2,
    horner4 G1 and G2, pair_add G1 and G2) are held limb for limb, also at
    ragged shapes (window_sum: Kp in {1, 2, 3,
@@ -104,6 +109,17 @@ Phases, each printing one JSON line:
    ``prove_assigned_native`` and the host golden prover, every proof
    checked by ``verify_membership_batch`` and a forged one singled out; the
    seam's table LRU is restored after it;
+6c. the improvement path (STARK, scheme 5): ``prove_improvement_batch`` of
+   256 distinct (old, new) pairs on the card route with the launch
+   counters zeroed just before and read just after (16 mont_mul_n11
+   launches: the coset LDE of every trace), warm batches timed in turns
+   with the native whole-pipeline baseline on the same pairs, every proof
+   byte-identical, one batch split into upload, device LDE + commit,
+   download and host assembly, one profiled (idle share), the device
+   program's parts timed alone, 16 pairs on the CPU's plain route
+   byte-identical, every proof verified by the native verifier and the
+   Python one (ms a proof), a tampered one rejected, and the native NTT and
+   BLAKE3 hooks timed against their goldens;
 7. the mesh-sharded MSM on a (dp 2, shard 2) mesh whose four positions are
    all this card (it checks the sharding, the per-block kernels and the
    cross-shard fold, and measures no interconnect): the five query MSMs of a
@@ -199,7 +215,16 @@ H_MONT_MULS = 43       # mont_mul launches of one h_batch_device call at n = 512
 MIMC_VALUES = 4096     # values per MiMC batch (bench.py's size)
 MIMC_MONT_MULS = 332   # to_mont, 110 rounds x 3, from_mont
 # mont_mul's cases timed in phase 3e (tags of _mont_cases; None: the NTT stage)
-MONT_TIMED = (None, "membership NTT stage", "one-row operand", "MiMC x * x", "MiMC to_mont", "P6")
+MONT_TIMED = (None, "membership NTT stage", "one-row operand", "MiMC x * x", "MiMC to_mont", "P6",
+              "f128 LDE stage", "f128 to_mont")
+# the improvement phase: distinct (old, new) pairs a batch, those proved on
+# the CPU's plain route too, and the batch's mont_mul_n11 launches (to_mont,
+# the inverse NTT's 3 stages and n^-1 with its to_mont, the coset shift, the
+# forward NTT's 6 stages and one reduce, two from_mont)
+IMP_PAIRS = 256
+IMP_PLAIN_PAIRS = 16
+IMP_MONT_MULS = 16
+IMP_TRACE, IMP_BLOWUP = 8, 8  # the improvement AIR's trace length and blowup: N = 64
 PADD_MACS = 9 * ED_MUL_MACS   # Edwards padd: 9 products
 PDOUBLE_MACS = 8 * ED_MUL_MACS
 WPADD_MACS = {"bn254_g1": 12 * MUL_MACS + 2 * 24,  # RCB padd: 12 products + 2 small multiplies
@@ -1405,6 +1430,21 @@ def fe_mul_pair(dev) -> None:
     emit({"phase": "fe_mul", **out})
 
 
+def _mont_consts(dev) -> dict:
+    """The consts block of each field mont_mul runs in here."""
+    from libzkp_tpu_torch.ops import ed25519 as ed
+    from libzkp_tpu_torch.ops.field import BN254_FR
+    from libzkp_tpu_torch.ops.limb import get_context
+
+    out = {"BN254 Fr": get_context(BN254_FR.p, "bn254_fr").tensor("consts", dev),
+           "2^255-19": get_context(ed.P).tensor("consts", dev)}
+    try:
+        from libzkp_tpu_torch.ops.field import F128
+    except ImportError:  # a checkout from before the STARK slice
+        return out
+    return out | {"f128": get_context(F128.p).tensor("consts", dev)}
+
+
 def _mont_cases(dev) -> list:
     """mont_mul's checked cases, (a, b, field, tag, shape): an NTT stage of
     a 256-statement h batch (3 * 256 polynomials of 512 points: 3 * 256 * 256
@@ -1415,7 +1455,15 @@ def _mont_cases(dev) -> list:
     blocks (M in {1, 127, 129}); b rows that are no contiguous run of a
     block (Mb = 3, and Mb = 129, whose run wraps to row 0); a and b from row
     1 of a tensor (bases not 16-byte aligned); P6's 2^20 rows in 2^255 - 19.
-    Limbs in [-4096, 4096) or [0, 4096) (twiddles, constants)."""
+    Limbs in [-4096, 4096) or [0, 4096) (twiddles, constants). Where the
+    tree has the n = 11 instance, f128 at the improvement batch's shapes
+    (IMP_PAIRS traces, N = 64): the last stage of the forward NTT (tag
+    "f128 LDE stage", the kernels line's mont_mul_n11 row), ``to_mont`` of
+    the traces (one row), the coset shift (8 rows broadcast), rows at the
+    canonicalisation's hazards (p - 1, p, 2p - 1, negated limbs, runs of
+    0xFFF limbs, unreduced limbs) times random rows, ragged and odd row
+    counts (1, 127, 129, 8191, 3 x 100 with Mb 3), and bases 44 bytes (one
+    row) past an aligned one."""
     import numpy as np
 
     from libzkp_tpu_torch import probes
@@ -1427,8 +1475,8 @@ def _mont_cases(dev) -> list:
     n = ctx.n
     gen = np.random.default_rng(20261018)
 
-    def rows(*shape, lo=-4096):
-        return torch.from_numpy(gen.integers(lo, 4096, shape + (n,), dtype=np.int32)).to(dev)
+    def rows(*shape, lo=-4096, limbs=n):
+        return torch.from_numpy(gen.integers(lo, 4096, shape + (limbs,), dtype=np.int32)).to(dev)
 
     tw = torch.from_numpy(_twiddle_table(ctx.p, H_N, False)[-1]).to(dev)  # (256, n), the last stage
     stage = rows(3 * G16_LANES, H_N // 2)
@@ -1451,32 +1499,70 @@ def _mont_cases(dev) -> list:
                   f"a, b ({4096},{n}) i32 from row 1"))
     _, pa, pb = probes.mont_mul_inputs(dev)
     cases.append((pa, pb, "2^255-19", "P6", f"a, b ({pa.shape[0]},{n}) i32"))
+    if "f128" not in _mont_consts(dev):
+        return cases
+    from libzkp_tpu_torch.ops.field import F128
+    from libzkp_tpu_torch.ops.ntt import _offset_powers
+
+    fctx = get_context(F128.p)
+    fn = fctx.n
+    N = IMP_TRACE * IMP_BLOWUP
+    f_tw = torch.from_numpy(_twiddle_table(F128.p, N, False)[-1]).to(dev)  # (32, 11)
+    p_limbs = [(v >> (12 * i)) & 0xFFF for v in (F128.p - 1, F128.p, 2 * F128.p - 1, (1 << 128) - 1)
+               for i in range(fn)]
+    hazard = torch.tensor(p_limbs, dtype=torch.int32, device=dev).reshape(4, fn)
+    hazard = torch.cat([hazard, -hazard, torch.full((1, fn), 4095, dtype=torch.int32, device=dev),
+                        torch.full((1, fn), -4096, dtype=torch.int32, device=dev),
+                        torch.full((1, fn), 8191, dtype=torch.int32, device=dev)])
+    hz = hazard.repeat(64, 1)  # 704 rows
+    cases += [
+        (rows(IMP_PAIRS, N // 2, limbs=fn), f_tw, "f128", "f128 LDE stage",
+         f"a ({IMP_PAIRS},{N // 2},{fn}) i32, b ({N // 2},{fn}) broadcast"),
+        (rows(IMP_PAIRS, IMP_TRACE, lo=0, limbs=fn), fctx.tensor("r2", dev), "f128", "f128 to_mont",
+         f"a ({IMP_PAIRS},{IMP_TRACE},{fn}) i32, b ({fn},)"),
+        (rows(IMP_PAIRS, IMP_TRACE, limbs=fn), _offset_powers(F128.p, IMP_TRACE, 3, dev), "f128",
+         "f128 coset shift", f"a ({IMP_PAIRS},{IMP_TRACE},{fn}) i32, b ({IMP_TRACE},{fn}) broadcast"),
+        (hz, rows(hz.shape[0], limbs=fn), "f128", "f128 near p",
+         f"a ({hz.shape[0]},{fn}) i32 at p - 1, p, 2p - 1, 2^128 - 1, their negations, 0xFFF, -4096, 8191"),
+        (hz, hz.flip(0).contiguous(), "f128", "f128 near p squared", f"a, b ({hz.shape[0]},{fn}) i32"),
+    ]
+    for M in (1, 127, 129, 8191):
+        cases.append((rows(M, limbs=fn), rows(M, limbs=fn), "f128", f"f128 ragged M {M}",
+                      f"a, b ({M},{fn}) i32"))
+    cases.append((rows(100, 3, limbs=fn), rows(3, lo=0, limbs=fn), "f128", "f128 Mb 3",
+                  f"a (100,3,{fn}) i32, b (3,{fn})"))
+    fa, fb = rows(1 + 8192, limbs=fn), rows(1 + 8192, limbs=fn)
+    cases.append((fa[1:], fb[1:], "f128", "f128 bases not 8-byte aligned", f"a, b (8192,{fn}) i32 from row 1"))
     return cases
+
+
+def _mont_instance(kernels, a) -> str:
+    """The mont_mul instance ``a``'s limb count runs (mont_mul on a tree
+    with one instance)."""
+    ns = getattr(kernels, "MONT_NS", {22: None})
+    return kernels.instance("mont_mul", ns[a.shape[-1]])
 
 
 def check_mont_kernels(dev, int_rate: float) -> list:
     """Phase 3e: mont_mul against its plain version, limb for limb, at
-    :func:`_mont_cases` (P6 and every case but the NTT stage emitted, not
-    returned: the kernels line keeps the path's shape); the NTT stage, the
-    one-row operand, MiMC's and P6's cases timed, with the card's time a
-    launch from the profiler."""
-    from libzkp_tpu_torch.ops import ed25519 as ed, kernels
-    from libzkp_tpu_torch.ops.field import BN254_FR
-    from libzkp_tpu_torch.ops.limb import get_context
+    :func:`_mont_cases` (every case emitted; the kernels line keeps the
+    paths' shapes: the BN254 NTT stage's row for mont_mul, the f128 LDE
+    stage's for mont_mul_n11); the cases of MONT_TIMED timed, with the
+    card's time a launch from the profiler."""
+    from libzkp_tpu_torch.ops import kernels
 
-    consts = get_context(BN254_FR.p, "bn254_fr").tensor("consts", dev)
-    pc = get_context(ed.P).tensor("consts", dev)
-    n = kernels.MONT_N
+    consts = _mont_consts(dev)
     results = []
     for a, b, field, tag, shape in _mont_cases(dev):
-        c = pc if tag == "P6" else consts
+        c = consts[field]
+        n = c.shape[1]
         out_k = kernels.mont_mul(c, a, b)
         out_p = kernels.mont_mul_plain(c, a, b)
         torch.cuda.synchronize()
         err = _limbs_err(f"mont_mul ({field}, {shape})", out_k, out_p)
         M, Mb = a.numel() // n, b.numel() // n
-        b_ms, b_by = bound(MONT_MACS * M, (2 * M + Mb) * n * 4, int_rate)
-        row = dict(name="mont_mul", route="cuda", source="libzkp_tpu_torch/csrc/mont.cu",
+        b_ms, b_by = bound((2 * n * n + n) * M, (2 * M + Mb) * n * 4, int_rate)
+        row = dict(name=_mont_instance(kernels, a), route="cuda", source="libzkp_tpu_torch/csrc/mont.cu",
                    replaces="scripts/bench_pallas_mul.py:96", max_abs_err=float(err),
                    tolerance="exact limbs", bound_ms=b_ms, bound_by=b_by, library_ms=None, shape=shape,
                    field=field)
@@ -1486,40 +1572,39 @@ def check_mont_kernels(dev, int_rate: float) -> list:
                         card=card_time(lambda: kernels.mont_mul(c, a, b), ("mont_mul_kernel",), 20))
         emit({"phase": "kernel_check", **row, **({"probe": tag} if tag == "P6" else
                                                  {"case": tag} if tag else {})})
-        if tag is None:
+        if tag in (None, "f128 LDE stage"):
             results.append(row)
     return results
 
 
 def mont_pair(dev) -> None:
     """mont_mul alone through its wrapper at the NTT stage, MiMC's two
-    shapes and P6's, each limb for limb against its plain version, timed
-    (CUDA events) with the card's time a launch (profiler); where the tree
-    has ``MONT_ROWS`` (a block of rows staged in shared memory), also at 32,
-    64, 128 and 256 rows a block, each timed in turns, with the card's time
-    a launch; runs on an earlier checkout too (this script copied into it),
-    for timings paired in one call. One mont_pair line."""
-    from libzkp_tpu_torch.ops import ed25519 as ed, kernels
-    from libzkp_tpu_torch.ops.field import BN254_FR
-    from libzkp_tpu_torch.ops.limb import get_context
+    shapes, P6's and (where the tree has it) the f128 LDE stage, each limb
+    for limb against its plain version, timed (CUDA events) with the card's
+    time a launch (profiler); where the tree has ``MONT_ROWS`` (a block of
+    rows staged in shared memory), also at 32, 64, 128 and 256 rows a block,
+    each timed in turns, with the card's time a launch; runs on an earlier
+    checkout too (this script copied into it), for timings paired in one
+    call. One mont_pair line."""
+    from libzkp_tpu_torch.ops import kernels
 
-    consts = get_context(BN254_FR.p, "bn254_fr").tensor("consts", dev)
-    pc = get_context(ed.P).tensor("consts", dev)
-    n = kernels.MONT_N
+    consts = _mont_consts(dev)
     out: dict = {"card": smi("name,power.limit")}
     for a, b, field, tag, shape in _mont_cases(dev):
-        if tag not in MONT_TIMED or tag == "one-row operand":
+        if tag not in MONT_TIMED or tag in ("one-row operand", "f128 to_mont"):
             continue
-        c = pc if tag == "P6" else consts
+        c = consts[field]
+        n = c.shape[1]
         _limbs_err(f"mont_mul ({shape})", kernels.mont_mul(c, a, b), kernels.mont_mul_plain(c, a, b))
         row = {"shape": shape, "ms": cuda_ms(lambda: kernels.mont_mul(c, a, b), 20),
                **card_time(lambda: kernels.mont_mul(c, a, b), ("mont_mul_kernel",), 20)}
         M, Mb = a.numel() // n, b.numel() // n
         if hasattr(kernels, "MONT_ROWS") and tag != "P6":
             res = torch.empty_like(a)
+            variant = getattr(kernels, "MONT_NS", {22: None})[n]
 
             def forced(R):
-                kernels._run("mont_mul", None, dev, c.data_ptr(), a.data_ptr(), b.data_ptr(),
+                kernels._run("mont_mul", variant, dev, c.data_ptr(), a.data_ptr(), b.data_ptr(),
                              res.data_ptr(), n, M, Mb, R)
 
             want = kernels.mont_mul_plain(c, a, b)
@@ -2164,6 +2249,209 @@ def membership(dev) -> dict:
           "batch_ms_per_proof": batch_verify_ms / MEM_LANES, "forged_index": forged,
           "bisect_ms": bisect_ms, "forged_rejected": True})
     return {"counts": counts, "items": items, "envs": envs, "ms_per_batch": batch_ms, "split": split}
+
+
+def improvement_pairs() -> list:
+    """IMP_PAIRS distinct seeded (old, new) u64 pairs: (0, 2^64 - 1),
+    adjacent values at 0, at 2^63 and at the top, (1, 8) and (30, 50), the
+    rest random."""
+    top = (1 << 64) - 1
+    pairs = [(0, top), (0, 1), (1 << 63, (1 << 63) + 1), (top - 1, top), (1, 8), (30, 50)]
+    rng = random.Random(5555)
+    while len(pairs) < IMP_PAIRS:
+        old, new = sorted(rng.randrange(1 << 64) for _ in range(2))
+        if old < new and (old, new) not in pairs:
+            pairs.append((old, new))
+    return pairs
+
+
+def improvement_native_hooks(pairs: list) -> dict:
+    """The STARK's native hooks against their pure-Python goldens on this
+    machine's host, µs a call both ways, every result equal: the NTT over
+    f128 at n = 8 and 64 and over BN254 Fr at 512, BLAKE3 of the coin's
+    48-byte draws, ``blake3_batch`` of a trace's 64 leaf messages of 16
+    bytes and ``blake3_merkle_levels`` over its 64 leaf digests."""
+    from libzkp_tpu_torch import native
+    from libzkp_tpu_torch.ops import blake3, ntt
+    from libzkp_tpu_torch.ops.field import BN254_FR, F128
+
+    rng = random.Random(6464)
+    out: dict = {}
+    for F, n, count in ((F128, 8, 256), (F128, 64, 64), (BN254_FR, 512, 8)):
+        inputs = [(F, [rng.randrange(F.p) for _ in range(n)]) for _ in range(count)]
+        us, got = _per_call_us(ntt.ntt, inputs)
+        us_py, want = _per_call_us(ntt.ntt_py, inputs)
+        if got != want:
+            raise AssertionError(f"native ntt differs from ntt_py at {F.name} n = {n}")
+        out[f"ntt_{F.name}_{n}"] = {"native_us": us, "py_us": us_py}
+    draws = [(rng.randbytes(48),) for _ in range(1024)]
+    us, got = _per_call_us(blake3.blake3_256, draws)
+    us_py, want = _per_call_us(blake3.blake3_256_py, draws)
+    if got != want:
+        raise AssertionError("native blake3_256 differs from blake3_256_py")
+    out["blake3_256_48B"] = {"native_us": us, "py_us": us_py}
+    rows = [[rng.randbytes(16) for _ in range(IMP_TRACE * IMP_BLOWUP)] for _ in range(64)]
+    us, got = _per_call_us(lambda r: native.blake3_batch(r, 16), [(r,) for r in rows])
+    us_py, want = _per_call_us(lambda r: [blake3.blake3_256_py(x) for x in r], [(r,) for r in rows])
+    if got != want:
+        raise AssertionError("native blake3_batch differs from blake3_256_py")
+    out["blake3_batch_64x16B"] = {"native_us": us, "py_us": us_py}
+
+    def levels_py(leaves):
+        cur, levels = leaves, []
+        while len(cur) > 1:
+            cur = [blake3.merge_digests_py(cur[i], cur[i + 1]) for i in range(0, len(cur), 2)]
+            levels.append(cur)
+        return levels
+
+    us, got = _per_call_us(native.blake3_merkle_levels, [(g,) for g in got])
+    us_py, want = _per_call_us(levels_py, [(g,) for g in want])
+    if got != want:
+        raise AssertionError("native blake3_merkle_levels differs from merge_digests_py's")
+    out["blake3_merkle_levels_64"] = {"native_us": us, "py_us": us_py}
+    emit({"phase": "improvement_native_hooks", "card": smi("name,power.limit"), **out})
+    return out
+
+
+def improvement(dev) -> dict:
+    """Phase 6c: IMP_PAIRS distinct improvement proofs (scheme 5) through the
+    port's entry point, ``prove_improvement_batch``, the card route: every
+    trace's coset LDE (mont_mul_n11) and BLAKE3 leaf digests in one device
+    program, each proof's transcript, FRI and serialisation on the host. The
+    cold batch's launches are asserted (IMP_MONT_MULS mont_mul_n11, nothing
+    else); warm batches timed in turns with the native whole-pipeline
+    baseline ``_prove_native`` on the same pairs (card, native, native,
+    card, card, native), every proof byte-identical; one batch split into
+    the upload, the device LDE + commit, the download and the host assembly;
+    one under ``torch.profiler`` (busy ms, idle share, mont_mul_n11's card
+    time); the device program's parts timed alone on the batch's traces
+    (the coset LDE, the canonicalisation, the word packing, the leaf BLAKE3:
+    CUDA-event ms, busy ms and device operations); IMP_PLAIN_PAIRS pairs
+    proved on the CPU's plain route, byte-identical; every proof verified by
+    the native verifier and by ``verify_improvement_py`` (ms a proof both),
+    every envelope by ``verify_improvement``, a tampered proof rejected by
+    all three; the native hooks against their goldens."""
+    import libzkp_tpu_torch as zkp
+    from libzkp_tpu_torch.models import stark, stark_backend as sb
+    from libzkp_tpu_torch.ops import blake3_device, kernels, ntt, stark_device as sd
+    from libzkp_tpu_torch.ops.field import F128
+    from libzkp_tpu_torch.ops.limb import get_context
+    from libzkp_tpu_torch.profile_prover import _wrap
+    from libzkp_tpu_torch.utils.envelope import Proof
+
+    start = time.perf_counter()
+    pairs = improvement_pairs()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    envs = zkp.prove_improvement_batch(pairs, device=dev)
+    torch.cuda.synchronize()
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    counts = kernels.launches()
+    want = dict.fromkeys(kernels.INSTANCES, 0) | {"mont_mul_n11": IMP_MONT_MULS}
+    if counts != want:
+        raise AssertionError(f"kernel launches {counts}, the improvement batch needs {want}")
+    proofs = [bytes(Proof.from_bytes(e).proof[16:]) for e in envs]
+    if len(envs) != IMP_PAIRS or len(set(proofs)) != IMP_PAIRS:
+        raise AssertionError("prove_improvement_batch returned missing or repeated proofs")
+    emit({"phase": "improvement_cold", "proofs": IMP_PAIRS, "ms": cold_ms,
+          "proof_bytes": [min(map(len, proofs)), max(map(len, proofs))],
+          "launches": {k: v for k, v in counts.items() if v}})
+
+    timed = {"card": [], "native": []}
+    for route in ("card", "native", "native", "card", "card", "native"):
+        t0 = time.perf_counter()
+        if route == "card":
+            got = zkp.prove_improvement_batch(pairs, device=dev)
+            torch.cuda.synchronize()
+        else:
+            got = sb._prove_native(pairs)
+        timed[route].append((time.perf_counter() - t0) * 1e3)
+        if got != (envs if route == "card" else proofs):
+            raise AssertionError(f"a warm {route} batch's proofs differ from the cold card batch's")
+    card_ms = sum(timed["card"]) / len(timed["card"])
+    native_ms = sum(timed["native"]) / len(timed["native"])
+    emit({"phase": "improvement_warm", "card": smi("name,power.limit"), "torch_threads": torch.get_num_threads(),
+          "batch_ms": timed["card"], "ms_per_batch": card_ms,
+          "spread_ms": [min(timed["card"]), max(timed["card"])],
+          "ms_per_improvement_proof": card_ms / IMP_PAIRS,
+          "native_batch_ms": timed["native"], "native_ms_per_proof": native_ms / IMP_PAIRS,
+          "native_spread_ms": [min(timed["native"]), max(timed["native"])],
+          "card_over_native": card_ms / native_ms, "identical": True})
+
+    spent: dict = defaultdict(float)
+    depth = [0]
+    undo = [_wrap(sd, "upload_traces", "upload", spent, depth),
+            _wrap(sd, "lde_commit_device", "device_lde_commit", spent, depth),
+            _wrap(sd, "download_commit", "download", spent, depth),
+            _wrap(stark, "prove", "host_assembly", spent, depth)]
+    try:
+        t0 = time.perf_counter()
+        got = zkp.prove_improvement_batch(pairs, device=dev)
+        torch.cuda.synchronize()
+        split_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for u in undo:
+            u()
+    if got != envs:
+        raise AssertionError("the split batch's proofs differ")
+    split = {f"{k}_ms": v * 1e3 for k, v in spent.items()}
+    emit({"phase": "improvement_split", "batch_ms": split_ms, **split,
+          "host_prepare_ms": split_ms - sum(split.values())})
+
+    got, prof_ms, busy = profiled(lambda: zkp.prove_improvement_batch(pairs, device=dev))
+    if got != envs:
+        raise AssertionError("the profiled batch's proofs differ")
+    emit({"phase": "improvement_profile", "batch_ms_profiled": prof_ms,
+          **busy_summary(busy, prof_ms, mont_mul_n11="mont_mul_kernel<11>")})
+
+    # the device program's parts alone, on the batch's own traces
+    ctx = get_context(F128.p)
+    airs = [sb.ImprovementAir(sb.TRACE_LENGTH, [o, n], sb.DEFAULT_OPTIONS) for o, n in pairs]
+    x = sd.upload_traces(ctx, [sb._build_trace(a, o) for a, (o, _) in zip(airs, pairs)], dev)
+    _, lde = ntt.coset_lde_device(ctx, x, IMP_BLOWUP, stark.DOMAIN_OFFSET)
+    canon = sd.canon_f128_device(ctx, lde)
+    words = sd.limbs_to_u32_words(canon, 16)
+    m = torch.nn.functional.pad(words.reshape(-1, 4), (0, 12))
+    parts = {"coset_lde": lambda: ntt.coset_lde_device(ctx, x, IMP_BLOWUP, stark.DOMAIN_OFFSET),
+             "canonicalise": lambda: sd.canon_f128_device(ctx, lde),
+             "words": lambda: sd.limbs_to_u32_words(canon, 16),
+             "leaf_blake3": lambda: blake3_device.hash_blocks(m, 16)}
+    part_rows = {}
+    for name, fn in parts.items():
+        _, _, pbusy = profiled(fn)
+        part_rows[name] = {"ms": cuda_ms(fn, 5), "device_busy_ms": sum(b[1] for b in pbusy) / 1e3,
+                           "device_ops": sum(b[2] for b in pbusy)}
+    emit({"phase": "improvement_device_parts", "rows": x.shape[0] * IMP_TRACE * IMP_BLOWUP, **part_rows})
+
+    t0 = time.perf_counter()
+    plain = zkp.prove_improvement_batch(pairs[:IMP_PLAIN_PAIRS], device="cpu")
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    if plain != envs[:IMP_PLAIN_PAIRS]:
+        raise AssertionError("the plain route's proofs differ from the card route's")
+
+    t0 = time.perf_counter()
+    ok = [sb.verify_improvement(pf, o, n) for pf, (o, n) in zip(proofs, pairs)]
+    verify_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    ok_py = [sb.verify_improvement_py(pf, o, n) for pf, (o, n) in zip(proofs, pairs)]
+    verify_py_ms = (time.perf_counter() - t0) * 1e3
+    if not (all(ok) and all(ok_py) and all(zkp.verify_improvement(e, o) for e, (o, _) in zip(envs, pairs))):
+        raise AssertionError("an improvement proof was rejected")
+    bad = bytearray(proofs[1])
+    bad[len(bad) // 2] ^= 0x01
+    o, n = pairs[1]
+    bad_env = bytearray(envs[1])
+    bad_env[len(bad_env) // 2] ^= 0x01
+    if (sb.verify_improvement(bytes(bad), o, n) or sb.verify_improvement_py(bytes(bad), o, n)
+            or zkp.verify_improvement(bytes(bad_env), o) or zkp.verify_improvement(envs[1], o + 1)):
+        raise AssertionError("a tampered improvement proof was accepted")
+    emit({"phase": "improvement_verify", "proofs": IMP_PAIRS, "verify_ms_per_proof": verify_ms / IMP_PAIRS,
+          "verify_py_ms_per_proof": verify_py_ms / IMP_PAIRS, "tampered_rejected": True,
+          "plain_route": {"proofs": IMP_PLAIN_PAIRS, "ms_per_proof": plain_ms / IMP_PLAIN_PAIRS,
+                          "identical": True}})
+    improvement_native_hooks(pairs)
+    emit({"phase": "improvement", "seconds": time.perf_counter() - start})
+    return {"counts": counts, "ms_per_batch": card_ms, "split": split}
 
 
 def mesh_launches(dp: int, shard: int) -> dict:
@@ -3175,7 +3463,8 @@ def native_phase(dev, main: dict = None) -> None:
 
 def main(argv: list) -> int:
     flags = ("--kernels", "--range", "--groth16", "--g1", "--mont", "--ed-tree", "--ed-pair", "--f32-chain",
-             "--ed-chain", "--mont-padd", "--fe-mul", "--bp-rest", "--native", "--membership")
+             "--ed-chain", "--mont-padd", "--fe-mul", "--bp-rest", "--native", "--membership",
+             "--improvement")
     if len(argv) > 1 or (argv and argv[0] not in flags):
         print(f"usage: python3 chip_smoke.py [{' | '.join(flags)}], got {argv}", file=sys.stderr)
         return 2
@@ -3265,6 +3554,10 @@ def main(argv: list) -> int:
     if argv == ["--membership"]:  # the membership path alone
         membership(dev)
         return 0
+    if argv == ["--improvement"]:  # mont_mul's checks and the improvement path alone
+        check_mont_kernels(dev, int_rate)
+        improvement(dev)
+        return 0
     tables: dict = {}
     checks = (check_kernels(dev, int_rate, tables) + check_bn254_kernels(dev, int_rate, tables)
               + check_sharded_kernels(dev, int_rate, tables)
@@ -3279,6 +3572,7 @@ def main(argv: list) -> int:
     paths += [g16, groth16_grouped(dev)]
     with seam_tables_kept():  # its five query tables leave the LRU as they found it
         paths.append(membership(dev))
+    paths.append(improvement(dev))
     # the mesh route on one card: four positions, all cuda:0 (no interconnect)
     meshes = [("one_card", meshmod.get_mesh(dp=SHARD_DP, shard=SHARD_SHARD, devices=[dev] * 4))]
     if torch.cuda.device_count() > 1:

@@ -13,7 +13,11 @@ MSMs on the device; the Groth16 backend, its equality proofs
 prover, whose query MSMs over BN254 G1 and G2 run on the same family of
 hand-written CUDA kernels (``ops/kernels.py``, sources in ``csrc/``) and
 whose h polynomial runs on the device NTT over the Montgomery product
-kernel; and the MiMC batch (:func:`mimc_hash_batch`) on that kernel. The
+kernel; the MiMC batch (:func:`mimc_hash_batch`) on that kernel; and the
+STARK backend, its improvement proofs (:func:`prove_improvement_batch`):
+every trace's coset LDE over f128 on the same kernel at 11 limbs and its
+leaf digests in one device program, each proof's FRI and serialisation on
+the host. The
 query MSMs also run sharded over a (dp, shard) device mesh (``parallel/``,
 ``ops.curve.msm_many_sharded``) when ``parallel.mesh.set_mesh`` names one or
 more than one CUDA device is visible. The host primitives (the transcript's
@@ -38,6 +42,11 @@ from .models.schemes.equality_proof import (  # noqa: F401
     prove_equality_batch,
     verify_equality,
     verify_equality_with_commitment,
+)
+from .models.schemes.improvement_proof import (  # noqa: F401
+    prove_improvement,
+    prove_improvement_batch,
+    verify_improvement,
 )
 from .models.schemes.range_proof import (  # noqa: F401
     prove_range,
@@ -67,6 +76,8 @@ __all__ = [
     "prove_consistency_batch",
     "prove_equality",
     "prove_equality_batch",
+    "prove_improvement",
+    "prove_improvement_batch",
     "prove_membership",
     "prove_membership_batch",
     "prove_range",
@@ -79,6 +90,7 @@ __all__ = [
     "verify_consistency",
     "verify_equality",
     "verify_equality_with_commitment",
+    "verify_improvement",
     "verify_membership",
     "verify_range",
     "verify_threshold",

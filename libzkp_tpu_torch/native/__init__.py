@@ -7,9 +7,12 @@ Ristretto255 encode and decode, the whole-pipeline Bulletproofs batch
 prover and RLC batch verifier, and the BN254 and Groth16 host half: G1 and
 G2 scalar multiplication, Pippenger and fixed-basis MSMs, the five query
 MSMs of a proof in one call, the sparse products and the whole h pipeline
-of a circuit, and the optimal-ate multi-pairing. Every hook is held against
-the pure-Python goldens (``*_py`` in :mod:`..ops.keccak`,
-:mod:`..ops.ed25519` and :mod:`..ops.bn254`). The BN254 calls need the
+of a circuit, and the optimal-ate multi-pairing; and the STARK host half:
+BLAKE3 and the Merkle levels over its digests, the radix-2 NTT, and the
+whole-pipeline f128 improvement prover and its verifier. Every hook is held
+against the pure-Python goldens (``*_py`` in :mod:`..ops.keccak`,
+:mod:`..ops.ed25519`, :mod:`..ops.bn254`, :mod:`..ops.blake3` and
+:mod:`..ops.ntt`). The BN254 calls need the
 curve's constants, handed over once a process by :func:`bn254_init` (which
 :mod:`..ops.bn254` calls on its first hook call); before that they raise.
 
@@ -24,7 +27,8 @@ OpenMP: the team of each call's parallel regions is set on the calling
 thread just before the call, whether or not the libgomp that ``-fopenmp``
 links is the runtime torch loaded (a wheel may bundle its own, which
 ``torch.set_num_threads`` alone would leave at every core). The process's
-thread budget, ``torch.get_num_threads()``, runs the batch prover, the
+thread budget, ``torch.get_num_threads()``, runs the batch provers
+(Bulletproofs, and the STARK's from 9 pairs, where its loop opens), the
 verifier from 8 instances (where its own loop goes two-wide) and an MSM of
 at least :data:`TEAM_MIN_POINTS` points, whose windows a fixed-basis MSM
 splits into one chunk a thread, the five Groth16 query MSMs of a proof and
@@ -227,6 +231,114 @@ def keccak_f1600_bytes(state: bytearray) -> None:
     buf = ctypes.create_string_buffer(bytes(state), 200)
     load().zkp_keccak_f1600(buf)
     state[:] = buf.raw
+
+
+def blake3_256(data: bytes) -> bytes:
+    """BLAKE3 with a 32-byte output. Serial."""
+    data = bytes(data)
+    out = ctypes.create_string_buffer(32)
+    load().zkp_blake3(data, len(data), out)
+    return out.raw
+
+
+def blake3_batch(items: Sequence[bytes], item_len: int) -> List[bytes]:
+    """BLAKE3-256 of each of ``items``, byte strings of ``item_len`` bytes
+    each, in one call. Serial."""
+    if any(len(x) != item_len for x in items):
+        raise ValueError(f"blake3_batch: every item must be {item_len} bytes")
+    n = len(items)
+    out = ctypes.create_string_buffer(32 * n)
+    load().zkp_blake3_batch(b"".join(items), n, item_len, out)
+    raw = out.raw
+    return [raw[i * 32 : (i + 1) * 32] for i in range(n)]
+
+
+def blake3_merkle_levels(leaves: Sequence[bytes]) -> List[List[bytes]]:
+    """Every level above the leaves of a Merkle tree over a power-of-two
+    count of 32-byte leaf digests, bottom-up (each node the BLAKE3-256 of its
+    children's 64 bytes). Serial."""
+    n = len(leaves)
+    if n < 1 or n & (n - 1) or any(len(x) != 32 for x in leaves):
+        raise ValueError("blake3_merkle_levels takes a power-of-two count of 32-byte digests")
+    out = ctypes.create_string_buffer(32 * (n - 1))
+    load().zkp_blake3_merkle(b"".join(leaves), n, out)
+    raw = out.raw
+    levels, off, width = [], 0, n // 2
+    while width:
+        levels.append([raw[(off + i) * 32 : (off + i + 1) * 32] for i in range(width)])
+        off += width
+        width //= 2
+    return levels
+
+
+# ---------------------------------------------------------------------------
+# NTT and the STARK improvement prover and verifier (f128)
+# ---------------------------------------------------------------------------
+
+
+def ntt(p: int, values: Sequence[int], root: int, scale: Optional[int]) -> List[int]:
+    """Radix-2 NTT over the prime ``p`` (below 2^256) with the size-n root
+    ``root``; the inverse transform takes the inverted root and ``scale`` =
+    n^-1 mod p. Serial."""
+    n = len(values)
+    if n < 1 or n & (n - 1):
+        raise ValueError(f"ntt: size {n} is not a power of two")
+    buf = ctypes.create_string_buffer(b"".join((v % p).to_bytes(32, "little") for v in values), 32 * n)
+    sc = (scale % p).to_bytes(32, "little") if scale is not None else None
+    load().zkp_ntt(n, buf, p.to_bytes(32, "little"), (root % p).to_bytes(32, "little"), sc)
+    raw = buf.raw
+    return [int.from_bytes(raw[i * 32 : (i + 1) * 32], "little") for i in range(n)]
+
+
+# room for one improvement proof in the batch prover's output (a proof is
+# about 5 KB)
+STARK_OUT_STRIDE = 8192
+_U64 = 1 << 64
+
+
+def stark_prove_improvement_batch(pairs: Sequence[Tuple[int, int]], p: int, root64: int,
+                                  ctxs: Sequence[bytes]) -> List[bytes]:
+    """The whole improvement pipeline of each ``(old, new)`` pair (u64
+    values) in one call, its proofs across the team: ``root64`` is the LDE
+    domain's root of unity, ``ctxs`` each pair's random-coin seed material
+    (``ImprovementAir.context_bytes``, all one length). Raises ``ValueError``
+    for a pair with no valid witness."""
+    batch = len(pairs)
+    if batch == 0:
+        return []
+    if len(ctxs) != batch or len({len(c) for c in ctxs}) != 1:
+        raise ValueError("stark_prove_improvement_batch: one seed of one length a pair")
+    pair_arr = (ctypes.c_uint64 * (2 * batch))()
+    for i, (old, new) in enumerate(pairs):
+        if not (0 <= old < _U64 and 0 <= new < _U64):
+            raise ValueError(f"pair {i}: values must be u64")
+        pair_arr[2 * i], pair_arr[2 * i + 1] = old, new
+    out = ctypes.create_string_buffer(STARK_OUT_STRIDE * batch)
+    lens = (ctypes.c_int64 * batch)()
+    with _team() as lib:
+        lib.zkp_stark_prove_improvement_batch(
+            batch, pair_arr, p.to_bytes(32, "little"), (root64 % p).to_bytes(32, "little"),
+            b"".join(ctxs), len(ctxs[0]), out, STARK_OUT_STRIDE, lens)
+    raw = out.raw
+    res = []
+    for i in range(batch):
+        if lens[i] < 0:
+            raise ValueError("invalid improvement witness")
+        res.append(raw[i * STARK_OUT_STRIDE : i * STARK_OUT_STRIDE + lens[i]])
+    return res
+
+
+def stark_verify_improvement(old: int, new: int, p: int, root64: int, ctx: bytes,
+                             proof: bytes) -> bool:
+    """Verify one improvement proof against its u64 public inputs; the
+    library parses every length and bound of ``proof`` itself, so malformed
+    bytes give False. Serial."""
+    if not (0 <= old < _U64 and 0 <= new < _U64):
+        raise ValueError("stark_verify_improvement: values must be u64")
+    proof, ctx = bytes(proof), bytes(ctx)
+    return bool(load().zkp_stark_verify_improvement(
+        p.to_bytes(32, "little"), (root64 % p).to_bytes(32, "little"), old, new, ctx, len(ctx),
+        proof, len(proof)))
 
 
 # ---------------------------------------------------------------------------

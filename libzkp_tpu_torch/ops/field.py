@@ -1,8 +1,10 @@
 """Host prime-field arithmetic on Python ints (the golden tier).
 
-Copy of the JAX package's ``libzkp_tpu/ops/field.py`` for the two BN254
-fields the Groth16 slice uses: ``BN254_FR`` (scalars, the QAP domain) and
-``BN254_FQ`` (curve coordinates). Elements are canonical ints in ``[0, p)``.
+Copy of the JAX package's ``libzkp_tpu/ops/field.py`` for the fields the
+port uses: the two BN254 fields of the Groth16 slice, ``BN254_FR`` (scalars,
+the QAP domain) and ``BN254_FQ`` (curve coordinates), and winterfell's
+``F128`` (p = 2^128 - 45 * 2^40 + 1) of the STARK. Elements are canonical
+ints in ``[0, p)``.
 """
 
 from __future__ import annotations
@@ -36,10 +38,16 @@ class PrimeField:
     def mul(self, a: int, b: int) -> int:
         return a * b % self.p
 
+    def pow(self, a: int, e: int) -> int:
+        return pow(a, e, self.p)
+
     def inv(self, a: int) -> int:
         if a == 0:
             raise ZeroDivisionError(f"inverse of 0 in {self.name}")
         return pow(a, -1, self.p)
+
+    def div(self, a: int, b: int) -> int:
+        return a * self.inv(b) % self.p
 
     def batch_inv(self, xs: list) -> list:
         """Montgomery batch inversion: one inversion for n elements."""
@@ -58,6 +66,9 @@ class PrimeField:
             inv_all = inv_all * xs[i] % self.p
         return out
 
+    def to_le_bytes(self, a: int, length: int | None = None) -> bytes:
+        return int(a).to_bytes(length or self.nbytes, "little")
+
     def from_le_bytes_mod(self, data: bytes) -> int:
         """LE bytes reduced mod p (arkworks ``from_le_bytes_mod_order``)."""
         return int.from_bytes(data, "little") % self.p
@@ -75,10 +86,12 @@ class PrimeField:
 
 
 # Smallest multiplicative generators: bn254_fr g=5 (ark-bn254 Fr GENERATOR),
-# bn254_fq g=3.
+# bn254_fq g=3, f128 g=3 (winterfell's f128 GENERATOR: its two-adic roots
+# are winterfell's, F128_TWO_ADIC_ROOT below).
 _GENERATORS = {
     21888242871839275222246405745257275088548364400416034343698204186575808495617: 5,
     21888242871839275222246405745257275088696311157297823662689037894645226208583: 3,
+    (1 << 128) - 45 * (1 << 40) + 1: 3,
 }
 
 BN254_FQ = PrimeField(
@@ -89,3 +102,9 @@ BN254_FR = PrimeField(
     21888242871839275222246405745257275088548364400416034343698204186575808495617,
     "bn254_fr",
 )
+
+# winterfell f128 (reference stark.rs, winterfell 0.10): 2-adicity 40,
+# generator 3
+F128_MODULUS = (1 << 128) - 45 * (1 << 40) + 1
+F128 = PrimeField(F128_MODULUS, "f128")
+F128_TWO_ADIC_ROOT = 23953097886125630542083529559205016746

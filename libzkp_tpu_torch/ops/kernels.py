@@ -33,8 +33,10 @@ variant (:data:`INSTANCES`):
 * ``mont_mul`` (``csrc/mont.cu``, header ``csrc/mont.cuh``) is the 12-bit
   Montgomery product of :mod:`.limb` (``scripts/bench_pallas_mul.py``
   ``main.pallas_mul``): every product of the Groth16 h pipeline and of the
-  MiMC batch. It takes its field from its consts block, so it has one
-  instance;
+  MiMC batch, and of the STARK batch's coset LDE over f128. It takes its
+  field from its consts block, so it has one instance per limb count
+  (:data:`MONT_NS`): ``mont_mul`` at 22 limbs (BN254 Fr, 2^255 - 19) and
+  ``mont_mul_n11`` at 11 (f128);
 * ``mont_padd``, ``fold_ablate`` and ``padd_f32_chain`` (``csrc/probes.cu``)
   replace the Pallas probes ``main.pallas_add`` of
   ``scripts/bench_pallas_mul.py`` (P7), ``run`` of
@@ -95,7 +97,7 @@ KERNEL_CURVES = {
     "tree_sum": CURVES,
     "padd_chain": ("ed25519",),
     "fe_mul": ("ed25519", "bn254_g1"),
-    "mont_mul": (None,),  # None: one field-generic instance
+    "mont_mul": (None, "n11"),  # field-generic: one instance a limb count (MONT_NS)
     "mont_padd": (None,),
     "fold_ablate": ABLATE_VARIANTS,
     "padd_f32_chain": (None,),
@@ -763,7 +765,10 @@ def fe_mul(consts: torch.Tensor, a: torch.Tensor, b: torch.Tensor, *, curve: str
 # P6: the 12-bit Montgomery product (ops/limb.py), any field
 # ---------------------------------------------------------------------------
 
-MONT_N = 22  # limbs of the mont_mul instance (BN254 Fr, 2^255 - 19)
+MONT_N = 22  # limbs of the mont_mul instance (BN254 Fr, 2^255 - 19) and of mont_padd
+# the limb counts mont_mul is instantiated for, each its instance's variant
+# (None: the instance named mont_mul): 22, and 11 for f128 (the STARK LDE)
+MONT_NS = {22: None, 11: "n11"}
 # rows (threads) a mont_mul block (csrc/mont.cu: 128 rows of a and of b,
 # 22.8 KB of shared memory): of 32, 64, 128 and 256, the fastest on the card
 # both at an NTT stage of the h (196,608 rows) and at the MiMC batch's 4096,
@@ -805,14 +810,15 @@ def mont_mul_plain(consts: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> to
     return x
 
 
-def _check_mont(consts: torch.Tensor, rows: int, **tensors) -> torch.device:
+def _check_mont(consts: torch.Tensor, rows: int, limbs=tuple(MONT_NS), **tensors) -> torch.device:
     """The Montgomery kernels take contiguous int32 tensors on one CUDA
-    device and a (rows, MONT_N) int32 consts block."""
+    device and a (rows, n) int32 consts block, n one of ``limbs`` (the limb
+    counts the kernel is instantiated for)."""
     dev = consts.device
     if dev.type != "cuda":
         raise ValueError(f"kernel wrappers take CUDA or CPU tensors, got {dev}")
-    if consts.dtype != torch.int32 or tuple(consts.shape) != (rows, MONT_N):
-        raise ValueError(f"consts must be the ({rows}, {MONT_N}) int32 Montgomery consts block")
+    if consts.dtype != torch.int32 or consts.dim() != 2 or consts.shape[0] != rows or consts.shape[1] not in limbs:
+        raise ValueError(f"consts must be a ({rows}, n) int32 Montgomery consts block, n in {tuple(limbs)}")
     for key, t in {"consts": consts, **tensors}.items():
         if t.device != dev:
             raise ValueError(f"{key} is on {t.device}, consts on {dev}")
@@ -842,7 +848,8 @@ def mont_mul(consts: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Te
     """a * b * R^-1 over (..., n) int32 limbs; ``b`` broadcasts over
     ``a``'s leading axes (its shape, leading 1s aside, is ``a``'s trailing
     shape). The kernel stages a block's MONT_ROWS rows of ``a`` and ``b``
-    and the consts block through shared memory (``csrc/mont.cu``)."""
+    and the consts block through shared memory (``csrc/mont.cu``); the
+    consts block's limb count n picks the instance (:data:`MONT_NS`)."""
     if a.device.type == "cpu":
         return mont_mul_plain(consts, a, b)
     dev = _check_mont(consts, 3, a=a, b=b)
@@ -850,8 +857,8 @@ def mont_mul(consts: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Te
     M, Mb = mont_rows(a, b, n)
     out = torch.empty_like(a)
     if M:
-        _run("mont_mul", None, dev, consts.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(),
-             n, M, Mb, MONT_ROWS)
+        _run("mont_mul", MONT_NS[n], dev, consts.data_ptr(), a.data_ptr(), b.data_ptr(),
+             out.data_ptr(), n, M, Mb, MONT_ROWS)
     return out
 
 
@@ -898,7 +905,7 @@ def mont_padd(consts: torch.Tensor, p: torch.Tensor, q: torch.Tensor) -> torch.T
     [0, 4096)) do. MONT_PADD_THREADS lanes a block."""
     if p.device.type == "cpu":
         return mont_padd_plain(consts, p, q)
-    dev = _check_mont(consts, 4, p=p, q=q)
+    dev = _check_mont(consts, 4, (MONT_N,), p=p, q=q)
     E = p.shape[-1]
     for key, t in (("p", p), ("q", q)):
         if tuple(t.shape) != (4, MONT_N, E):

@@ -1,16 +1,19 @@
 """Radix-2 NTT over a prime field: the host golden tier and the batched
 device tier.
 
-Port of the JAX package's ``libzkp_tpu/ops/ntt.py`` (without its native
-hook):
+Port of the JAX package's ``libzkp_tpu/ops/ntt.py``:
 
 * Host tier on Python ints: the in-order iterative NTT over the size-n
-  root-of-unity domain, interpolation, and coset evaluation / interpolation.
+  root-of-unity domain (:func:`ntt_py`, the golden; :func:`ntt` runs it on
+  the native tier, as the reference's hook does), interpolation, coset
+  evaluation and interpolation, Horner evaluation.
 * Device tier (:func:`ntt_device`): many transforms at once on Montgomery
   limb tensors (:mod:`.limb`), the butterfly stages eager torch around the
   ``mont_mul`` kernel, with the JAX schedule of reduces, so the limbs equal
-  the JAX ``ntt_batch``'s. The four-step NTT sharded over a mesh
-  (``ntt_sharded``) and the STARK's ``coset_lde_batch`` are not ported yet.
+  the JAX ``ntt_batch``'s; and :func:`coset_lde_batch`, a batch of traces'
+  interpolation and coset low-degree extension on it. The four-step NTT
+  sharded over a mesh (``ntt_sharded``) and ``coset_lde_batch``'s split of
+  the batch over a mesh's dp axis are not ported yet.
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ from typing import List
 import numpy as np
 import torch
 
+from .. import native
+from ..device import resolve
 from .field import PrimeField
 from .limb import LimbContext, get_context, ints_to_limb_rows
 
@@ -36,7 +41,7 @@ def _bit_reverse_permute(a: List[int]) -> List[int]:
     return out
 
 
-def ntt(F: PrimeField, values: List[int], invert: bool = False) -> List[int]:
+def ntt_py(F: PrimeField, values: List[int], invert: bool = False) -> List[int]:
     """In-order iterative radix-2 NTT over the size-n root-of-unity domain."""
     n = len(values)
     assert n & (n - 1) == 0, "size must be a power of two"
@@ -62,6 +67,18 @@ def ntt(F: PrimeField, values: List[int], invert: bool = False) -> List[int]:
         n_inv = F.inv(n)
         a = [x * n_inv % p for x in a]
     return a
+
+
+def ntt(F: PrimeField, values: List[int], invert: bool = False) -> List[int]:
+    """:func:`ntt_py` on the native tier (``zkp_ntt``)."""
+    n = len(values)
+    assert n & (n - 1) == 0, "size must be a power of two"
+    if n == 1:
+        return [values[0] % F.p]
+    root = F.root_of_unity(n)
+    if invert:
+        return native.ntt(F.p, values, F.inv(root), F.inv(n))
+    return native.ntt(F.p, values, root, None)
 
 
 def interpolate(F: PrimeField, evals: List[int]) -> List[int]:
@@ -97,6 +114,21 @@ def interpolate_coset(F: PrimeField, evals: List[int], offset: int) -> List[int]
         out.append(c * power % p)
         power = power * inv_off % p
     return out
+
+
+def poly_eval(F: PrimeField, coeffs: List[int], x: int) -> int:
+    """Horner evaluation at a single point."""
+    acc = 0
+    for c in reversed(coeffs):
+        acc = (acc * x + c) % F.p
+    return acc
+
+
+def poly_degree(coeffs: List[int]) -> int:
+    for i in range(len(coeffs) - 1, -1, -1):
+        if coeffs[i] != 0:
+            return i
+    return 0
 
 
 # ---------------------------------------------------------------------------
@@ -175,3 +207,43 @@ def ntt_device(ctx: LimbContext, values_mont: torch.Tensor, invert: bool = False
 def ntt_batch(ctx: LimbContext, values_mont: torch.Tensor, invert: bool = False) -> torch.Tensor:
     """The JAX package's jitted entry; eager here, so :func:`ntt_device`."""
     return ntt_device(ctx, values_mont, invert)
+
+
+@functools.lru_cache(maxsize=None)
+def _offset_powers(p: int, n: int, offset: int, device: torch.device) -> torch.Tensor:
+    """offset^i * R mod p for i < n: the coset shift, (n, limbs) Montgomery
+    limbs on ``device``."""
+    ctx = get_context(p)
+    return torch.from_numpy(ints_to_limb_rows([pow(offset, i, p) * ctx.R % p for i in range(n)],
+                                              ctx.n)).to(device)
+
+
+def coset_lde_device(ctx: LimbContext, x: torch.Tensor, blowup: int, offset: int) -> tuple:
+    """Interpolate a batch of size-n traces and evaluate each over the coset
+    ``offset * <g_N>`` of size N = n * blowup: ``x`` (B, n, limbs) canonical
+    limbs -> (coefficients, LDE), (B, n, limbs) and (B, N, limbs) relaxed,
+    out of the Montgomery domain. The inverse NTT, the shift by the offset's
+    powers, the zero pad and the forward NTT, all on ``x``'s device."""
+    n = x.shape[-2]
+    coeffs_m = ntt_device(ctx, ctx.to_mont(x), invert=True)
+    shifted = ctx.mont_mul(coeffs_m, _offset_powers(ctx.p, n, offset, x.device))
+    padded = torch.nn.functional.pad(shifted, (0, 0, 0, n * (blowup - 1)))
+    lde_m = ntt_device(ctx, padded, invert=False)
+    return ctx.from_mont(coeffs_m), ctx.from_mont(lde_m)
+
+
+def coset_lde_batch(p: int, traces, blowup: int, offset: int, *, device=None) -> tuple:
+    """A batch of size-n traces -> ([coefficient lists], [LDE lists]) as
+    canonical ints, one upload and one download: :func:`coset_lde_device` on
+    ``device`` (default the CUDA card; ``"cpu"`` runs the plain versions).
+    The batch is not padded (no compile step to serve)."""
+    device = resolve(device)
+    ctx = get_context(p)
+    B, n = len(traces), len(traces[0])
+    x = ctx.encode([v for t in traces for v in t], device=device).reshape(B, n, ctx.n)
+    coeffs, lde = coset_lde_device(ctx, x, blowup, offset)
+    ints = ctx.decode(torch.cat([coeffs, lde], dim=1))
+    N = n * blowup
+    step = n + N
+    return ([ints[b * step : b * step + n] for b in range(B)],
+            [ints[b * step + n : (b + 1) * step] for b in range(B)])

@@ -43,10 +43,11 @@ import libzkp_tpu_torch as zkp
 from libzkp_tpu_torch import convert, native, probes
 from libzkp_tpu_torch.parallel import collective, mesh
 from libzkp_tpu_torch.models import groth16, r1cs, snark_backend
+from libzkp_tpu_torch.models import merkle, random_coin, stark, stark_backend, winterfell_wire
 from libzkp_tpu_torch.models.schemes import consistency_proof, equality_proof, set_membership
-from libzkp_tpu_torch.models.schemes import threshold_proof
+from libzkp_tpu_torch.models.schemes import improvement_proof, threshold_proof
 from libzkp_tpu_torch.ops import bn254, field, kernels, mimc, msm_device, ntt, ristretto, weierstrass
-from libzkp_tpu_torch.ops import groth16_device, limb
+from libzkp_tpu_torch.ops import blake3, blake3_device, groth16_device, limb, stark_device
 from libzkp_tpu_torch.utils.commitment import commit_value_snark
 env = zkp.prove_range(7, 0, 10, device="cpu")
 # verification runs on the port's own native library
@@ -76,6 +77,10 @@ premul = native.bn254_multi_pairing_premul
 native.bn254_multi_pairing_premul = lambda *a: pairings.append(1) or premul(*a)
 ok = ok and zkp.verify_membership(bytes.fromhex("{membership.hex()}"), [25, 10, 20])
 ok = ok and len(pairings) == 1
+# an improvement proof on the CPU route, verified natively and by the golden
+imp = zkp.prove_improvement(30, 50, device="cpu")
+ok = ok and zkp.verify_improvement(imp, 30) and not zkp.verify_improvement(imp, 31)
+ok = ok and stark_backend.verify_improvement_py(imp[26:-32], 30, 50)
 mods = [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "libzkp_tpu."))
         or m == "libzkp_tpu"]
 print(json.dumps({{"ok": ok, "mods": mods}}))
@@ -102,6 +107,8 @@ print(json.dumps({{"ok": ok, "mods": mods}}))
     "mesh.get_mesh()",
     "probes.run()",
     "zkp.mimc_hash_batch([1, 2])",
+    "zkp.prove_improvement(1, 8)",
+    "zkp.prove_improvement_batch([(1, 8)])",
 ])
 def test_entry_points_raise_without_cuda(call):
     code = f"""
