@@ -16,6 +16,7 @@
     python3 chip_smoke.py --native     # phases 1, 2 and 12 only, no last line
     python3 chip_smoke.py --membership # phases 1, 2 and 6b only, no last line
     python3 chip_smoke.py --improvement  # phases 1, 2, mont_mul's checks (3e) and 6c only, no last line
+    python3 chip_smoke.py --api        # phases 1, 2 and 6d only, no last line
 
 Phases, each printing one JSON line:
 
@@ -120,6 +121,19 @@ Phases, each printing one JSON line:
    byte-identical, every proof verified by the native verifier and the
    Python one (ms a proof), a tampered one rejected, and the native NTT and
    BLAKE3 hooks timed against their goldens;
+6d. the reference API's batch path (``api_batch``): 384 ops, 64 of each
+   kind interleaved, through ``create_proof_batch``, the ``batch_add_*``
+   calls and ``process_batch`` on the card (the MiMC pre-hash of 128
+   values, the equality and membership buckets, one Bulletproofs pool of
+   448 instances, the improvements), cold with the launch counters zeroed
+   just before and read just after and the seam tables it touches counted
+   against the LRU's 16, then warm in turns with the six per-kind batch
+   entry points (the first warm batch asserted to build no table), each
+   batch split by bucket, one profiled (idle share); every proof verified
+   by ``verify_proofs_parallel`` and its own ``verify_*`` (timed in turns),
+   a flipped byte in one proof of each kind rejected, a composite of six
+   verified; the pre-hash against per-value ``commit_value_snark`` at 128
+   and 384 values. The seam's table LRU is restored after it;
 7. the mesh-sharded MSM on a (dp 2, shard 2) mesh whose four positions are
    all this card (it checks the sharding, the per-block kernels and the
    cross-shard fold, and measures no interconnect): the five query MSMs of a
@@ -225,6 +239,13 @@ IMP_PAIRS = 256
 IMP_PLAIN_PAIRS = 16
 IMP_MONT_MULS = 16
 IMP_TRACE, IMP_BLOWUP = 8, 8  # the improvement AIR's trace length and blowup: N = 64
+# the api_batch phase: API_OPS ops through the reference API's batch
+# registry, op i of kind API_KINDS[i % 6] (64 of each); API_PREHASH_VALUES
+# the distinct value counts of the MiMC pre-hash comparison (the batch's 128
+# equality and membership values, and 256 more)
+API_KINDS = ("range", "equality", "threshold", "membership", "improvement", "consistency")
+API_OPS = 384
+API_PREHASH_VALUES = (128, 384)
 PADD_MACS = 9 * ED_MUL_MACS   # Edwards padd: 9 products
 PDOUBLE_MACS = 8 * ED_MUL_MACS
 WPADD_MACS = {"bn254_g1": 12 * MUL_MACS + 2 * 24,  # RCB padd: 12 products + 2 small multiplies
@@ -2454,6 +2475,275 @@ def improvement(dev) -> dict:
     return {"counts": counts, "ms_per_batch": card_ms, "split": split}
 
 
+def api_batch_ops() -> list:
+    """API_OPS seeded ``(kind, args)`` ops, op i of kind API_KINDS[i % 6]:
+    distinct range values within their bounds, 64 distinct equality values,
+    threshold proofs of 4 values, membership sets of 1 to 64 values (a set
+    of 1 and one of 64 among them; set values distinct from every other
+    drawn value, so the batch has 128 distinct equality and membership
+    values), 64 distinct (old, new) pairs, consistency of 5 values."""
+    rng = random.Random(1919)
+    per = API_OPS // len(API_KINDS)
+    used: set = set()
+
+    def fresh(lo: int = 0, hi: int = (1 << 64) - 1) -> int:
+        while True:
+            v = rng.randint(lo, hi)
+            if v not in used:
+                used.add(v)
+                return v
+
+    by_kind: dict = {k: [] for k in API_KINDS}
+    sizes = [1, 64] + [rng.randint(1, 64) for _ in range(per - 2)]
+    for size in sizes:
+        lo = rng.randrange(1 << 63)
+        hi = lo + rng.randrange(1, 1 << 63)
+        by_kind["range"].append((fresh(lo, hi), lo, hi))
+        v = fresh()
+        by_kind["equality"].append((v, v))
+        values = [rng.randrange(1 << 62) for _ in range(4)]
+        by_kind["threshold"].append((values, rng.randrange(sum(values) + 1)))
+        the_set = [fresh() for _ in range(size)]
+        by_kind["membership"].append((rng.choice(the_set), the_set))
+        old = fresh(0, (1 << 64) - 2)
+        by_kind["improvement"].append((old, fresh(old + 1)))
+        by_kind["consistency"].append((sorted(rng.randrange(1 << 64) for _ in range(5)),))
+    return [(API_KINDS[i % 6], by_kind[API_KINDS[i % 6]][i // 6]) for i in range(API_OPS)]
+
+
+def api_verify(kind: str, env: bytes, args) -> bool:
+    """``env`` by its kind's own ``verify_*`` on the op's public inputs."""
+    import libzkp_tpu_torch as zkp
+
+    if kind == "range":
+        return zkp.verify_range(env, *args[1:])
+    if kind == "equality":
+        return zkp.verify_equality(env, *args)
+    if kind == "threshold":
+        return zkp.verify_threshold(env, args[1])
+    if kind == "membership":
+        return zkp.verify_membership(env, args[1])
+    if kind == "improvement":
+        return zkp.verify_improvement(env, args[0])
+    return zkp.verify_consistency(env)
+
+
+def api_batch(dev) -> dict:
+    """Phase 6d: the reference API's batch path, API_OPS ops of all six
+    kinds interleaved (``api_batch_ops``) through ``create_proof_batch``,
+    the ``batch_add_*`` calls and ``process_batch`` on the card: the MiMC
+    pre-hash of the 128 equality and membership values, the equality and
+    membership buckets, one Bulletproofs pool of 448 single-proof instances
+    (its prover groups and lanes recorded) and the improvements. Cold, with
+    the launch counters zeroed just before ``process_batch`` and read just
+    after, the seam tables it touches counted against the LRU's size; then
+    warm, in turns with the six per-kind batch entry points on the same ops
+    (process_batch, per-kind, per-kind, process_batch), each process_batch
+    split by bucket, the first one's launches asserted free of table builds;
+    one warm batch profiled (busy ms, idle share); every proof verified by
+    ``verify_proofs_parallel`` and by its own ``verify_*`` (timed in turns),
+    a flipped byte in one proof of each kind rejected by both, a composite
+    of one proof of each kind verified; the MiMC pre-hash against per-value
+    ``commit_value_snark`` at API_PREHASH_VALUES distinct values, in turns.
+    Runs under :func:`seam_tables_kept`, before bp_rest."""
+    import libzkp_tpu_torch as zkp
+    from libzkp_tpu_torch.models import bp_device, bulletproofs_backend, snark_backend
+    from libzkp_tpu_torch.models.schemes import common
+    from libzkp_tpu_torch.ops import kernels, msm_device
+    from libzkp_tpu_torch.ops.mimc import fr_to_commitment
+    from libzkp_tpu_torch.parallel import batch_prover
+    from libzkp_tpu_torch.utils.commitment import commit_value_snark
+    from libzkp_tpu_torch.utils.envelope import Proof
+
+    start = time.perf_counter()
+    snark_backend._get_equality_setup()
+    snark_backend._get_membership_setup()
+    ops = api_batch_ops()
+    counts_by_kind = {k: sum(1 for kk, _ in ops if kk == k) for k in API_KINDS}
+    prehash_values = sorted({a[0] for k, a in ops if k in ("equality", "membership")})
+    if len(prehash_values) != API_PREHASH_VALUES[0]:
+        raise AssertionError(f"{len(prehash_values)} distinct equality and membership values")
+
+    def run():
+        bid = zkp.create_proof_batch()
+        for kind, args in ops:
+            getattr(zkp, f"batch_add_{kind}_proof")(bid, *args)
+        out = zkp.process_batch(bid, device=dev)
+        torch.cuda.synchronize()
+        return out
+
+    split_targets = {
+        "prehash": (batch_prover, "snark_commitments"),
+        "equality": (batch_prover, "prove_equality_batch"),
+        "membership": (batch_prover, "prove_membership_batch"),
+        "pool_prepare": (batch_prover, "_prepare"),
+        "pool_seam_commits": (bulletproofs_backend, "pedersen_commit_compressed_many"),
+        "pool_prove_single_batch": (common, "prove_single_batch"),
+        "pool_prove_prepared": (batch_prover, "prove_prepared"),
+        "improvement": (batch_prover, "prove_improvement_batch"),
+    }
+
+    def split_of(host: dict, batch_ms: float) -> dict:
+        ms = {k: v["ms"] for k, v in host.items()}
+        pool = {"prepare_ms": ms["pool_prepare"], "seam_commits_ms": ms["pool_seam_commits"],
+                "prove_single_batch_ms": ms["pool_prove_single_batch"],
+                "finish_ms": ms["pool_prove_prepared"] - ms["pool_prove_single_batch"]}
+        buckets = {"prehash_ms": ms["prehash"], "equality_ms": ms["equality"],
+                   "membership_ms": ms["membership"],
+                   "pool_ms": ms["pool_prepare"] + ms["pool_prove_prepared"],
+                   "improvement_ms": ms["improvement"]}
+        ops_in = {"equality_ms": counts_by_kind["equality"], "membership_ms": counts_by_kind["membership"],
+                  "pool_ms": sum(counts_by_kind[k] for k in ("range", "threshold", "consistency")),
+                  "improvement_ms": counts_by_kind["improvement"]}
+        return {"batch_ms": batch_ms, **buckets, "pool": pool,
+                "registry_and_rest_ms": batch_ms - sum(buckets.values()),
+                "ms_per_op": {k[:-3]: buckets[k] / n for k, n in ops_in.items()}}
+
+    # cold: the launches, the seam tables touched, the prover groups
+    tables: set = set()
+    groups: list = []
+    real_get, real_insts = msm_device._get_table, bp_device.prove_insts_device
+
+    def get_table(curve_name, points, where):
+        tables.add((curve_name, str(where), tuple(points)))
+        return real_get(curve_name, points, where)
+
+    def prove_insts(insts, **kw):
+        groups.append(len(insts))
+        return real_insts(insts, **kw)
+
+    msm_device._get_table, bp_device.prove_insts_device = get_table, prove_insts
+    try:
+        kernels.reset_launches()
+        with host_timers(**split_targets) as host:
+            t0 = time.perf_counter()
+            envs = run()
+            cold_ms = (time.perf_counter() - t0) * 1e3
+        counts = kernels.launches()
+    finally:
+        msm_device._get_table, bp_device.prove_insts_device = real_get, real_insts
+    kinds = [k for k, _ in ops]
+    if [Proof.from_bytes(e).scheme for e in envs] != [API_KINDS.index(k) + 1 for k in kinds]:
+        raise AssertionError("process_batch returned envelopes of the wrong schemes or order")
+    path = ("window_sum", "horner", "window_sum4_bn254_g1", "window_sum4_bn254_g2", "horner4_bn254_g1",
+            "horner4_bn254_g2", "mont_mul", "mont_mul_n11")
+    if not all(counts[k] for k in path):
+        raise AssertionError(f"process_batch left a kernel of its path unlaunched: {counts}")
+    if len(tables) > msm_device._MAX_TABLES:
+        raise AssertionError(f"the batch needs {len(tables)} seam tables, the LRU holds {msm_device._MAX_TABLES}")
+    emit({"phase": "api_batch_cold", "ops": API_OPS, "by_kind": counts_by_kind, "ms": cold_ms,
+          "split": split_of(host, cold_ms), "launches": {k: v for k, v in counts.items() if v},
+          "seam_tables": {"touched": len(tables), "lru_size": msm_device._MAX_TABLES,
+                          "by_curve_and_points": sorted([c, len(p)] for c, _, p in tables)},
+          "pool_groups": {"prove_insts_device_calls": len(groups), "lanes": groups,
+                          "instances": sum(groups)}})
+
+    # warm, in turns with the six per-kind batch entry points
+    by_kind = {k: [a for kk, a in ops if kk == k] for k in API_KINDS}
+
+    def per_kind():
+        out = (zkp.prove_range_batch(by_kind["range"], device=dev)
+               + zkp.prove_equality_batch(by_kind["equality"], device=dev)
+               + zkp.prove_threshold_batch(by_kind["threshold"], device=dev)
+               + zkp.prove_membership_batch(by_kind["membership"], device=dev)
+               + zkp.prove_improvement_batch(by_kind["improvement"], device=dev)
+               + zkp.prove_consistency_batch([d for (d,) in by_kind["consistency"]], device=dev))
+        torch.cuda.synchronize()
+        return out
+
+    turns = {"process_batch": [], "per_kind": []}
+    splits, warm_counts = [], None
+    for route in ("process_batch", "per_kind", "per_kind", "process_batch"):
+        kernels.reset_launches()
+        with host_timers(**split_targets) as host:
+            t0 = time.perf_counter()
+            got = run() if route == "process_batch" else per_kind()
+            ms = (time.perf_counter() - t0) * 1e3
+        turns[route].append(ms)
+        if len(got) != API_OPS:
+            raise AssertionError(f"the {route} route returned {len(got)} proofs")
+        if route == "process_batch":
+            splits.append(split_of(host, ms))
+            if warm_counts is None:
+                warm_counts = kernels.launches()
+                built = {k: warm_counts[k] for k in ("pair_add", "pair_add_bn254_g1", "pair_add_bn254_g2")}
+                if any(built.values()) or not all(warm_counts[k] for k in path):
+                    raise AssertionError(f"the warm batch built a table or skipped a kernel: {warm_counts}")
+        else:
+            flags = zkp.verify_proofs_parallel(list(zip(got, sorted(kinds, key=API_KINDS.index))))
+            if not all(flags):
+                raise AssertionError(f"the per-kind route: {flags.count(False)} proofs rejected")
+    pb_ms = sum(turns["process_batch"]) / 2
+    pk_ms = sum(turns["per_kind"]) / 2
+    emit({"phase": "api_batch_warm", "card": smi("name,power.limit"), "torch_threads": torch.get_num_threads(),
+          "turns_ms": turns, "ms_per_batch": pb_ms, "ms_per_op": pb_ms / API_OPS,
+          "per_kind_ms_per_batch": pk_ms, "process_batch_over_per_kind": pb_ms / pk_ms,
+          "warm_launches": {k: v for k, v in warm_counts.items() if v}, "splits": splits})
+
+    got, prof_ms, busy = profiled(run)
+    emit({"phase": "api_batch_profile", "batch_ms_profiled": prof_ms,
+          **busy_summary(busy, prof_ms, window_sum="window_sum_kernel", horner="horner_kernel",
+                         window_sum4_g1=WS4_G1_KERNELS, window_sum4_g2="window_sum4_g2_kernel",
+                         horner4="coop_horner_kernel", mont_mul="mont_mul_kernel")})
+
+    # verification: every proof both ways, timed in turns; tampering; a composite
+    pairs = list(zip(envs, kinds))
+    vtimes = {"verify_proofs_parallel": [], "verify_loop": []}
+    for route in ("verify_proofs_parallel", "verify_loop", "verify_loop", "verify_proofs_parallel"):
+        t0 = time.perf_counter()
+        if route == "verify_loop":
+            flags = [api_verify(k, e, a) for e, (k, a) in zip(envs, ops)]
+        else:
+            flags = zkp.verify_proofs_parallel(pairs)
+        vtimes[route].append((time.perf_counter() - t0) * 1e3)
+        if flags != [True] * API_OPS:
+            raise AssertionError(f"{route}: {flags.count(False)} of {API_OPS} proofs rejected")
+    firsts = [kinds.index(k) for k in API_KINDS]
+    tampered = []
+    for i in firsts:
+        bad = bytearray(envs[i])
+        bad[len(bad) // 2] ^= 0x01
+        tampered.append((bytes(bad), kinds[i]))
+    if any(zkp.verify_proofs_parallel(tampered)) or any(
+            api_verify(k, e, ops[i][1]) for (e, k), i in zip(tampered, firsts)):
+        raise AssertionError("a tampered proof verified")
+    if not zkp.verify_composite_proof(zkp.create_composite_proof([envs[i] for i in firsts])):
+        raise AssertionError("a composite of one proof of each kind did not verify")
+    vpp = sum(vtimes["verify_proofs_parallel"]) / 2
+    loop = sum(vtimes["verify_loop"]) / 2
+    emit({"phase": "api_batch_verify", "proofs": API_OPS, "turns_ms": vtimes,
+          "verify_proofs_parallel_ms_per_proof": vpp / API_OPS, "verify_loop_ms_per_proof": loop / API_OPS,
+          "loop_over_parallel": loop / vpp, "tampered_rejected": len(tampered), "composite_verified": True})
+
+    # the MiMC pre-hash against per-value commitments on the host
+    rng = random.Random(2020)
+    values = list(prehash_values)
+    while len(values) < API_PREHASH_VALUES[1]:
+        v = rng.randrange(1 << 64)
+        if v not in values:
+            values.append(v)
+    prehash = {}
+    for count in API_PREHASH_VALUES:
+        vals = values[:count]
+        timed = {"device": [], "host": []}
+        for route in ("device", "host", "host", "device"):
+            t0 = time.perf_counter()
+            if route == "device":
+                got = [fr_to_commitment(h) for h in zkp.mimc_hash_batch(vals, device=dev)]
+            else:
+                got = [commit_value_snark(v) for v in vals]
+            timed[route].append((time.perf_counter() - t0) * 1e3)
+            if route == "host":
+                want = got
+        if [fr_to_commitment(h) for h in zkp.mimc_hash_batch(vals, device=dev)] != want:
+            raise AssertionError(f"the pre-hash at {count} values differs from commit_value_snark")
+        prehash[count] = {"turns_ms": timed, "device_ms": sum(timed["device"]) / 2,
+                          "host_ms": sum(timed["host"]) / 2}
+    emit({"phase": "api_batch_prehash", **{f"values_{k}": v for k, v in prehash.items()}})
+    emit({"phase": "api_batch", "seconds": time.perf_counter() - start})
+    return {"counts": counts, "ms_per_batch": pb_ms}
+
+
 def mesh_launches(dp: int, shard: int) -> dict:
     """Launches of the sharded_msm phase on a (dp, shard) mesh: per MSM,
     every block runs 32 windows of one tree_sum and one horner, and each dp
@@ -2996,7 +3286,7 @@ def bp_rest(dev, basis_cold: bool) -> dict:
 
         counts.append(_bp_rest_batch(
             dev, f"range_{n}", n, triples,
-            run=lambda prepare=prepare: prove_prepared(SCHEME_RANGE, prepare(), device=dev),
+            run=lambda prepare=prepare: prove_prepared([(SCHEME_RANGE, *p) for p in prepare()], device=dev),
             prepare=prepare, verify=lambda env, item: zkp.verify_range(env, *item[1:]),
             want=seam | {"pair_add": 2 * 255}, warm_want=seam, timed=WIDTH_TIMED_BATCHES))
         env = zkp.prove_range_with_bits(*triples[1], n, device=dev)
@@ -3464,7 +3754,7 @@ def native_phase(dev, main: dict = None) -> None:
 def main(argv: list) -> int:
     flags = ("--kernels", "--range", "--groth16", "--g1", "--mont", "--ed-tree", "--ed-pair", "--f32-chain",
              "--ed-chain", "--mont-padd", "--fe-mul", "--bp-rest", "--native", "--membership",
-             "--improvement")
+             "--improvement", "--api")
     if len(argv) > 1 or (argv and argv[0] not in flags):
         print(f"usage: python3 chip_smoke.py [{' | '.join(flags)}], got {argv}", file=sys.stderr)
         return 2
@@ -3558,6 +3848,9 @@ def main(argv: list) -> int:
         check_mont_kernels(dev, int_rate)
         improvement(dev)
         return 0
+    if argv == ["--api"]:  # the reference API's batch path alone
+        api_batch(dev)
+        return 0
     tables: dict = {}
     checks = (check_kernels(dev, int_rate, tables) + check_bn254_kernels(dev, int_rate, tables)
               + check_sharded_kernels(dev, int_rate, tables)
@@ -3573,6 +3866,8 @@ def main(argv: list) -> int:
     with seam_tables_kept():  # its five query tables leave the LRU as they found it
         paths.append(membership(dev))
     paths.append(improvement(dev))
+    with seam_tables_kept():  # bp_rest counts the consistency commits' table as cold
+        paths.append(api_batch(dev))
     # the mesh route on one card: four positions, all cuda:0 (no interconnect)
     meshes = [("one_card", meshmod.get_mesh(dp=SHARD_DP, shard=SHARD_SHARD, devices=[dev] * 4))]
     if torch.cuda.device_count() > 1:

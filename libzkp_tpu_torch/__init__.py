@@ -27,71 +27,38 @@ verification run on the native host tier (``native/``, the JAX package's
 ``zkpcore.cpp``, built with ``g++`` at first use). Proofs and
 envelopes are byte-compatible with the JAX package's.
 
-Entry points run on the CUDA card unless called with ``device="cpu"``, which
-runs the plain PyTorch path. The package imports neither jax nor
-``libzkp_tpu``.
+The package exports the reference API's 49 names (:mod:`.api`: the single
+proofs, composite proofs, the proof cache and metrics, benchmarks,
+``verify_proofs_parallel``, the batch registry with :func:`process_batch`
+over all six proof types, and the batch store), beside the port's own batch
+entry points. Entry points run on the CUDA card unless called with
+``device="cpu"``, which runs the plain PyTorch path. The package imports
+neither jax nor ``libzkp_tpu``.
 """
 
-from .models.schemes.consistency_proof import (  # noqa: F401
-    prove_consistency,
-    prove_consistency_batch,
-    verify_consistency,
-)
-from .models.schemes.equality_proof import (  # noqa: F401
-    prove_equality,
-    prove_equality_batch,
-    verify_equality,
-    verify_equality_with_commitment,
-)
-from .models.schemes.improvement_proof import (  # noqa: F401
-    prove_improvement,
-    prove_improvement_batch,
-    verify_improvement,
-)
-from .models.schemes.range_proof import (  # noqa: F401
-    prove_range,
-    prove_range_batch,
-    prove_range_with_bits,
-    verify_range,
-)
-from .models.schemes.set_membership import (  # noqa: F401
-    prove_membership,
-    prove_membership_batch,
-    verify_membership,
-)
+from .api import *  # noqa: F401,F403 (the reference API's 49 names)
+from .api import __all__ as _api_names
+from .models.schemes.consistency_proof import prove_consistency_batch  # noqa: F401
+from .models.schemes.equality_proof import prove_equality_batch  # noqa: F401
+from .models.schemes.improvement_proof import prove_improvement_batch  # noqa: F401
+from .models.schemes.range_proof import prove_range_batch, prove_range_with_bits  # noqa: F401
+from .models.schemes.set_membership import prove_membership_batch  # noqa: F401
 from .models.schemes.threshold_proof import (  # noqa: F401
-    prove_threshold,
     prove_threshold_batch,
     prove_threshold_with_bits,
-    verify_threshold,
 )
 from .ops.mimc import mimc_hash_batch  # noqa: F401
 
-# the reference API's alias (libzkp_tpu/advanced/misc.py)
-prove_threshold_optimized = prove_threshold
-
 __all__ = [
+    *_api_names,
+    # the port's batch entry points
     "mimc_hash_batch",
-    "prove_consistency",
     "prove_consistency_batch",
-    "prove_equality",
     "prove_equality_batch",
-    "prove_improvement",
     "prove_improvement_batch",
-    "prove_membership",
     "prove_membership_batch",
-    "prove_range",
     "prove_range_batch",
     "prove_range_with_bits",
-    "prove_threshold",
     "prove_threshold_batch",
-    "prove_threshold_optimized",
     "prove_threshold_with_bits",
-    "verify_consistency",
-    "verify_equality",
-    "verify_equality_with_commitment",
-    "verify_improvement",
-    "verify_membership",
-    "verify_range",
-    "verify_threshold",
 ]

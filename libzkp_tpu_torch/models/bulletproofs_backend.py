@@ -1,8 +1,7 @@
 """Bulletproofs backend: range, threshold and consistency proofs.
 
-Port of the JAX package's ``libzkp_tpu/models/bulletproofs_backend.py``
-(without the raw ``ZkpBackend`` trait ``prove``/``verify``), wire-identical
-to it:
+Port of the JAX package's ``libzkp_tpu/models/bulletproofs_backend.py``,
+wire-identical to it:
 
 * backend envelope ``[u32 body_len][body][u32=32][32B commitment]``;
 * two-sided range body ``[min:8][max:8][n_bits:4][len|rp_min][len|rp_max]
@@ -32,7 +31,7 @@ from ..device import resolve
 from ..ops import ed25519 as ed
 from ..utils.encoding import read_u64_le, u32_le, u64_le
 from .bp_generators import pedersen_commit, pedersen_commit_compressed_many, pedersen_gens
-from .bulletproofs import RangeProof, batch_verify_groups, prove_single_batch
+from .bulletproofs import RangeProof, batch_verify_groups, prove_single_batch, verify_single
 from .strobe import Transcript
 
 L = ed.L
@@ -388,3 +387,28 @@ class BulletproofsBackend:
             (range_proofs[i], Transcript(b"libzkp_consistency"), diff_commits[i], 64)
             for i in range(num - 1)
         ]
+
+    # -- raw ZkpBackend trait interface (bulletproofs.rs:629-684) ----------
+    @staticmethod
+    def prove(data: bytes, *, device=None) -> bytes:
+        """``[u64 LE value]`` -> ``[RangeProof][V:32]``, a 64-bit proof under
+        the transcript ``b"libzkp_bulletproof"`` on ``device`` (default: the
+        CUDA card); ``b""`` for input that is not 8 bytes, the trait's one
+        defined failure. Any other failure raises."""
+        if len(data) != 8:
+            return b""
+        value = read_u64_le(data, 0)
+        blinding = _random_blinding()
+        ((rp, commit),) = prove_single_batch(
+            [(Transcript(b"libzkp_bulletproof"), value, blinding, 64)], device=device)
+        return rp.to_bytes() + commit
+
+    @staticmethod
+    def verify(proof: bytes, _data: bytes = b"") -> bool:
+        """Never raises: anything malformed is ``False``."""
+        if len(proof) < 32:
+            return False
+        rp = RangeProof.from_bytes(proof[:-32])
+        if rp is None:
+            return False
+        return verify_single(rp, Transcript(b"libzkp_bulletproof"), proof[-32:], 64)

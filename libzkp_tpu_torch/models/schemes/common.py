@@ -87,16 +87,16 @@ def validate_standard_commitment(commitment: bytes) -> None:
         )
 
 
-def prove_prepared(scheme_id: int, prepared: List, *, device) -> List[bytes]:
-    """Envelopes of ``scheme_id`` for the backend's prepared proofs
-    (``(instances, finish)`` pairs of a ``prepare_*``): every proof's
-    single-proof instances as one lockstep :func:`prove_single_batch` on
-    ``device``."""
-    instances = [inst for insts, _ in prepared for inst in insts]
+def prove_prepared(prepared: List, *, device) -> List[bytes]:
+    """Envelopes of the backend's prepared proofs, ``(scheme_id, instances,
+    finish)`` entries (a ``prepare_*``'s pair under its scheme id, any mix of
+    schemes): every proof's single-proof instances as one lockstep
+    :func:`prove_single_batch` on ``device``."""
+    instances = [inst for _, insts, _ in prepared for inst in insts]
     results = prove_single_batch(instances, device=device)
     out = []
     pos = 0
-    for insts, finish in prepared:
+    for scheme_id, insts, finish in prepared:
         backend_proof = finish(results[pos : pos + len(insts)])
         pos += len(insts)
         out.append(create_proof(scheme_id, *extract_bulletproofs_components(backend_proof)))

@@ -36,7 +36,7 @@ def prove_consistency_batch(datas, *, device=None) -> list:
         prepared = [BulletproofsBackend.prepare_consistency(data, device=device) for data in datas]
     except ValueError as e:
         raise InvalidInput(str(e)) from None
-    return prove_prepared(SCHEME_ID, prepared, device=device)
+    return prove_prepared([(SCHEME_ID, *p) for p in prepared], device=device)
 
 
 def prove_consistency(data: List[int], *, device=None) -> bytes:

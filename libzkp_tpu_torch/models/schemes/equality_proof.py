@@ -23,14 +23,22 @@ def prove_equality(val1: int, val2: int, *, device=None) -> bytes:
     return prove_equality_batch([(val1, val2)], device=device)[0]
 
 
-def prove_equality_batch(pairs, *, device=None) -> list:
+def prove_equality_batch(pairs, *, device=None, commitments=None) -> list:
     """Batched variant over ``(val1, val2)`` pairs: all proofs of the fixed
-    equality circuit share each proving-key table walk on the device."""
+    equality circuit share each proving-key table walk on the device.
+
+    ``commitments`` (one 32-byte MiMC commitment of ``val1`` a pair, from a
+    caller that hashed them in one device batch) replaces the per-pair
+    :func:`commit_value_snark`; a commitment that is not MiMC5(val1) gets
+    no proof, and the batch raises."""
     device = resolve(device)
     pairs = list(pairs)
     for v1, v2 in pairs:
         validate_equality_params(v1, v2)
-    commitments = [commit_value_snark(v1) for v1, _ in pairs]
+    if commitments is None:
+        commitments = [commit_value_snark(v1) for v1, _ in pairs]
+    elif len(commitments) != len(pairs):
+        raise ValueError(f"{len(commitments)} commitments for {len(pairs)} pairs")
     snarks = SnarkBackend.prove_equality_zk_many(
         [(v1, v2, c) for (v1, v2), c in zip(pairs, commitments)], device=device
     )

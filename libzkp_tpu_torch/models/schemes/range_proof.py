@@ -58,7 +58,7 @@ def prove_range_batch(triples, *, device=None) -> list:
                     for value, min_v, max_v in triples]
     except ValueError as e:
         raise BackendError(str(e)) from None
-    return prove_prepared(SCHEME_ID, prepared, device=device)
+    return prove_prepared([(SCHEME_ID, *p) for p in prepared], device=device)
 
 
 def verify_range(proof: bytes, min_v: int, max_v: int) -> bool:

@@ -33,15 +33,23 @@ def prove_membership(value: int, the_set: List[int], *, device=None) -> bytes:
     return prove_membership_batch([(value, the_set)], device=device)[0]
 
 
-def prove_membership_batch(items, *, device=None) -> list:
+def prove_membership_batch(items, *, device=None, commitments=None) -> list:
     """Batched variant over ``(value, set)`` items: all proofs of the fixed
-    membership circuit share each proving-key table walk on the device."""
+    membership circuit share each proving-key table walk on the device.
+
+    ``commitments`` (one 32-byte MiMC commitment of ``value`` an item, from
+    a caller that hashed them in one device batch) replaces the per-item
+    :func:`commit_value_snark`; a commitment that is not MiMC5(value) gets
+    no proof, and the batch raises."""
     device = resolve(device)
     items = [(value, list(the_set)) for value, the_set in items]
     for value, the_set in items:
         validate_membership_params(value, the_set)
         validate_set_size(the_set, MAX_SET_SIZE)
-    commitments = [commit_value_snark(v) for v, _ in items]
+    if commitments is None:
+        commitments = [commit_value_snark(v) for v, _ in items]
+    elif len(commitments) != len(items):
+        raise ValueError(f"{len(commitments)} commitments for {len(items)} items")
     snarks = SnarkBackend.prove_membership_zk_many(
         [(v, s, c) for (v, s), c in zip(items, commitments)], device=device)
     out = []

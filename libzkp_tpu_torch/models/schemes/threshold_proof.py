@@ -38,7 +38,7 @@ def prove_threshold_batch(pairs, *, device=None) -> list:
                     for values, threshold in pairs]
     except ValueError as e:
         raise InvalidInput(str(e)) from None
-    return prove_prepared(SCHEME_ID, prepared, device=device)
+    return prove_prepared([(SCHEME_ID, *p) for p in prepared], device=device)
 
 
 def prove_threshold(values: List[int], threshold: int, *, device=None) -> bytes:

@@ -142,6 +142,29 @@ def get_fold_ctx(p: int) -> FoldCtx:
     return FoldCtx(p)
 
 
+def schoolbook_outer(a: torch.Tensor, b: torch.Tensor, n: int) -> torch.Tensor:
+    """The 2n + 2 schoolbook columns (the top three zero) of (..., n, L)
+    limbs, from one outer product: row i of the (n, 2n) zero-padded product,
+    laid out with row stride 2n - 1, puts a_i * b_j in column i + j, so a sum
+    over rows gives every column."""
+    lead = a.shape[:-2]
+    L = a.shape[-1]
+    prod = a.unsqueeze(-2) * b.unsqueeze(-3)  # (..., n_i, n_j, L)
+    prod = F.pad(prod, (0, 0, 0, n)).reshape(*lead, 2 * n * n, L)
+    skew = prod[..., : n * (2 * n - 1), :].reshape(*lead, n, 2 * n - 1, L)
+    return F.pad(skew.sum(-3, dtype=torch.int32), (0, 0, 0, 3))
+
+
+def schoolbook_rows(a: torch.Tensor, b: torch.Tensor, n: int) -> torch.Tensor:
+    """:func:`schoolbook_outer`'s columns accumulated row by row: a_i * b
+    lands in columns i .. i + n - 1 (wrapping int32 adds are associative, so
+    the limbs are the same)."""
+    T = a.new_zeros(*a.shape[:-2], 2 * n + 2, a.shape[-1])
+    for i in range(n):
+        T[..., i : i + n, :] += a[..., i : i + 1, :] * b
+    return T
+
+
 class FieldOps:
     """Value-level field ops on (..., n, L) int32 tensors.
 
@@ -189,17 +212,15 @@ class FieldOps:
     def mul(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         """Full product, conv -> 2 no-wrap carries -> fold -> 3 wrap carries.
 
-        The schoolbook columns come from one outer product: row i of the
-        (n, 2n) zero-padded product, laid out with row stride 2n - 1, puts
-        a_i * b_j in column i + j, so a sum over rows gives every column."""
+        The 2n + 2 schoolbook columns are exact int32 sums, so their limbs do
+        not depend on how they are formed: :func:`schoolbook_outer` on a CUDA
+        device (few operations: the eager paths there are bound by their
+        launches), :func:`schoolbook_rows` on the CPU (no (n, n) product
+        buffer: about twice as fast there)."""
         n = self.n
         a, b = torch.broadcast_tensors(a, b)
-        lead = a.shape[:-2]
-        L = a.shape[-1]
-        prod = a.unsqueeze(-2) * b.unsqueeze(-3)  # (..., n_i, n_j, L)
-        prod = F.pad(prod, (0, 0, 0, n)).reshape(*lead, 2 * n * n, L)
-        skew = prod[..., : n * (2 * n - 1), :].reshape(*lead, n, 2 * n - 1, L)
-        T = F.pad(skew.sum(-3, dtype=torch.int32), (0, 0, 0, 3))  # 2n+2 columns
+        columns = schoolbook_rows if a.device.type == "cpu" else schoolbook_outer
+        T = columns(a, b, n)
         T = self._carry_nw(self._carry_nw(T))
         folded = (T[..., n:, :].unsqueeze(-2) * self.fold_c[:, :, None]).sum(
             -3, dtype=torch.int32

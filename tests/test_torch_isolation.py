@@ -49,6 +49,11 @@ from libzkp_tpu_torch.models.schemes import improvement_proof, threshold_proof
 from libzkp_tpu_torch.ops import bn254, field, kernels, mimc, msm_device, ntt, ristretto, weierstrass
 from libzkp_tpu_torch.ops import blake3, blake3_device, groth16_device, limb, stark_device
 from libzkp_tpu_torch.utils.commitment import commit_value_snark
+from libzkp_tpu_torch import advanced, api
+from libzkp_tpu_torch.advanced import batch, batch_store, composite, misc
+from libzkp_tpu_torch.models.schemes import dispatch
+from libzkp_tpu_torch.parallel import batch_prover
+from libzkp_tpu_torch.utils import composition, performance, serialization
 env = zkp.prove_range(7, 0, 10, device="cpu")
 # verification runs on the port's own native library
 rlc_calls = []
@@ -81,6 +86,10 @@ ok = ok and len(pairings) == 1
 imp = zkp.prove_improvement(30, 50, device="cpu")
 ok = ok and zkp.verify_improvement(imp, 30) and not zkp.verify_improvement(imp, 31)
 ok = ok and stark_backend.verify_improvement_py(imp[26:-32], 30, 50)
+# the reference API's composite and batched verification over them
+ok = ok and zkp.verify_composite_proof(zkp.create_composite_proof([env, imp]))
+ok = ok and zkp.verify_proofs_parallel([(env, "range"), (imp, "improvement"), (imp, "range")]) == [
+    True, True, False]
 mods = [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "libzkp_tpu."))
         or m == "libzkp_tpu"]
 print(json.dumps({{"ok": ok, "mods": mods}}))
@@ -109,6 +118,9 @@ print(json.dumps({{"ok": ok, "mods": mods}}))
     "zkp.mimc_hash_batch([1, 2])",
     "zkp.prove_improvement(1, 8)",
     "zkp.prove_improvement_batch([(1, 8)])",
+    "zkp.process_batch(zkp.create_proof_batch())",
+    "zkp.prove_range_cached(7, 0, 10)",
+    "zkp.benchmark_proof_generation_numeric('improvement', 1)",
 ])
 def test_entry_points_raise_without_cuda(call):
     code = f"""

@@ -93,3 +93,19 @@ def test_mul_chain_values(prime):
     np.testing.assert_array_equal(acc.numpy(), np.asarray(acc_j))
     assert int(acc.abs().max()) < RELAXED
     assert ctx.decode(acc.numpy().T) == [pow(v, 7, p) for v in xs]
+
+
+@pytest.mark.parametrize("lead, lanes", [((), 1), ((3,), 16), ((2, 5), 7)])
+def test_schoolbook_formulations_agree(lead, lanes):
+    """The CPU's row-by-row columns equal the outer product's, which the
+    CUDA path runs, limb for limb, with limbs up to the relaxed bound and a
+    little past it."""
+    n = 24
+    rng = np.random.default_rng(6)
+    for bound in (RELAXED, 9000):
+        a = torch.from_numpy(rng.integers(-bound, bound, size=(*lead, n, lanes), dtype=np.int32))
+        b = torch.from_numpy(rng.integers(-bound, bound, size=(*lead, n, lanes), dtype=np.int32))
+        rows, outer = tl.schoolbook_rows(a, b, n), tl.schoolbook_outer(a, b, n)
+        assert rows.shape == outer.shape == (*lead, 2 * n + 2, lanes)
+        assert torch.equal(rows, outer)
+        assert not outer[..., 2 * n - 1 :, :].any()
