@@ -17,6 +17,7 @@
     python3 chip_smoke.py --membership # phases 1, 2 and 6b only, no last line
     python3 chip_smoke.py --improvement  # phases 1, 2, mont_mul's checks (3e) and 6c only, no last line
     python3 chip_smoke.py --api        # phases 1, 2 and 6d only, no last line
+    python3 chip_smoke.py --multi-device  # phases 1, 2 and 10b only, no last line
 
 Phases, each printing one JSON line:
 
@@ -149,6 +150,21 @@ Phases, each printing one JSON line:
     warm, every digest equal to the host's, and again on a one-card dp 2
     mesh; one warm batch under ``torch.profiler`` (mont_mul's card time a
     launch);
+10b. the multi-device layer (``multi_device``) on a (dp 2, shard 2) mesh
+    whose four positions are all this card (no interconnect measured):
+    ``psum``, ``all_gather`` (stacked and tiled), ``all_to_all`` and
+    ``ppermute`` over both axes against their plain results, and
+    ``axis_index`` and ``axis_size``; ``ntt_sharded`` at N = 2^18 on BN254
+    Fr (``mont_mul``) and f128 (``mont_mul_n11``), shard 2 and 4, forward
+    and inverse, with its launches asserted, every value equal to the
+    one-device ``ntt_device``'s (and BN254 Fr's forward to the native
+    ``ntt`` hook), timed in turns with it; ``coset_lde_batch`` of 256 traces
+    of 8 at blowup 8 split over dp 1, 2 and 4 (16 ``mont_mul_n11`` launches
+    a block), equal; ``dryrun_multichip(4)`` and ``(8)``; and
+    ``init_distributed`` in subprocesses over NCCL with a ``file://``
+    rendezvous (world 1 on this card; world 2, a card each, where two are
+    visible): one ``all_reduce`` and the port's ``psum`` and ``all_gather``
+    over the dp axis that spans them;
 11. the probes (``libzkp_tpu_torch.probes``: P2, P4, P5, P6, P7, P1, P3);
 12. the native host tier (``native``) on this machine's host: Keccak,
     ``compress``, ``decompress`` (64 invalid encodings among 256),
@@ -168,8 +184,9 @@ Phases, each printing one JSON line:
     one-point calls' teams, multi-pairings serial and on the team
     (``native_groth16_hooks``); ``prove_assigned_native`` beside the card
     route on phase 5's and 6b's statements, in turns, byte-identical
-    (``native_groth16_baseline``); ``verify`` against ``verify_py`` and
-    ``verify_batch`` a proof (``native_groth16_verify``). The seam's table
+    (``native_groth16_baseline``); ``verify`` against ``verify_py``, in
+    turns with the G2 subgroup check the JAX package makes (reduced mod R),
+    the check alone, and ``verify_batch`` a proof (``native_groth16_verify``). The seam's table
     LRU is restored after it, so bp_rest's cold tables stay cold;
 13. the rest of the Bulletproofs backend (``bp_rest``): 256 threshold
     proofs (``prove_threshold_batch``), 64 consistency proofs of 5 values
@@ -305,6 +322,16 @@ SHARD_B_LOCAL = G16_LANES // SHARD_DP
 # basis points per block of phase 7's MSMs (shard 2): the range basis (Kp 160),
 # the h query (Kp 512), the b_g2 query (Kp 352)
 SHARD_K_LOCAL = {"ed25519": 96, "bn254_g1": 256, "bn254_g2": 192}
+# the multi_device phase: its (dp, shard) mesh of this card; the four-step
+# NTT's size (the JAX package's suggested gate) and shard counts; the LDE's
+# dp splits; the dry runs' position counts; each init_distributed worker's
+# time limit in seconds
+MD_DP, MD_SHARD = 2, 2
+MD_NTT_N = 1 << 18
+MD_NTT_SHARDS = (2, 4)
+MD_LDE_DPS = (1, 2, 4)
+MD_DRYRUNS = (4, 8)
+MD_DIST_TIMEOUT = 180
 
 
 def emit(obj) -> None:
@@ -2973,6 +3000,250 @@ def mimc_batch(dev) -> dict:
     return {"counts": counts}
 
 
+def _plain_collective(name: str, blocks: list, axis: str, dp: int, shard: int) -> list:
+    """What collective ``name`` gives on a (dp, shard) grid whose position
+    (d, s) holds ``blocks[d][s]``, in numpy (uint32 sums wrap): the
+    positions' results in (d, s) order."""
+    import numpy as np
+
+    out = []
+    for d in range(dp):
+        for s in range(shard):
+            group = [blocks[k][s] for k in range(dp)] if axis == "dp" else [blocks[d][k] for k in range(shard)]
+            me = d if axis == "dp" else s
+            n = len(group)
+            if name == "psum":
+                out.append(np.sum(np.stack(group), axis=0, dtype=np.uint32))
+            elif name == "all_gather":
+                out.append(np.stack(group))
+            elif name == "all_gather_tiled":
+                out.append(np.concatenate(group, axis=1))
+            elif name == "all_to_all":  # split axis 0, concat axis 1
+                out.append(np.concatenate([np.split(g, n, axis=0)[me] for g in group], axis=1))
+            elif name == "ppermute":  # the ring i -> i + 1
+                out.append(group[(me - 1) % n])
+    return out
+
+
+def ntt_launches(n: int, invert: bool) -> int:
+    """mont_mul launches of one ``ntt_device`` of size n: a product a stage,
+    a reduce after stage s where s % 4 == 3 and s is not the last, and for
+    the inverse n^-1's to_mont and the product by it."""
+    log_n = n.bit_length() - 1
+    return log_n + (log_n - 1) // 4 + 2 * invert
+
+
+def ntt_sharded_launches(n: int, shard: int, invert: bool) -> int:
+    """mont_mul launches of one ``ntt_sharded_device`` over ``shard``
+    positions: on each, to_mont, the size-N1 transforms, the twiddle
+    product, the size-N2 transforms and from_mont."""
+    from libzkp_tpu_torch.ops import ntt
+
+    n1, n2 = ntt.four_step_shape(n, shard)
+    return shard * (3 + ntt_launches(n1, invert) + ntt_launches(n2, invert))
+
+
+def multi_device(dev) -> dict:
+    """Phase 10b: the multi-device layer on a (dp 2, shard 2) mesh whose four
+    positions are all this card (it checks the sharding and the per-block
+    work, and measures no interconnect): every collective over both axes
+    against its plain result; ``ntt_sharded`` at N = 2^18 on BN254 Fr and
+    f128, shard 2 and 4, forward and inverse, every value equal to the
+    one-device ``ntt_device``'s (BN254 Fr forward also to the native
+    ``ntt`` hook), its mont_mul launches asserted, timed against
+    ``ntt_device`` in turns, both once under ``torch.profiler`` (the card's
+    busy ms and idle share); ``coset_lde_batch`` at the improvement path's
+    shapes at dp 1, 2 and 4, equal; ``dryrun_multichip(4)`` and ``(8)``;
+    ``init_distributed`` in subprocesses (NCCL, a ``file://`` rendezvous,
+    one ``all_reduce`` and the port's ``psum`` and ``all_gather`` over a
+    dp that spans them): world 1 on this card, and world 2 where two cards
+    are visible. The launch counters are zeroed just before each sharded
+    route and read just after, and summed."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+
+    from libzkp_tpu_torch.ops import kernels, ntt
+    from libzkp_tpu_torch.ops.field import BN254_FR, F128
+    from libzkp_tpu_torch.ops.limb import get_context
+    from libzkp_tpu_torch.parallel import collective, mesh as meshmod
+    from libzkp_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    start = time.perf_counter()
+    counts = dict.fromkeys(kernels.INSTANCES, 0)
+
+    def counted(run):
+        kernels.reset_launches()
+        out = run()
+        torch.cuda.synchronize()
+        for k, v in kernels.launches().items():
+            counts[k] += v
+        return out
+
+    dp, shard = MD_DP, MD_SHARD
+    mesh = meshmod.get_mesh(dp=dp, shard=shard, devices=[dev] * (dp * shard))
+    rng = np.random.default_rng(1022)
+    x = rng.integers(0, 1 << 32, (dp * shard * 4, 8, 3), dtype=np.uint64).astype(np.uint32)
+    blocks = [[x[(d * shard + s) * 4 : (d * shard + s + 1) * 4] for s in range(shard)] for d in range(dp)]
+    parts = tuple(tuple(torch.from_numpy(b).to(dev) for b in row) for row in blocks)
+    runs = {"psum": lambda a: collective.psum(parts, a, mesh=mesh),
+            "all_gather": lambda a: collective.all_gather(parts, a, mesh=mesh),
+            "all_gather_tiled": lambda a: collective.all_gather(parts, a, mesh=mesh, gather_axis=1, tiled=True),
+            "all_to_all": lambda a: collective.all_to_all(parts, a, 0, 1, mesh=mesh),
+            "ppermute": lambda a: collective.ppermute(
+                parts, a, [(i, (i + 1) % collective.axis_size(a, mesh=mesh))
+                           for i in range(collective.axis_size(a, mesh=mesh))], mesh=mesh)}
+    checked = []
+    for name, run in runs.items():
+        for axis in ("dp", "shard"):
+            got = [np.asarray(p.cpu()) for row in run(axis) for p in row]
+            want = _plain_collective(name, blocks, axis, dp, shard)
+            if any(g.dtype != w.dtype or not np.array_equal(g, w) for g, w in zip(got, want, strict=True)):
+                raise AssertionError(f"{name} over {axis} differs from its plain result")
+            checked.append(f"{name}/{axis}")
+    if (collective.axis_index("dp", mesh=mesh), collective.axis_index("shard", mesh=mesh)) != (
+            ((0, 0), (1, 1)), ((0, 1), (0, 1))) or collective.axis_size("dp", mesh=mesh) != dp:
+        raise AssertionError("axis_index or axis_size differs from the mesh's layout")
+
+    # the four-step NTT against the one-device route, in turns
+    ntt_rows = []
+    for F in (BN254_FR, F128):
+        ctx = get_context(F.p)
+        inst = "mont_mul" if ctx.n == 22 else "mont_mul_n11"
+        vals = [int.from_bytes(rng.bytes(32), "little") % F.p for _ in range(MD_NTT_N)]
+        x_dev = ctx.encode(vals, device=dev)
+        for invert in (False, True):
+            def single():
+                return ctx.from_mont(ntt.ntt_device(ctx, ctx.to_mont(x_dev[None]), invert=invert))[0]
+
+            want = ctx.decode(single())
+            if F is BN254_FR and not invert and want != ntt.ntt(F, vals):
+                raise AssertionError("ntt_device at 2^18 differs from the native ntt hook")
+            for sh in MD_NTT_SHARDS:
+                nmesh = meshmod.get_mesh(dp=dp, shard=sh, devices=[dev] * (dp * sh))
+
+                def sharded():
+                    return ntt.ntt_sharded_device(ctx, x_dev, nmesh, invert=invert)
+
+                kernels.reset_launches()
+                got = counted(sharded)
+                need = ntt_sharded_launches(MD_NTT_N, sh, invert)
+                if kernels.launches()[inst] != need:
+                    raise AssertionError(f"ntt_sharded made {kernels.launches()[inst]} {inst} launches, not {need}")
+                if ctx.decode(got) != want:
+                    raise AssertionError(f"ntt_sharded over {F.name}, shard {sh}, invert {invert}: values differ")
+                turns = defaultdict(list)
+                for route, fn in (("ntt_sharded", sharded), ("ntt_device", single), ("ntt_device", single),
+                                  ("ntt_sharded", sharded)):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    turns[route].append((time.perf_counter() - t0) * 1e3)
+                prof = {}
+                for route, fn in (("ntt_sharded", sharded), ("ntt_device", single)):
+                    _, wall, busy = profiled(fn)
+                    summ = busy_summary(busy, wall, mont="mont_mul_kernel")
+                    prof[route] = {"wall_ms": wall} | {k: summ[k] for k in (
+                        "device_busy_ms", "device_idle_share", "device_ops", "mont")}
+                ntt_rows.append({"field": F.name, "n": MD_NTT_N, "shard": sh, "invert": invert, "profile": prof,
+                                 "four_step": ntt.four_step_shape(MD_NTT_N, sh), inst: need,
+                                 "ntt_device_launches": 2 + ntt_launches(MD_NTT_N, invert),
+                                 "ms": {k: sum(v) / len(v) for k, v in turns.items()}, "turns_ms": dict(turns),
+                                 "sharded_over_device": sum(turns["ntt_sharded"]) / sum(turns["ntt_device"])})
+
+    # the LDE's dp split at the improvement path's shapes
+    traces = [[int.from_bytes(rng.bytes(16), "little") % F128.p for _ in range(IMP_TRACE)]
+              for _ in range(IMP_PAIRS)]
+    lde_ms, lde_want = {}, None
+    for d in MD_LDE_DPS:
+        lmesh = meshmod.get_mesh(dp=d, devices=[dev] * d)
+        kernels.reset_launches()
+        got = counted(lambda: ntt.coset_lde_batch(F128.p, traces, IMP_BLOWUP, 3, device=dev, mesh=lmesh))
+        if kernels.launches()["mont_mul_n11"] != d * IMP_MONT_MULS:
+            raise AssertionError(f"coset_lde_batch at dp {d}: {kernels.launches()['mont_mul_n11']} mont_mul_n11 "
+                                 f"launches, not {d * IMP_MONT_MULS}")
+        lde_want = got if lde_want is None else lde_want
+        if got != lde_want:
+            raise AssertionError(f"coset_lde_batch at dp {d} differs from dp 1")
+        t0 = time.perf_counter()
+        ntt.coset_lde_batch(F128.p, traces, IMP_BLOWUP, 3, device=dev, mesh=lmesh)
+        torch.cuda.synchronize()
+        lde_ms[d] = (time.perf_counter() - t0) * 1e3
+
+    dryruns = {}
+    for n in MD_DRYRUNS:
+        t0 = time.perf_counter()
+        out = counted(lambda: dryrun_multichip(n, device=dev))
+        dryruns[n] = {"mesh": out["mesh"], "devices": sorted(set(out["devices"])),
+                      "seconds": time.perf_counter() - t0}
+
+    worlds = [1] + ([2] if torch.cuda.device_count() > 1 else [])
+    dist_rows = []
+    for world in worlds:
+        with tempfile.TemporaryDirectory() as tmp:
+            env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent), OMP_NUM_THREADS="1")
+            t0 = time.perf_counter()
+            procs = [subprocess.Popen([sys.executable, "-c", DIST_WORKER, str(r), str(world), f"{tmp}/rdzv"],
+                                      env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                     for r in range(world)]
+            outs = []
+            try:
+                for pr in procs:
+                    stdout, stderr = pr.communicate(timeout=MD_DIST_TIMEOUT)
+                    if pr.returncode != 0:
+                        raise AssertionError(f"init_distributed worker failed: {stderr[-2000:]}")
+                    outs.append(json.loads(stdout.strip().splitlines()[-1]))
+            finally:
+                for pr in procs:
+                    if pr.poll() is None:
+                        pr.kill()
+                        pr.wait()
+            total = world * (world + 1) // 2
+            for o in outs:
+                if (o["backend"], o["all_reduce"], o["psum"], o["all_gather"], o["dp"]) != (
+                        "nccl", total, total, list(range(1, world + 1)), world):
+                    raise AssertionError(f"init_distributed world {world}: {o}")
+            dist_rows.append({"world": world, "seconds": time.perf_counter() - t0,
+                              "devices": [o["device"] for o in outs]})
+
+    emit({"phase": "multi_device", "mesh": mesh.shape, "devices": str(dev),
+          "note": "every position is this card: no interconnect measured", "collectives_checked": checked,
+          "ntt_sharded": ntt_rows, "coset_lde_batch": {"traces": IMP_PAIRS, "blowup": IMP_BLOWUP,
+                                                       "ms_by_dp": lde_ms, "equal": True},
+          "dryrun_multichip": dryruns, "init_distributed": dist_rows,
+          "launches": {k: v for k, v in counts.items() if v}, "seconds": time.perf_counter() - start})
+    return {"counts": counts}
+
+
+# the worker of multi_device's init_distributed check: rank, world size and
+# rendezvous file in argv; one all_reduce, then the port's psum and
+# all_gather over the dp axis that spans the processes
+DIST_WORKER = r"""
+import json, sys
+import torch
+import torch.distributed as dist
+from libzkp_tpu_torch.parallel import collective, mesh as meshmod
+rank, world, rdzv = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+dev = torch.device("cuda", rank)
+torch.cuda.set_device(dev)
+assert meshmod.init_distributed(f"file://{rdzv}", world, rank) is True
+t = torch.full((4,), rank + 1, dtype=torch.int64, device=dev)
+dist.all_reduce(t)
+mesh = meshmod.get_mesh(dp=1, devices=[dev])
+parts = meshmod.replicated(mesh).put(torch.tensor([rank + 1], dtype=torch.int32, device=dev))
+ps = collective.psum(parts, "dp", mesh=mesh)[0][0]
+ag = collective.all_gather(parts, "dp", mesh=mesh, tiled=True)[0][0]
+torch.cuda.synchronize()
+out = {"backend": dist.get_backend(), "all_reduce": int(t[0]), "psum": int(ps[0]),
+       "all_gather": ag.tolist(), "dp": collective.axis_size("dp", mesh=mesh), "device": str(dev)}
+dist.destroy_process_group()
+print(json.dumps(out))
+"""
+
+
 def probes_phase(dev) -> dict:
     """Phase 11: P2, P4 (both fields), P5, P6, P7, P1 and P3 through
     ``probes.run``, the launch counters zeroed just before and read just
@@ -3542,7 +3813,9 @@ def native_groth16(dev, pairs: list, items: list) -> dict:
     phase 5's equality statements and phase 6b's membership statements
     under the same draws, in turns, every proof byte-identical; the fastest
     pool size stands for the baseline (``native_groth16_baseline``); and ``verify`` against
-    ``verify_py``, ``verify_batch`` in ms a proof (``native_groth16_verify``).
+    ``verify_py`` (and in turns with the JAX package's reduced G2 subgroup
+    check), the subgroup check alone, ``verify_batch`` in ms a proof
+    (``native_groth16_verify``).
     The seam's table LRU is restored after it."""
     import ctypes
 
@@ -3715,12 +3988,32 @@ def native_groth16(dev, pairs: list, items: list) -> dict:
             times[fn.__name__] = (time.perf_counter() - t0) * 1e3 / len(cases)
         if verdicts["verify"] != verdicts["verify_py"] or verdicts["verify"] != [True] * NATIVE_VERIFY + [False]:
             raise AssertionError(f"{name}: verify {verdicts['verify']} against verify_py {verdicts['verify_py']}")
+        # verify with the G2 subgroup check ([R - 1]B + B) and with the JAX
+        # package's ([R]B reduced mod R: no multiplication), in turns
+        checks = {"unreduced": bn.g2_in_subgroup, "reduced": lambda q: bn.g2_is_inf(bn.g2_scalar_mul(bn.R, q))}
+        turns = defaultdict(list)
+        for which in ("unreduced", "reduced", "reduced", "unreduced"):
+            saved, bn.g2_in_subgroup = bn.g2_in_subgroup, checks[which]
+            try:
+                t0 = time.perf_counter()
+                if [groth16.verify(pk.vk, x, p) for x, p in cases] != verdicts["verify"]:
+                    raise AssertionError(f"{name}: verify with the {which} subgroup check changed a verdict")
+                turns[which].append((time.perf_counter() - t0) * 1e3 / len(cases))
+            finally:
+                bn.g2_in_subgroup = saved
+        t0 = time.perf_counter()
+        if not all(bn.g2_in_subgroup(p.b) for p in proofs):
+            raise AssertionError(f"{name}: a proof's B failed the subgroup check")
+        check_ms = (time.perf_counter() - t0) * 1e3 / len(proofs)
         t0 = time.perf_counter()
         ok = groth16.verify_batch(pk.vk, list(zip(public, proofs)))
         batch_ms = (time.perf_counter() - t0) * 1e3
         if ok != [True] * len(proofs):
             raise AssertionError(f"{name}: verify_batch rejected {ok.count(False)} proofs")
         out[name] = {"verify_ms": times["verify"], "verify_py_ms": times["verify_py"],
+                     "subgroup_check_ms": check_ms,
+                     "verify_ms_by_subgroup_check": {k: sum(v) / len(v) for k, v in turns.items()},
+                     "verify_ms_turns": dict(turns),
                      "py_over_native": times["verify_py"] / times["verify"],
                      "verify_batch_ms_per_proof": batch_ms / len(proofs), "batch_proofs": len(proofs),
                      "verify_over_batch_per_proof": times["verify"] / (batch_ms / len(proofs))}
@@ -3754,7 +4047,7 @@ def native_phase(dev, main: dict = None) -> None:
 def main(argv: list) -> int:
     flags = ("--kernels", "--range", "--groth16", "--g1", "--mont", "--ed-tree", "--ed-pair", "--f32-chain",
              "--ed-chain", "--mont-padd", "--fe-mul", "--bp-rest", "--native", "--membership",
-             "--improvement", "--api")
+             "--improvement", "--api", "--multi-device")
     if len(argv) > 1 or (argv and argv[0] not in flags):
         print(f"usage: python3 chip_smoke.py [{' | '.join(flags)}], got {argv}", file=sys.stderr)
         return 2
@@ -3851,6 +4144,9 @@ def main(argv: list) -> int:
     if argv == ["--api"]:  # the reference API's batch path alone
         api_batch(dev)
         return 0
+    if argv == ["--multi-device"]:  # the multi-device layer alone
+        multi_device(dev)
+        return 0
     tables: dict = {}
     checks = (check_kernels(dev, int_rate, tables) + check_bn254_kernels(dev, int_rate, tables)
               + check_sharded_kernels(dev, int_rate, tables)
@@ -3875,7 +4171,7 @@ def main(argv: list) -> int:
         meshes.append(("devices", meshmod.get_mesh(shard=2 if n_dev % 2 == 0 else 1)))
     for tag, mesh in meshes:
         paths += [sharded_msm(dev, mesh, tag), groth16_mesh(dev, mesh, g16, tag)]
-    paths += [groth16_h(dev), mimc_batch(dev), probes_phase(dev)]
+    paths += [groth16_h(dev), mimc_batch(dev), multi_device(dev), probes_phase(dev)]
     native_phase(dev, main)
     # last: its seam tables enter the LRU after every phase that counts
     # launches of cached tables; main_path built the range basis's table

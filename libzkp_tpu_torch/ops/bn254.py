@@ -491,7 +491,12 @@ def g2_is_on_curve(p: G2) -> bool:
 
 
 def g2_in_subgroup(p: G2) -> bool:
-    return g2_is_inf(g2_scalar_mul(R, p))
+    """Whether ``p`` lies in the order-R subgroup: [R]p is the point at
+    infinity. Every scalar multiplication here reduces its scalar mod R (so
+    [R]p would be infinity for any p), hence [R - 1]p + p, on the native
+    ``g2_scalar_mul``. The JAX package's check multiplies by R reduced and
+    accepts every point of the twist."""
+    return g2_is_inf(g2_add(g2_scalar_mul(R - 1, p), p))
 
 
 # ---------------------------------------------------------------------------

@@ -108,9 +108,10 @@ def mimc_hash_batch(values, *, device=None, mesh=None) -> List[int]:
 
     ``device`` defaults to the CUDA card (``device="cpu"`` runs the plain
     versions). ``mesh`` defaults to the one the MSM seam would take
-    (``parallel.mesh.mesh_for``); on a mesh whose dp is above 1 the batch is
-    cut into dp contiguous blocks, block d on the first device of dp row d,
-    as the JAX package lays a batch over its ``dp`` axis."""
+    (``parallel.mesh.mesh_for``); on a mesh of more than one position the
+    batch is cut into dp contiguous blocks
+    (:func:`.parallel.mesh.dp_sharding`), block d on the first device of dp
+    row d, as the JAX package lays a batch over its ``dp`` axis."""
     dev = resolve(device)
     ctx = get_context(BN254_FR.p, "bn254_fr")
     vals = [int(v) for v in values]
@@ -120,10 +121,9 @@ def mimc_hash_batch(values, *, device=None, mesh=None) -> List[int]:
         mesh = meshmod.mesh_for(dev)
     elif mesh.device_type != dev.type:
         raise ValueError(f"the mesh is on {mesh.device_type}, the entry device is {dev}")
-    rows = ints_to_limb_rows([v % ctx.p for v in vals], ctx.n)
-    dp = 1 if mesh is None else meshmod.num_dp(mesh)
-    per = -(-len(vals) // dp)
-    outs = [mimc_batch_device(torch.from_numpy(rows[d * per : (d + 1) * per]).to(
-                dev if mesh is None else mesh.devices[d][0]))
-            for d in range(dp) if d * per < len(vals)]
-    return [x for out in outs for x in ctx.decode(out)]
+    x = torch.from_numpy(ints_to_limb_rows([v % ctx.p for v in vals], ctx.n))
+    if mesh is None:
+        outs = [mimc_batch_device(x.to(dev))]
+    else:
+        outs = [mimc_batch_device(row[0]) for row in meshmod.dp_sharding(mesh).put(x) if row[0].shape[0]]
+    return [v for out in outs for v in ctx.decode(out)]

@@ -10,10 +10,15 @@ Port of the JAX package's ``libzkp_tpu/ops/ntt.py``:
 * Device tier (:func:`ntt_device`): many transforms at once on Montgomery
   limb tensors (:mod:`.limb`), the butterfly stages eager torch around the
   ``mont_mul`` kernel, with the JAX schedule of reduces, so the limbs equal
-  the JAX ``ntt_batch``'s; and :func:`coset_lde_batch`, a batch of traces'
-  interpolation and coset low-degree extension on it. The four-step NTT
-  sharded over a mesh (``ntt_sharded``) and ``coset_lde_batch``'s split of
-  the batch over a mesh's dp axis are not ported yet.
+  the JAX ``ntt_batch``'s; :func:`coset_lde_batch`, a batch of traces'
+  interpolation and coset low-degree extension on it, split over a mesh's
+  dp rows; and :func:`ntt_sharded`, one transform split over a mesh's
+  ``shard`` axis by the four-step decomposition.
+
+The JAX package's gate in front of the sharded NTT (``maybe_ntt_sharded``:
+an environment size threshold, and a catch-all that falls back to the local
+tier) is not ported: :func:`ntt` stays local, as the JAX package's does by
+default, and :func:`ntt_sharded` is called by name.
 """
 
 from __future__ import annotations
@@ -26,6 +31,8 @@ import torch
 
 from .. import native
 from ..device import resolve
+from ..parallel import collective
+from ..parallel import mesh as meshmod
 from .field import PrimeField
 from .limb import LimbContext, get_context, ints_to_limb_rows
 
@@ -232,18 +239,121 @@ def coset_lde_device(ctx: LimbContext, x: torch.Tensor, blowup: int, offset: int
     return ctx.from_mont(coeffs_m), ctx.from_mont(lde_m)
 
 
-def coset_lde_batch(p: int, traces, blowup: int, offset: int, *, device=None) -> tuple:
+def coset_lde_batch(p: int, traces, blowup: int, offset: int, *, device=None, mesh=None) -> tuple:
     """A batch of size-n traces -> ([coefficient lists], [LDE lists]) as
     canonical ints, one upload and one download: :func:`coset_lde_device` on
     ``device`` (default the CUDA card; ``"cpu"`` runs the plain versions).
-    The batch is not padded (no compile step to serve)."""
+
+    ``mesh`` defaults to the one the MSM seam would take
+    (``parallel.mesh.mesh_for``). On a mesh whose dp is above 1 the traces
+    are cut into dp contiguous blocks (:func:`.parallel.mesh.dp_sharding`),
+    block d runs on the first device of dp row d, and the results come back
+    to ``device``; the values are the one-device route's. The batch is not
+    padded (no compile step to serve), so a batch smaller than dp takes as
+    many blocks as it has traces."""
     device = resolve(device)
+    if mesh is None:
+        mesh = meshmod.mesh_for(device)
+    elif mesh.device_type != device.type:
+        raise ValueError(f"the mesh is on {mesh.device_type}, the entry device is {device}")
     ctx = get_context(p)
     B, n = len(traces), len(traces[0])
     x = ctx.encode([v for t in traces for v in t], device=device).reshape(B, n, ctx.n)
-    coeffs, lde = coset_lde_device(ctx, x, blowup, offset)
+    if mesh is None or meshmod.num_dp(mesh) == 1:
+        coeffs, lde = coset_lde_device(ctx, x, blowup, offset)
+    else:
+        blocks = [coset_lde_device(ctx, row[0], blowup, offset)
+                  for row in meshmod.dp_sharding(mesh).put(x) if row[0].shape[0]]
+        coeffs = torch.cat([c.to(device) for c, _ in blocks])
+        lde = torch.cat([e.to(device) for _, e in blocks])
     ints = ctx.decode(torch.cat([coeffs, lde], dim=1))
     N = n * blowup
     step = n + N
     return ([ints[b * step : b * step + n] for b in range(B)],
             [ints[b * step + n : (b + 1) * step] for b in range(B)])
+
+
+# ---------------------------------------------------------------------------
+# One transform split over a mesh's shard axis: the four-step (Bailey)
+# decomposition N = N1 * N2. Size-N1 column transforms on each position,
+# a twiddle product, one all_to_all over ``shard``, size-N2 row transforms.
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=8)
+def _four_step_twiddles(p: int, n1: int, n2: int, invert: bool) -> np.ndarray:
+    """(N2, N1, limbs) table of w^(j2 * k1) (w the N1*N2-th root of unity,
+    inverted for the inverse) in Montgomery limb form, host numpy."""
+    F = PrimeField(p, "tw4")
+    ctx = get_context(p)
+    w = F.root_of_unity(n1 * n2)
+    if invert:
+        w = F.inv(w)
+    vals = []
+    for j2 in range(n2):
+        wj = pow(w, j2, p)
+        cur = ctx.R % p
+        for _ in range(n1):
+            vals.append(cur)
+            cur = cur * wj % p
+    return ints_to_limb_rows(vals, ctx.n).reshape(n2, n1, ctx.n)
+
+
+@functools.lru_cache(maxsize=8)
+def _four_step_tensor(p: int, n1: int, n2: int, invert: bool, device: torch.device) -> torch.Tensor:
+    """:func:`_four_step_twiddles` on ``device``."""
+    return torch.from_numpy(_four_step_twiddles(p, n1, n2, invert)).to(device)
+
+
+def four_step_shape(n: int, shard: int) -> tuple:
+    """(N1, N2) of a size-``n`` transform over ``shard`` positions: N1 =
+    2^(log n // 2), raised to ``shard`` when either factor does not divide
+    by it. Raises ``AssertionError`` (the JAX package's assert, explicit so
+    ``-O`` keeps it) when n is no power of two or below ``shard``^2."""
+    if n < 1 or n & (n - 1):
+        raise AssertionError("N must be a power of two")
+    n1 = 1 << ((n.bit_length() - 1) // 2)
+    n2 = n // n1
+    if n1 % shard or n2 % shard:
+        n1 = max(n1, shard)
+        n2 = n // n1
+    if n1 % shard or n2 % shard:
+        raise AssertionError("N too small for this mesh")
+    return n1, n2
+
+
+def ntt_sharded_device(ctx: LimbContext, x: torch.Tensor, mesh, invert: bool = False) -> torch.Tensor:
+    """The four-step NTT of canonical limbs ``x`` (N, limbs) over the
+    ``shard`` positions of the mesh's first dp row -> (N, limbs) relaxed
+    limbs out of the Montgomery domain, in natural order, on ``x``'s device.
+
+    A[j2][j1] = x[j1 * N2 + j2] is split by rows over ``shard``; each
+    position runs its N2/shard size-N1 transforms (:func:`ntt_device`), the
+    product by its twiddle rows, then one ``all_to_all`` makes each position
+    hold N1/shard complete rows of N2 for the size-N2 transforms; X[N1 * k2
+    + k1] is row k1's entry k2. Every product is the ``mont_mul`` kernel on
+    a card. The JAX package's ``shard_map`` replicates the transform over
+    ``dp`` and takes one row's result; here one row runs it."""
+    N = x.shape[0]
+    row_mesh = meshmod.Mesh((mesh.devices[0],))
+    n1, n2 = four_step_shape(N, len(row_mesh.devices[0]))
+    a = x.reshape(n1, n2, ctx.n).transpose(0, 1)
+    tw = _four_step_tensor(ctx.p, n1, n2, invert, row_mesh.devices[0][0])
+    cols = meshmod.Sharding(row_mesh, "shard")
+    b = tuple(ctx.mont_mul(ntt_device(ctx, ctx.to_mont(xl), invert=invert), twl)
+              for xl, twl in zip(cols.put(a)[0], cols.put(tw)[0]))
+    c = collective.all_to_all((b,), "shard", split_axis=1, concat_axis=0, mesh=row_mesh)[0]
+    out = [ctx.from_mont(ntt_device(ctx, ci.transpose(0, 1), invert=invert)) for ci in c]
+    return torch.cat([o.to(x.device) for o in out]).transpose(0, 1).reshape(N, ctx.n)
+
+
+def ntt_sharded(p: int, values, mesh, invert: bool = False) -> List[int]:
+    """One size-N NTT split over the mesh's ``shard`` axis; returns the
+    values as ints, equal to :func:`ntt_py`'s. Needs N = N1 * N2 with both
+    factors divisible by the shard count, so N >= shard^2
+    (:func:`four_step_shape`). Runs on the mesh's devices (the CPU's plain
+    versions for a mesh of ``cpu`` positions)."""
+    ctx = get_context(p)
+    dev = mesh.devices[0][0]
+    x = ctx.encode(list(values), device=dev)
+    return ctx.decode(ntt_sharded_device(ctx, x, mesh, invert=invert))

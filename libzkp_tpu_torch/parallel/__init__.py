@@ -1,2 +1,3 @@
-"""Multi-device execution: device meshes and the collectives the
-mesh-sharded MSM needs (port of the JAX package's ``libzkp_tpu/parallel``)."""
+"""Multi-device execution: device meshes, their placements, the named-axis
+collectives, the multi-process bootstrap and the multi-device dry run (port
+of the JAX package's ``libzkp_tpu/parallel``)."""

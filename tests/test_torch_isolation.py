@@ -52,7 +52,8 @@ from libzkp_tpu_torch.utils.commitment import commit_value_snark
 from libzkp_tpu_torch import advanced, api
 from libzkp_tpu_torch.advanced import batch, batch_store, composite, misc
 from libzkp_tpu_torch.models.schemes import dispatch
-from libzkp_tpu_torch.parallel import batch_prover
+from libzkp_tpu_torch.parallel import batch_prover, dryrun
+from libzkp_tpu_torch.ops.field import F128
 from libzkp_tpu_torch.utils import composition, performance, serialization
 env = zkp.prove_range(7, 0, 10, device="cpu")
 # verification runs on the port's own native library
@@ -90,6 +91,12 @@ ok = ok and stark_backend.verify_improvement_py(imp[26:-32], 30, 50)
 ok = ok and zkp.verify_composite_proof(zkp.create_composite_proof([env, imp]))
 ok = ok and zkp.verify_proofs_parallel([(env, "range"), (imp, "improvement"), (imp, "range")]) == [
     True, True, False]
+# the multi-device layer: a collective, the four-step NTT and the LDE's dp split
+cpu4 = mesh.get_mesh(dp=2, shard=2, devices=["cpu"] * 4)
+ok = ok and collective.axis_size("dp", mesh=cpu4) == 2 and mesh.init_distributed() is False
+ok = ok and ntt.ntt_sharded(F128.p, list(range(16)), cpu4) == ntt.ntt_py(F128, list(range(16)))
+ok = ok and ntt.coset_lde_batch(F128.p, [[1] * 8] * 3, 8, 3, device="cpu", mesh=cpu4) == ntt.coset_lde_batch(
+    F128.p, [[1] * 8] * 3, 8, 3, device="cpu")
 mods = [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "libzkp_tpu."))
         or m == "libzkp_tpu"]
 print(json.dumps({{"ok": ok, "mods": mods}}))
@@ -121,6 +128,7 @@ print(json.dumps({{"ok": ok, "mods": mods}}))
     "zkp.process_batch(zkp.create_proof_batch())",
     "zkp.prove_range_cached(7, 0, 10)",
     "zkp.benchmark_proof_generation_numeric('improvement', 1)",
+    "dryrun.dryrun_multichip(4)",
 ])
 def test_entry_points_raise_without_cuda(call):
     code = f"""
@@ -128,7 +136,7 @@ import libzkp_tpu_torch as zkp
 from libzkp_tpu_torch import probes
 from libzkp_tpu_torch.models import bulletproofs as bp
 from libzkp_tpu_torch.models.strobe import Transcript
-from libzkp_tpu_torch.parallel import mesh
+from libzkp_tpu_torch.parallel import dryrun, mesh
 try:
     {call}
 except RuntimeError as e:
