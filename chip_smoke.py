@@ -15,17 +15,19 @@
     python3 chip_smoke.py --bp-rest    # phases 1, 2 and 13 only, no last line
     python3 chip_smoke.py --native     # phases 1, 2 and 12 only, no last line
     python3 chip_smoke.py --membership # phases 1, 2 and 6b only, no last line
-    python3 chip_smoke.py --improvement  # phases 1, 2, mont_mul's checks (3e) and 6c only, no last line
+    python3 chip_smoke.py --improvement  # phases 1, 2, mont_mul's and blake3's checks (3e, 3g) and 6c only
     python3 chip_smoke.py --api        # phases 1, 2 and 6d only, no last line
     python3 chip_smoke.py --multi-device  # phases 1, 2 and 10b only, no last line
+    python3 chip_smoke.py --device-hash   # phases 1, 2, blake3's checks (3g) and 6e only, no last line
+    python3 chip_smoke.py --ristretto  # phases 1, 2 and 6f only, no last line
 
 Phases, each printing one JSON line:
 
 1. the card (``nvidia-smi`` and torch's view of it);
 2. the build of the CUDA kernels from ``libzkp_tpu_torch/csrc`` (timed; the
    ptxas lines, and the registers, frame and spills of mont_mul, tree_sum
-   ed25519, pair_add ed25519, padd_f32_chain, padd_chain, mont_padd and
-   fe_mul), and beside it ``g++``'s build of the native host tier
+   ed25519, pair_add ed25519, padd_f32_chain, padd_chain, mont_padd, fe_mul
+   and blake3), and beside it ``g++``'s build of the native host tier
    (``libzkp_tpu_torch/native``: its seconds, flags and library);
 3. each kernel instance against its plain PyTorch version on the card at its
    path's shapes, both timed with CUDA events: the ed25519 window_sum,
@@ -71,6 +73,10 @@ Phases, each printing one JSON line:
    pair_add G1: K in {1, 5, 6, 8, 128, 512}, K = 8 and 512 timed;
    pair_add ed25519: K in {1, 7, 8, 9, 161}); mont_mul also at the
    membership h's NTT stage (n = 1024, 256 statements), timed;
+3g. blake3, word for word against ``compress_vec``, at the improvement
+   batch's 2^14 leaves of 16 bytes (the kernels line) and a 2^13-lane
+   level of 64-byte blocks, both timed, and at ragged lane counts, message
+   lengths and flags;
 3f. pair_add, window_sum4 and horner4 for BN254 G1 and G2 at the
    membership path's shapes, limb for limb against their plain versions and
    timed: window_sum4 G1 at Kp 608, 1024, 480 and G2 at Kp 608 over 256
@@ -114,7 +120,7 @@ Phases, each printing one JSON line:
 6c. the improvement path (STARK, scheme 5): ``prove_improvement_batch`` of
    256 distinct (old, new) pairs on the card route with the launch
    counters zeroed just before and read just after (16 mont_mul_n11
-   launches: the coset LDE of every trace), warm batches timed in turns
+   launches: the coset LDE of every trace; one blake3: every leaf), warm batches timed in turns
    with the native whole-pipeline baseline on the same pairs, every proof
    byte-identical, one batch split into upload, device LDE + commit,
    download and host assembly, one profiled (idle share), the device
@@ -122,6 +128,17 @@ Phases, each printing one JSON line:
    byte-identical, every proof verified by the native verifier and the
    Python one (ms a proof), a tampered one rejected, and the native NTT and
    BLAKE3 hooks timed against their goldens;
+6e. the device BLAKE3 tier (``device_hash``) at 2^14 rows of 16 bytes:
+   ``hash_leaves_device`` (one blake3 launch), ``merkle_tree_device`` (1 +
+   14) and ``hash_element_rows(..., device=)`` (one), launches asserted,
+   every digest equal to the native tier's, timed in turns with it, one
+   call of each profiled;
+6f. the device Ristretto decode and encode (``ristretto_device``): every
+   compressed point of phase 4's envelopes and crafted rejections through
+   ``ristretto_decompress_device``, lane for lane against the native
+   ``decompress`` (``None`` included), the decoded points re-encoded by
+   ``ristretto_compress_device`` against the inputs and the native
+   ``compress``, both timed in turns with the native loops and profiled;
 6d. the reference API's batch path (``api_batch``): 384 ops, 64 of each
    kind interleaved, through ``create_proof_batch``, the ``batch_add_*``
    calls and ``process_batch`` on the card (the MiMC pre-hash of 128
@@ -163,8 +180,8 @@ Phases, each printing one JSON line:
     a block), equal; ``dryrun_multichip(4)`` and ``(8)``; and
     ``init_distributed`` in subprocesses over NCCL with a ``file://``
     rendezvous (world 1 on this card; world 2, a card each, where two are
-    visible): one ``all_reduce`` and the port's ``psum`` and ``all_gather``
-    over the dp axis that spans them;
+    visible): one ``all_reduce`` and the port's ``psum``, ``all_gather``,
+    ``all_to_all`` and ``ppermute`` over the dp axis that spans them;
 11. the probes (``libzkp_tpu_torch.probes``: P2, P4, P5, P6, P7, P1, P3);
 12. the native host tier (``native``) on this machine's host: Keccak,
     ``compress``, ``decompress`` (64 invalid encodings among 256),
@@ -297,7 +314,8 @@ PTXAS_KERNELS = {"mont_mul": ("mont", "mont_mul_kernel"),
                  "padd_f32_chain": ("probes", "padd_f32_coop_kernel", "padd_f32_chain_kernel"),
                  "padd_chain": ("probes", "coop_chain_kernelI6EdCoop", "padd_chain_kernel", "_Z6fe_mul"),
                  "mont_padd": ("probes", "mont_padd_kernel", "mont_mul22"),
-                 "fe_mul": ("probes", "fe_mul_kernel")}
+                 "fe_mul": ("probes", "fe_mul_kernel"),
+                 "blake3": ("blake3", "blake3_kernel")}
 # K3 pair_add ed25519's and P3's kernels in a profile: this tree's and the
 # one-thread kernels they replaced
 PAIR_ADD_ED_KERNELS = ("coop_horner_kernel<EdCoop, 1, 0>", "pair_add_kernel<Ed25519>")
@@ -332,6 +350,15 @@ MD_NTT_SHARDS = (2, 4)
 MD_LDE_DPS = (1, 2, 4)
 MD_DRYRUNS = (4, 8)
 MD_DIST_TIMEOUT = 180
+# the blake3 kernel and the device BLAKE3 tier: the improvement batch's
+# leaves (IMP_PAIRS traces of IMP_TRACE * IMP_BLOWUP rows of 16 bytes), a
+# tree over as many rows, and the kernel's bound: 7 rounds of 8 G steps of
+# 14 add, xor and rotate operations and 8 output xors a compression, 16
+# int64 words read and 8 written a lane
+B3_ROWS, B3_ROW_BYTES = IMP_PAIRS * IMP_TRACE * IMP_BLOWUP, 16
+B3_OPS = 7 * 8 * 14 + 8
+B3_LANE_BYTES = (16 + 8) * 8
+B3_RAGGED = ((1, 0, 11), (255, 33, 11), (257, 64, 0), (1000, 7, 0xFF))  # (lanes, block_len, flags)
 
 
 def emit(obj) -> None:
@@ -1625,6 +1652,49 @@ def check_mont_kernels(dev, int_rate: float) -> list:
     return results
 
 
+def check_blake3_kernel(dev, int_rate: float) -> list:
+    """Phase 3g: blake3 against its plain version (``compress_vec``), word
+    for word, at the improvement batch's B3_ROWS leaves of 16 bytes (the
+    kernels line) and at a level of B3_ROWS / 2 64-byte blocks, both timed
+    with CUDA events and the card's time a launch from the profiler; and at
+    B3_RAGGED's lane counts, message lengths and flags."""
+    from libzkp_tpu_torch.ops import kernels
+    from libzkp_tpu_torch.ops.blake3_device import STANDALONE
+
+    gen = torch.Generator().manual_seed(2222)
+
+    def words(lanes, block_len):
+        m = torch.randint(0, 1 << 32, (lanes, 16), generator=gen, dtype=torch.int64)
+        m[:, (block_len + 3) // 4:] = 0  # the zero-padded block
+        return m.to(dev)
+
+    results = []
+    for lanes, block_len in ((B3_ROWS, B3_ROW_BYTES), (B3_ROWS // 2, 64)):
+        m = words(lanes, block_len)
+        out_k = kernels.blake3(m, block_len, STANDALONE)
+        out_p = kernels.blake3_plain(m, block_len, STANDALONE)
+        torch.cuda.synchronize()
+        err = _limbs_err(f"blake3 ({lanes} lanes, block_len {block_len})", out_k, out_p)
+        b_ms, b_by = bound(B3_OPS * lanes, B3_LANE_BYTES * lanes, int_rate)
+        row = dict(name="blake3", route="cuda", source="libzkp_tpu_torch/csrc/blake3.cu",
+                   replaces="libzkp_tpu/ops/blake3_device.py:94", max_abs_err=float(err),
+                   tolerance="exact words", ms=cuda_ms(lambda: kernels.blake3(m, block_len, STANDALONE), 50),
+                   plain_ms=cuda_ms(lambda: kernels.blake3_plain(m, block_len, STANDALONE), 3),
+                   bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                   shape=f"m ({lanes}, 16) i64, block_len {block_len}",
+                   card=card_time(lambda: kernels.blake3(m, block_len, STANDALONE), ("blake3_kernel",), 20))
+        emit({"phase": "kernel_check", **row})
+        if block_len == B3_ROW_BYTES:
+            results.append(row)
+    for lanes, block_len, flags in B3_RAGGED:
+        m = words(lanes, block_len)
+        _limbs_err(f"blake3 ({lanes} lanes, block_len {block_len}, flags {flags})",
+                   kernels.blake3(m, block_len, flags), kernels.blake3_plain(m, block_len, flags))
+    emit({"phase": "kernel_check", "name": "blake3", "ragged": True, "cases": [list(c) for c in B3_RAGGED],
+          "identical": True})
+    return results
+
+
 def mont_pair(dev) -> None:
     """mont_mul alone through its wrapper at the NTT stage, MiMC's two
     shapes, P6's and (where the tree has it) the f128 LDE stage, each limb
@@ -2364,17 +2434,18 @@ def improvement_native_hooks(pairs: list) -> dict:
 def improvement(dev) -> dict:
     """Phase 6c: IMP_PAIRS distinct improvement proofs (scheme 5) through the
     port's entry point, ``prove_improvement_batch``, the card route: every
-    trace's coset LDE (mont_mul_n11) and BLAKE3 leaf digests in one device
-    program, each proof's transcript, FRI and serialisation on the host. The
-    cold batch's launches are asserted (IMP_MONT_MULS mont_mul_n11, nothing
-    else); warm batches timed in turns with the native whole-pipeline
+    trace's coset LDE (mont_mul_n11) and BLAKE3 leaf digests (one blake3
+    launch) in one device program, each proof's transcript, FRI and
+    serialisation on the host. The cold batch's launches are asserted
+    (IMP_MONT_MULS mont_mul_n11, one blake3, nothing else); warm batches timed in turns with the native whole-pipeline
     baseline ``_prove_native`` on the same pairs (card, native, native,
     card, card, native), every proof byte-identical; one batch split into
     the upload, the device LDE + commit, the download and the host assembly;
     one under ``torch.profiler`` (busy ms, idle share, mont_mul_n11's card
-    time); the device program's parts timed alone on the batch's traces
-    (the coset LDE, the canonicalisation, the word packing, the leaf BLAKE3:
-    CUDA-event ms, busy ms and device operations); IMP_PLAIN_PAIRS pairs
+    time, blake3's); the device program's parts timed alone on the batch's
+    traces (the coset LDE, the canonicalisation, the word packing, the leaf
+    BLAKE3, the blake3 kernel's launch: CUDA-event ms, busy ms and device
+    operations); IMP_PLAIN_PAIRS pairs
     proved on the CPU's plain route, byte-identical; every proof verified by
     the native verifier and by ``verify_improvement_py`` (ms a proof both),
     every envelope by ``verify_improvement``, a tampered proof rejected by
@@ -2395,7 +2466,7 @@ def improvement(dev) -> dict:
     torch.cuda.synchronize()
     cold_ms = (time.perf_counter() - t0) * 1e3
     counts = kernels.launches()
-    want = dict.fromkeys(kernels.INSTANCES, 0) | {"mont_mul_n11": IMP_MONT_MULS}
+    want = dict.fromkeys(kernels.INSTANCES, 0) | {"mont_mul_n11": IMP_MONT_MULS, "blake3": 1}
     if counts != want:
         raise AssertionError(f"kernel launches {counts}, the improvement batch needs {want}")
     proofs = [bytes(Proof.from_bytes(e).proof[16:]) for e in envs]
@@ -2450,7 +2521,7 @@ def improvement(dev) -> dict:
     if got != envs:
         raise AssertionError("the profiled batch's proofs differ")
     emit({"phase": "improvement_profile", "batch_ms_profiled": prof_ms,
-          **busy_summary(busy, prof_ms, mont_mul_n11="mont_mul_kernel<11>")})
+          **busy_summary(busy, prof_ms, mont_mul_n11="mont_mul_kernel<11>", blake3="blake3_kernel")})
 
     # the device program's parts alone, on the batch's own traces
     ctx = get_context(F128.p)
@@ -2500,6 +2571,162 @@ def improvement(dev) -> dict:
     improvement_native_hooks(pairs)
     emit({"phase": "improvement", "seconds": time.perf_counter() - start})
     return {"counts": counts, "ms_per_batch": card_ms, "split": split}
+
+
+def device_hash(dev) -> dict:
+    """Phase 6e: the device BLAKE3 tier through its entry points at B3_ROWS
+    seeded rows of B3_ROW_BYTES bytes: ``hash_leaves_device`` (one blake3
+    launch), ``merkle_tree_device`` (one for the leaves and one a level) and
+    ``hash_element_rows(F128, rows, device=)`` (one), each with the launch
+    counters zeroed just before and read just after, every digest equal to
+    the native tier's (``blake3_batch``, ``blake3_merkle_levels``, the
+    native route of ``hash_element_rows``); each timed in turns with its
+    native counterpart (device, native, native, device, device, native;
+    host clock, digests on the host); one call of each entry point under
+    ``torch.profiler`` (busy ms, idle share, the kernel's card time)."""
+    from libzkp_tpu_torch import native
+    from libzkp_tpu_torch.models import merkle
+    from libzkp_tpu_torch.ops import blake3_device, kernels
+    from libzkp_tpu_torch.ops.field import F128
+
+    start = time.perf_counter()
+    rng = random.Random(2214)
+    rows = [rng.randbytes(B3_ROW_BYTES) for _ in range(B3_ROWS)]
+    elements = [[int.from_bytes(r, "little") % F128.p] for r in rows]
+    depth = B3_ROWS.bit_length() - 1
+
+    def native_tree():
+        leaves = native.blake3_batch(rows, B3_ROW_BYTES)
+        return leaves, native.blake3_merkle_levels(leaves)
+
+    runs = {
+        "hash_leaves_device": (lambda: blake3_device.hash_leaves_device(rows, device=dev),
+                               lambda: native.blake3_batch(rows, B3_ROW_BYTES), 1),
+        "merkle_tree_device": (lambda: blake3_device.merkle_tree_device(rows, device=dev), native_tree,
+                               1 + depth),
+        "hash_element_rows": (lambda: merkle.hash_element_rows(F128, elements, device=dev),
+                              lambda: merkle.hash_element_rows(F128, elements), 1),
+    }
+    counts = dict.fromkeys(kernels.INSTANCES, 0)
+    out = {}
+    for name, (on_card, on_host, launches) in runs.items():
+        want = on_host()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        got = on_card()
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        got_counts = kernels.launches()
+        if got_counts != dict.fromkeys(kernels.INSTANCES, 0) | {"blake3": launches}:
+            raise AssertionError(f"{name}: kernel launches {got_counts}, the call needs {launches} blake3")
+        if got != want:
+            raise AssertionError(f"{name}: the card's digests differ from the native tier's")
+        counts["blake3"] += launches
+        turns = {"card": [], "native": []}
+        for route in ("card", "native", "native", "card", "card", "native"):
+            t0 = time.perf_counter()
+            got = on_card() if route == "card" else on_host()
+            turns[route].append((time.perf_counter() - t0) * 1e3)
+            if got != want:
+                raise AssertionError(f"{name}: a timed {route} call's digests differ")
+        _, prof_ms, busy = profiled(on_card)
+        out[name] = {"launches": launches, "cold_ms": cold_ms,
+                     "ms": {k: sum(v) / len(v) for k, v in turns.items()}, "turns_ms": turns,
+                     "card_over_native": sum(turns["card"]) / sum(turns["native"]),
+                     "profile": busy_summary(busy, prof_ms, blake3="blake3_kernel")}
+    emit({"phase": "device_hash", "card": smi("name,power.limit"), "rows": B3_ROWS,
+          "row_bytes": B3_ROW_BYTES, "levels": depth, "identical": True, **out,
+          "seconds": time.perf_counter() - start})
+    return {"counts": counts}
+
+
+def _not_square_encodings(count: int) -> list:
+    """The first ``count`` even s whose RFC 9496 decode finds no square
+    root: v * u2^2 no square mod p, v = -(d u1^2) - u2^2, u1 = 1 - s^2,
+    u2 = 1 + s^2."""
+    from libzkp_tpu_torch.ops import ed25519 as ed
+
+    out, s = [], 2
+    while len(out) < count:
+        u1, u2 = (1 - s * s) % ed.P, (1 + s * s) % ed.P
+        v = (-ed.D * u1 * u1 - u2 * u2) % ed.P
+        if pow(v * u2 * u2 % ed.P, (ed.P - 1) // 2, ed.P) == ed.P - 1:
+            out.append(s.to_bytes(32, "little"))
+        s += 2
+    return out
+
+
+def ristretto_device(dev, main: dict = None) -> dict:
+    """Phase 6f: the device Ristretto decode and batched encode. Every
+    compressed point of the main path's envelopes (each proof's commitment
+    V, and A, S, T1, T2 and the six L and R of its two range proofs; the
+    proofs are made here when ``main`` does not hold them) and crafted
+    encodings (odd s, s >= p, no square root, wrong lengths, random bytes)
+    through ``ristretto_decompress_device``, with the launch counters zeroed
+    just before and read just after (torch code: none), lane for lane
+    against the native ``decompress`` loop, ``None`` included, timed in
+    turns with it (card, native, native, card, card, native); the decoded
+    points through ``ristretto_compress_device``, equal to their inputs and
+    to the native ``compress`` loop, timed in turns likewise; one call of
+    each under ``torch.profiler`` (device operations, busy ms, idle
+    share)."""
+    import libzkp_tpu_torch as zkp
+    from libzkp_tpu_torch.models.bulletproofs_backend import BulletproofsBackend as BB
+    from libzkp_tpu_torch.models.schemes.common import parse_and_validate_proof, reconstruct_bulletproofs_proof
+    from libzkp_tpu_torch.ops import ed25519 as ed, kernels
+    from libzkp_tpu_torch.ops.ristretto import ristretto_compress_device, ristretto_decompress_device
+    from libzkp_tpu_torch.utils.envelope import SCHEME_RANGE
+
+    start = time.perf_counter()
+    if main is None:
+        triples = main_triples()
+        main = {"envs": zkp.prove_range_batch(triples, device=dev), "triples": triples}
+    encodings = []
+    for env, (_, lo, hi) in zip(main["envs"], main["triples"]):
+        p = parse_and_validate_proof(env, SCHEME_RANGE)
+        encodings.append(bytes(p.commitment))
+        for rp, _, _, _ in BB.range_instances(reconstruct_bulletproofs_proof(p.proof, p.commitment), lo, hi):
+            encodings += [rp.A, rp.S, rp.T_1, rp.T_2, *rp.ipp.L_vec, *rp.ipp.R_vec]
+    n_points = len(encodings)
+    rng = random.Random(2215)
+    encodings += ([(2 * rng.randrange(1 << 250) + 1).to_bytes(32, "little") for _ in range(32)]  # odd s
+                  + [(ed.P + 2 * k).to_bytes(32, "little") for k in range(9)]  # s >= p, even
+                  + _not_square_encodings(32)
+                  + [rng.randbytes(n) for n in (0, 1, 31, 33, 64)]
+                  + [rng.randbytes(32) for _ in range(64)])
+    want = [ed.decompress(e) for e in encodings]
+    if any(w is None for w in want[:n_points]) or all(w is not None for w in want[n_points:]):
+        raise AssertionError("the main path's points must decode and some crafted encodings must not")
+
+    kernels.reset_launches()
+    got = ristretto_decompress_device(encodings, device=dev)
+    if kernels.launches() != dict.fromkeys(kernels.INSTANCES, 0):
+        raise AssertionError(f"the Ristretto programs launched kernels: {kernels.launches()}")
+    if got != want:
+        bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+        raise AssertionError(f"ristretto_decompress_device differs from the native decompress at lanes {bad[:8]}")
+    points = [g for g in got if g is not None]
+    canonical = [e for e, g in zip(encodings, got) if g is not None]
+    runs = {"decompress": (lambda: ristretto_decompress_device(encodings, device=dev),
+                           lambda: [ed.decompress(e) for e in encodings], want),
+            "compress": (lambda: ristretto_compress_device(points, device=dev),
+                         lambda: [ed.compress(q) for q in points], canonical)}
+    out = {}
+    for name, (on_card, on_host, expect) in runs.items():
+        turns = {"card": [], "native": []}
+        for route in ("card", "native", "native", "card", "card", "native"):
+            t0 = time.perf_counter()
+            res = on_card() if route == "card" else on_host()
+            turns[route].append((time.perf_counter() - t0) * 1e3)
+            if res != expect:
+                raise AssertionError(f"ristretto {name}: a timed {route} call differs")
+        _, prof_ms, busy = profiled(on_card)
+        out[name] = {"ms": {k: sum(v) / len(v) for k, v in turns.items()}, "turns_ms": turns,
+                     "card_over_native": sum(turns["card"]) / sum(turns["native"]),
+                     "profile": {k: v for k, v in busy_summary(busy, prof_ms).items() if k != "top"}}
+    emit({"phase": "ristretto_device", "card": smi("name,power.limit"), "encodings": len(encodings),
+          "main_path_points": n_points, "rejected": sum(g is None for g in got), "re_encoded": len(points),
+          "identical": True, **out, "seconds": time.perf_counter() - start})
+    return {"counts": dict.fromkeys(kernels.INSTANCES, 0)}
 
 
 def api_batch_ops() -> list:
@@ -2653,7 +2880,7 @@ def api_batch(dev) -> dict:
     if [Proof.from_bytes(e).scheme for e in envs] != [API_KINDS.index(k) + 1 for k in kinds]:
         raise AssertionError("process_batch returned envelopes of the wrong schemes or order")
     path = ("window_sum", "horner", "window_sum4_bn254_g1", "window_sum4_bn254_g2", "horner4_bn254_g1",
-            "horner4_bn254_g2", "mont_mul", "mont_mul_n11")
+            "horner4_bn254_g2", "mont_mul", "mont_mul_n11", "blake3")
     if not all(counts[k] for k in path):
         raise AssertionError(f"process_batch left a kernel of its path unlaunched: {counts}")
     if len(tables) > msm_device._MAX_TABLES:
@@ -3202,9 +3429,13 @@ def multi_device(dev) -> dict:
                         pr.kill()
                         pr.wait()
             total = world * (world + 1) // 2
-            for o in outs:
-                if (o["backend"], o["all_reduce"], o["psum"], o["all_gather"], o["dp"]) != (
-                        "nccl", total, total, list(range(1, world + 1)), world):
+            for r, o in enumerate(outs):
+                # member j's rows are arange(2 world) + 10 j: member r gets rows 2r, 2r + 1 of each j,
+                # and the ring hands it member r - 1's
+                a2a = [2 * r + k + 10 * j for j in range(world) for k in range(2)]
+                ring = [k + 10 * ((r - 1) % world) for k in range(2 * world)]
+                if (o["backend"], o["all_reduce"], o["psum"], o["all_gather"], o["all_to_all"], o["ppermute"],
+                        o["dp"]) != ("nccl", total, total, list(range(1, world + 1)), a2a, ring, world):
                     raise AssertionError(f"init_distributed world {world}: {o}")
             dist_rows.append({"world": world, "seconds": time.perf_counter() - t0,
                               "devices": [o["device"] for o in outs]})
@@ -3236,9 +3467,13 @@ mesh = meshmod.get_mesh(dp=1, devices=[dev])
 parts = meshmod.replicated(mesh).put(torch.tensor([rank + 1], dtype=torch.int32, device=dev))
 ps = collective.psum(parts, "dp", mesh=mesh)[0][0]
 ag = collective.all_gather(parts, "dp", mesh=mesh, tiled=True)[0][0]
+rows = meshmod.replicated(mesh).put(torch.arange(2 * world, dtype=torch.int32, device=dev) + 10 * rank)
+a2a = collective.all_to_all(rows, "dp", 0, 0, mesh=mesh)[0][0]
+ring = collective.ppermute(rows, "dp", [(i, (i + 1) % world) for i in range(world)], mesh=mesh)[0][0]
 torch.cuda.synchronize()
 out = {"backend": dist.get_backend(), "all_reduce": int(t[0]), "psum": int(ps[0]),
-       "all_gather": ag.tolist(), "dp": collective.axis_size("dp", mesh=mesh), "device": str(dev)}
+       "all_gather": ag.tolist(), "all_to_all": a2a.tolist(), "ppermute": ring.tolist(),
+       "dp": collective.axis_size("dp", mesh=mesh), "device": str(dev)}
 dist.destroy_process_group()
 print(json.dumps(out))
 """
@@ -4047,7 +4282,7 @@ def native_phase(dev, main: dict = None) -> None:
 def main(argv: list) -> int:
     flags = ("--kernels", "--range", "--groth16", "--g1", "--mont", "--ed-tree", "--ed-pair", "--f32-chain",
              "--ed-chain", "--mont-padd", "--fe-mul", "--bp-rest", "--native", "--membership",
-             "--improvement", "--api", "--multi-device")
+             "--improvement", "--api", "--multi-device", "--device-hash", "--ristretto")
     if len(argv) > 1 or (argv and argv[0] not in flags):
         print(f"usage: python3 chip_smoke.py [{' | '.join(flags)}], got {argv}", file=sys.stderr)
         return 2
@@ -4137,9 +4372,17 @@ def main(argv: list) -> int:
     if argv == ["--membership"]:  # the membership path alone
         membership(dev)
         return 0
-    if argv == ["--improvement"]:  # mont_mul's checks and the improvement path alone
+    if argv == ["--improvement"]:  # mont_mul's and blake3's checks and the improvement path alone
         check_mont_kernels(dev, int_rate)
+        check_blake3_kernel(dev, int_rate)
         improvement(dev)
+        return 0
+    if argv == ["--device-hash"]:  # blake3's checks and the device BLAKE3 tier alone
+        check_blake3_kernel(dev, int_rate)
+        device_hash(dev)
+        return 0
+    if argv == ["--ristretto"]:  # the device Ristretto decode and encode alone
+        ristretto_device(dev)
         return 0
     if argv == ["--api"]:  # the reference API's batch path alone
         api_batch(dev)
@@ -4150,7 +4393,8 @@ def main(argv: list) -> int:
     tables: dict = {}
     checks = (check_kernels(dev, int_rate, tables) + check_bn254_kernels(dev, int_rate, tables)
               + check_sharded_kernels(dev, int_rate, tables)
-              + check_probe_kernels(dev, int_rate, fp32_rate) + check_mont_kernels(dev, int_rate))
+              + check_probe_kernels(dev, int_rate, fp32_rate) + check_mont_kernels(dev, int_rate)
+              + check_blake3_kernel(dev, int_rate))
     del tables
     check_membership_shapes(dev, int_rate)
     if argv == ["--kernels"]:  # the kernel checks alone, to time two checkouts in turns
@@ -4161,7 +4405,7 @@ def main(argv: list) -> int:
     paths += [g16, groth16_grouped(dev)]
     with seam_tables_kept():  # its five query tables leave the LRU as they found it
         paths.append(membership(dev))
-    paths.append(improvement(dev))
+    paths += [improvement(dev), device_hash(dev), ristretto_device(dev, main)]
     with seam_tables_kept():  # bp_rest counts the consistency commits' table as cold
         paths.append(api_batch(dev))
     # the mesh route on one card: four positions, all cuda:0 (no interconnect)

@@ -768,7 +768,12 @@ def proof_from_bytes(data: bytes) -> Optional[Proof]:
 #   VerifyingKey { alpha_g1, beta_g2, gamma_g2, delta_g2, gamma_abc_g1 }
 #   ProvingKey   { vk, beta_g1, delta_g1, a_query, b_g1_query, b_g2_query,
 #                  h_query, l_query }
-# The JAX package's round-1 `LZTK` key container is not read by the port.
+# Round-1 files used a framework-private `LZTK` container (magic, u32
+# version, the fields with u32 counts and b_g2_query last); the readers try
+# it first and fall through to the raw form, as the JAX package's do.
+
+_KEY_MAGIC = b"LZTK"
+_KEY_VERSION = 1
 
 
 class _Reader:
@@ -790,9 +795,9 @@ class _Reader:
             raise ValueError("bad G2")
         return p
 
-    def vec_len(self) -> int:
-        c = int.from_bytes(self.data[self.pos : self.pos + 8], "little")
-        self.pos += 8
+    def vec_len(self, width: int = 8) -> int:
+        c = int.from_bytes(self.data[self.pos : self.pos + width], "little")
+        self.pos += width
         if c > 1 << 24:
             raise ValueError("bad count")
         return c
@@ -842,6 +847,12 @@ def pk_to_bytes(pk: ProvingKey) -> bytes:
 
 
 def pk_from_bytes(data: bytes) -> Optional[ProvingKey]:
+    if data[:4] == _KEY_MAGIC:
+        # A raw arkworks key whose alpha_g1.x begins with these 4 bytes
+        # (~2^-32) must still load: fall through on LZTK parse failure.
+        pk = _pk_from_lztk(data)
+        if pk is not None:
+            return pk
     try:
         r = _Reader(data)
         vk = _vk_read(r)
@@ -868,9 +879,62 @@ def vk_to_bytes(vk: VerifyingKey) -> bytes:
 
 
 def vk_from_bytes(data: bytes) -> Optional[VerifyingKey]:
+    if data[:4] == _KEY_MAGIC:
+        vk = _vk_from_lztk(data)
+        if vk is not None:
+            return vk
     try:
         r = _Reader(data)
         vk = _vk_read(r)
         return vk if r.done() else None
+    except Exception:
+        return None
+
+
+# -- round-1 `LZTK` container readers -----------------------------------------
+
+
+def _pk_from_lztk(data: bytes) -> Optional[ProvingKey]:
+    try:
+        if struct.unpack("<I", data[4:8])[0] != _KEY_VERSION:
+            return None
+        r = _Reader(data)
+        r.pos = 8
+        alpha_g1 = r.g1()
+        beta_g2 = r.g2()
+        gamma_g2 = r.g2()
+        delta_g2 = r.g2()
+        gamma_abc = [r.g1() for _ in range(r.vec_len(4))]
+        beta_g1 = r.g1()
+        delta_g1 = r.g1()
+        a_query = [r.g1() for _ in range(r.vec_len(4))]
+        b_g1_query = [r.g1() for _ in range(r.vec_len(4))]
+        h_query = [r.g1() for _ in range(r.vec_len(4))]
+        l_query = [r.g1() for _ in range(r.vec_len(4))]
+        b_g2_query = [r.g2() for _ in range(r.vec_len(4))]
+        if not r.done():
+            return None
+        vk = VerifyingKey(alpha_g1, beta_g2, gamma_g2, delta_g2, gamma_abc)
+        return ProvingKey(
+            vk, beta_g1, delta_g1, a_query, b_g1_query, b_g2_query, h_query, l_query
+        )
+    except Exception:
+        return None
+
+
+def _vk_from_lztk(data: bytes) -> Optional[VerifyingKey]:
+    try:
+        if struct.unpack("<I", data[4:8])[0] != _KEY_VERSION:
+            return None
+        r = _Reader(data)
+        r.pos = 8
+        alpha_g1 = r.g1()
+        beta_g2 = r.g2()
+        gamma_g2 = r.g2()
+        delta_g2 = r.g2()
+        abc = [r.g1() for _ in range(r.vec_len(4))]
+        if not r.done():
+            return None
+        return VerifyingKey(alpha_g1, beta_g2, gamma_g2, delta_g2, abc)
     except Exception:
         return None

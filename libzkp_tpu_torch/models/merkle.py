@@ -6,7 +6,9 @@ backend's vector commitment, mirroring the role of winterfell's
 above the leaves and the leaf digests of element rows run on the native
 tier (``blake3_merkle_levels``, ``blake3_batch``), as the reference's do
 when its library is built; the card route hashes its trace leaves on the
-device (``ops/stark_device.py``).
+device (``ops/stark_device.py``), and :func:`hash_element_rows` hashes
+rows on a device when it is given one (the JAX package's opt-in
+``LIBZKP_DEVICE_HASH=1``, as an argument).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import List, Sequence
 
 from .. import native
 from ..ops.blake3 import blake3_256, merge_digests
+from ..ops.blake3_device import hash_leaves_device
 
 
 class MerkleTree:
@@ -151,14 +154,18 @@ def hash_elements(F, elements: Sequence[int]) -> bytes:
     return blake3_256(data)
 
 
-def hash_element_rows(F, rows: Sequence[Sequence[int]]) -> List[bytes]:
-    """:func:`hash_elements` over many rows, one native batch call when the
-    rows have one length."""
+def hash_element_rows(F, rows: Sequence[Sequence[int]], *, device=None) -> List[bytes]:
+    """:func:`hash_elements` over many rows: with ``device`` ``None``, one
+    native batch call when the rows have one length; with a device, one
+    ``blake3`` launch there (``ops.blake3_device.hash_leaves_device``), which
+    raises on rows of unequal length or over one 64-byte block."""
     if not rows:
         return []
-    width = len(rows[0])
-    if any(len(r) != width for r in rows):
-        return [hash_elements(F, row) for row in rows]
     nb = F.nbytes
     items = [b"".join(int(e).to_bytes(nb, "little") for e in row) for row in rows]
+    if device is not None:
+        return hash_leaves_device(items, device=device)
+    width = len(rows[0])
+    if any(len(r) != width for r in rows):
+        return [blake3_256(x) for x in items]
     return native.blake3_batch(items, width * nb)

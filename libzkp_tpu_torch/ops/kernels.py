@@ -1,6 +1,6 @@
 """The hand-written Hopper kernels, their build and their wrappers.
 
-Eight CUDA C++ sources under ``libzkp_tpu_torch/csrc/``, each compiled for
+Nine CUDA C++ sources under ``libzkp_tpu_torch/csrc/``, each compiled for
 ``sm_90a`` by ``nvcc`` into its own shared library with a plain C interface
 and bound with ``ctypes``; the field and curve code they share is
 ``csrc/fold_curves.cuh``, the Montgomery field code ``csrc/mont.cuh``, the
@@ -41,7 +41,11 @@ variant (:data:`INSTANCES`):
   replace the Pallas probes ``main.pallas_add`` of
   ``scripts/bench_pallas_mul.py`` (P7), ``run`` of
   ``scripts/bench_ablate.py`` (P1; one instance per variant) and
-  ``bench_mxu`` of ``scripts/bench_pallas_padd.py`` (P3).
+  ``bench_mxu`` of ``scripts/bench_pallas_padd.py`` (P3);
+* ``blake3`` (``csrc/blake3.cu``) is the BLAKE3 compression of
+  :mod:`.blake3_device`, one lane a thread: it replaces no Pallas kernel but
+  the jnp program ``_leaves_run`` (``libzkp_tpu/ops/blake3_device.py``),
+  one launch for a batch's leaf digests and one for each Merkle level.
 
 Each wrapper takes the kernel's plain PyTorch version (``*_plain``, in this
 module) for tensors on the CPU, and launches the kernel for tensors on a CUDA
@@ -86,6 +90,7 @@ SOURCES = {
     "mont_padd": "probes.cu",
     "fold_ablate": "probes.cu",
     "padd_f32_chain": "probes.cu",
+    "blake3": "blake3.cu",
 }
 ABLATE_VARIANTS = ("conv", "conv8", "carry5", "fold", "mac")  # P1, scripts/bench_ablate.py
 KERNEL_CURVES = {
@@ -101,6 +106,7 @@ KERNEL_CURVES = {
     "mont_padd": (None,),
     "fold_ablate": ABLATE_VARIANTS,
     "padd_f32_chain": (None,),
+    "blake3": (None,),
 }
 LIBRARIES = tuple(dict.fromkeys(Path(src).stem for src in SOURCES.values()))  # one per source
 WIN_GROUP = 4  # windows per window_sum4 / horner4 launch
@@ -125,6 +131,7 @@ _ARGTYPES = {
     "mont_padd": [_P, _P, _P, _P, _I, _I, _P],  # + threads a block
     "fold_ablate": [_P, _P, _P, _P, _I, _I, _P],
     "padd_f32_chain": [_P, _P, _P, _P, _I, _I, _P],
+    "blake3": [_P, _P, _L, _I, _I, _P],  # msg, out, lanes, block_len, flags
     # the other cooperative instances also take their geometry
     "window_sum4_bn254_g1": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],  # + partials
 }
@@ -1081,4 +1088,38 @@ def padd_f32_chain(consts: torch.Tensor, p: torch.Tensor, q: torch.Tensor, R: in
     out = torch.empty_like(p)
     _run("padd_f32_chain", None, dev, consts.data_ptr(), p.data_ptr(), q.data_ptr(), out.data_ptr(),
          R, B)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# BLAKE3: the compression of the device BLAKE3 tier (ops/blake3_device.py)
+# ---------------------------------------------------------------------------
+
+
+def blake3_plain(m: torch.Tensor, block_len: int, flags: int) -> torch.Tensor:
+    """Plain version of ``blake3``: ``compress_vec`` of every lane from the
+    IV at counter 0."""
+    from .blake3_device import IV, compress_vec  # blake3_device imports this module
+
+    iv = torch.tensor(IV, dtype=torch.int64, device=m.device).expand(m.shape[0], 8)
+    return compress_vec(iv, m, 0, block_len, flags)
+
+
+def blake3(m: torch.Tensor, block_len: int, flags: int) -> torch.Tensor:
+    """The BLAKE3 compression of each lane from the IV at counter 0:
+    message words ``m`` (L, 16) int64 in [0, 2^32) -> (L, 8) int64 output
+    chaining values; ``block_len`` (0 to 64) and ``flags`` the same for
+    every lane (``csrc/blake3.cu``: one lane a thread)."""
+    if m.device.type == "cpu":
+        return blake3_plain(m, block_len, flags)
+    dev = m.device
+    if dev.type != "cuda":
+        raise ValueError(f"kernel wrappers take CUDA or CPU tensors, got {dev}")
+    if m.dtype != torch.int64 or m.dim() != 2 or m.shape[1] != 16 or not m.is_contiguous():
+        raise ValueError(f"blake3 takes contiguous (L, 16) int64 message words, got {tuple(m.shape)} {m.dtype}")
+    if not 0 <= block_len <= 64:
+        raise ValueError(f"a one-block message has 0 to 64 bytes, not {block_len}")
+    out = torch.empty((m.shape[0], 8), dtype=torch.int64, device=dev)
+    if m.shape[0]:
+        _run("blake3", None, dev, m.data_ptr(), out.data_ptr(), m.shape[0], block_len, flags)
     return out

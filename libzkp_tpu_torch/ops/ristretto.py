@@ -1,21 +1,28 @@
-"""Batched Ristretto255 compression (RFC 9496 ENCODE) on fold-field lanes.
+"""Batched Ristretto255 encode and decode (RFC 9496) on fold-field lanes.
 
-Port of the encode half of the JAX package's ``libzkp_tpu/ops/curve_jax.py``
-(``_canon_bias_np``, ``_fold_canonicalize``, ``_fold_pow_p58``,
-``_compress_impl``, ``_compress_consts``): canonicalization, the 2^252-3
-power chain of SQRT_RATIO_M1, sign selection and the final canonical
-reduction, all as torch operations on ``(n, B)`` limb lanes of the same
-``FieldOps`` the point kernels use. Every step is the JAX version's, so the
-limbs of the canonical encodings are identical to it.
+Port of the JAX package's Ristretto device programs in
+``libzkp_tpu/ops/curve_jax.py`` (``_canon_bias_np``, ``_fold_canonicalize``,
+``_fold_pow_p58``, ``_compress_impl``, ``_sqrt_ratio_1v``,
+``_decompress_impl``, ``_compress_consts`` and the wrappers
+``ristretto_compress_device`` and ``ristretto_decompress_device``):
+canonicalization, the 2^252-3 power chain of SQRT_RATIO_M1, sign selection
+and the final canonical reduction, all as torch operations on ``(n, B)``
+limb lanes of the same ``FieldOps`` the point kernels use. Every step is
+the JAX version's, so the limbs of the canonical encodings, and of the
+decoded coordinates, are identical to it. The device prover runs
+:func:`_compress_impl` on its own lanes (``models/bp_device.py``); the two
+wrappers take host points and 32-byte strings.
 """
 
 from __future__ import annotations
 
 import functools
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..device import resolve
 from . import ed25519 as ed
 from .curve import edwards_engine
 from .limbfold import FieldOps, int_to_limbs
@@ -205,9 +212,75 @@ def _compress_impl(consts: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     return _where_lane((s_c[..., 0, :] & 1) == 1, s_neg_c, s_c)
 
 
+def _sqrt_ratio_1v(f: FieldOps, A: torch.Tensor, sqrt_m1: torch.Tensor) -> tuple:
+    """RFC 9496 SQRT_RATIO_M1 with u = 1: (was_square (B,), r (n, B))."""
+    v3 = f.mul(f.mul(A, A), A)
+    v7 = f.mul(f.mul(v3, v3), A)
+    r = f.mul(v3, _fold_pow_p58(f, v7))
+    check = f.mul(A, f.mul(r, r))
+    check_c = _fold_canonicalize(f, check)
+    one_b = f.extra_const(3).expand_as(check)
+    zero = torch.zeros_like(check)
+    one_c = _fold_canonicalize(f, one_b)
+    neg_one_c = _fold_canonicalize(f, f.sub(zero, one_b))
+    neg_sqm1_c = _fold_canonicalize(f, f.sub(zero, sqrt_m1.expand_as(check)))
+    correct = _fold_eq(check_c, one_c)
+    flipped = _fold_eq(check_c, neg_one_c)
+    flipped_i = _fold_eq(check_c, neg_sqm1_c)
+    r = _where_lane(flipped | flipped_i, f.mul(r, sqrt_m1), r)
+    r_c = _fold_canonicalize(f, r)
+    r_neg_c = _fold_canonicalize(f, f.sub(torch.zeros_like(r), r_c))
+    r_abs = _where_lane((r_c[..., 0, :] & 1) == 1, r_neg_c, r_c)
+    return correct | flipped, r_abs
+
+
+def _decompress_impl(consts: torch.Tensor, s: torch.Tensor) -> tuple:
+    """s: (n, B) canonical limbs -> (ok (B,), X, Y, T canonical (n, B))."""
+    f = FieldOps(edwards_engine().n, consts)
+    two_d = f.extra_const(0)
+    sqrt_m1 = f.extra_const(1)
+
+    ss = f.mul(s, s)
+    one_b = f.extra_const(3).expand_as(ss)
+    u1 = f.sub(one_b, ss)
+    u2 = f.add(one_b, ss)
+    u2_sqr = f.mul(u2, u2)
+    # Only 2d is shipped as a constant, so work with the doubled quantity
+    # 2v = -(2d * u1^2) - 2*u2^2 and take SQRT_RATIO_M1 of
+    # 4*v*u2^2 = (2v)*(2*u2^2): the extra factor 4 is a square, so
+    # was_square agrees and the root is invsqrt/2, recovered by doubling.
+    u1_sq = f.mul(u1, u1)
+    two_v = f.sub(torch.zeros_like(u1_sq), f.add(f.mul(two_d, u1_sq), f.add(u2_sqr, u2_sqr)))
+    arg = f.mul(two_v, f.add(u2_sqr, u2_sqr))  # = 4 * v * u2^2
+    was_square, invsqrt4 = _sqrt_ratio_1v(f, arg, sqrt_m1)
+    # invsqrt = 2 * invsqrt4 up to sign; abs() is over the canonical
+    # representative, so recompute it on the doubled value.
+    invsqrt = f.add(invsqrt4, invsqrt4)
+    iv_c = _fold_canonicalize(f, invsqrt)
+    iv_neg = _fold_canonicalize(f, f.sub(torch.zeros_like(invsqrt), iv_c))
+    invsqrt = _where_lane((iv_c[..., 0, :] & 1) == 1, iv_neg, iv_c)
+    den_x = f.mul(invsqrt, u2)
+    # den_y carries two_v = 2v, so y = u1 * den_y * (1/2) via the shipped
+    # inv2 constant (no division).
+    den_y = f.mul(f.mul(invsqrt, den_x), two_v)
+    inv2 = f.extra_const(4)
+    x_raw = f.mul(f.mul(f.add(s, s), den_x), one_b)
+    x_c = _fold_canonicalize(f, x_raw)
+    x_neg = _fold_canonicalize(f, f.sub(torch.zeros_like(x_raw), x_c))
+    x = _where_lane((x_c[..., 0, :] & 1) == 1, x_neg, x_c)
+    y = f.mul(f.mul(u1, den_y), inv2)
+    t = f.mul(x, y)
+    y_c = _fold_canonicalize(f, y)
+    t_c = _fold_canonicalize(f, t)
+    t_negative = (t_c[..., 0, :] & 1) == 1
+    y_zero = torch.all(y_c == 0, dim=-2)
+    ok = was_square & ~t_negative & ~y_zero
+    return ok, x, y_c, t_c
+
+
 @functools.lru_cache(maxsize=None)
 def _compress_consts() -> np.ndarray:
-    """Consts block for the encode program: TWO_D, SQRT_M1,
+    """Consts block for the encode and decode programs: TWO_D, SQRT_M1,
     INVSQRT_A_MINUS_D, 1, 1/2 as extra rows."""
     ctx = edwards_engine().ctx
     return ctx.consts_block(
@@ -219,3 +292,42 @@ def _compress_consts() -> np.ndarray:
             ctx.encode_value(pow(2, -1, ed.P)),
         ]
     )
+
+
+def ristretto_compress_device(points: Sequence, *, device=None) -> List[bytes]:
+    """Batched RFC 9496 ENCODE of host extended points: one upload, one
+    :func:`_compress_impl`, one download. ``device`` defaults to the CUDA
+    card; ``"cpu"`` runs the plain torch program."""
+    device = resolve(device)
+    eng = edwards_engine()
+    enc = eng.encode_points(points)  # (B, 4, n)
+    pts = torch.from_numpy(np.ascontiguousarray(np.transpose(enc, (1, 2, 0)))).to(device)
+    consts = torch.from_numpy(_compress_consts()).to(device)
+    s = _compress_impl(consts, pts).cpu().numpy()  # (n, B)
+    return [int(v).to_bytes(32, "little") for v in eng.ctx.decode(s.T)]
+
+
+def ristretto_decompress_device(encodings: Sequence[bytes], *, device=None) -> List[Optional[tuple]]:
+    """Batched RFC 9496 DECODE: 32-byte strings -> extended host points
+    ``(x, y, 1, t)``, or ``None`` for an invalid encoding, matching
+    ``ed25519.decompress`` lane for lane. A wrong length, s >= p or an odd s
+    is refused on the host; the rest in one :func:`_decompress_impl`."""
+    device = resolve(device)
+    ctx = edwards_engine().ctx
+    vals, pre_ok = [], []
+    for data in encodings:
+        if len(data) != 32:
+            pre_ok.append(False)
+            vals.append(0)
+            continue
+        s = int.from_bytes(data, "little")
+        pre_ok.append(s < ed.P and s % 2 == 0)
+        vals.append(s % ed.P)
+    s_arr = torch.from_numpy(np.ascontiguousarray(ctx.encode_ints(vals).T)).to(device)  # (n, B)
+    consts = torch.from_numpy(_compress_consts()).to(device)
+    ok, x, y, t = _decompress_impl(consts, s_arr)
+    host = torch.cat([ok.to(torch.int32)[None], x, y, t]).cpu().numpy()  # one download
+    n = x.shape[0]
+    xs, ys, ts = (ctx.decode(host[1 + i * n : 1 + (i + 1) * n].T) for i in range(3))
+    return [(int(xs[i]), int(ys[i]), 1, int(ts[i])) if pre_ok[i] and host[0, i] else None
+            for i in range(len(vals))]

@@ -8,10 +8,11 @@ zero pad to blowup 8 and the forward NTT (``ntt.coset_lde_device``, every
 product a ``mont_mul`` launch at f128's 11 limbs); out of the Montgomery
 domain; the LDE canonicalised mod p; its 16-byte little-endian leaf
 messages as u32 words; and the BLAKE3 leaf digest of every row
-(``blake3_device``). One download brings back the coefficients, the words
-(the LDE's exact ints) and the digests; the host prover
-(``models/stark.py``) builds each proof's Merkle levels above them. The
-batch is not padded: the JAX package padded it to a power of two for its
+(``blake3_device.hash_blocks``: one ``blake3`` kernel launch on the
+card, the plain compression on the CPU). One download brings back the
+coefficients, the words (the LDE's exact ints) and the digests; the host
+prover (``models/stark.py``) builds each proof's Merkle levels above them.
+The batch is not padded: the JAX package padded it to a power of two for its
 compile cache, and the port has no compile step.
 
 Canonicalisation mod p = 2^128 - 45 * 2^40 + 1: values leave ``mont_mul``

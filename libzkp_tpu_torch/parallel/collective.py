@@ -10,12 +10,16 @@ one in the same layout. Within a process the members of an axis group are
 brought together by ``.to`` copies (a peer copy between cards, a no-op where
 the mesh repeats a device).
 
-Across processes only ``dp`` spans them (:func:`.mesh.init_distributed`):
+Across processes only ``dp`` spans them (:func:`.mesh.init_distributed`),
+and a ``dp`` member's global index is ``process_index * dp_local + d``:
 :func:`psum` and :func:`all_gather` over ``dp`` fold this process's rows and
-then ``dist.all_reduce`` or ``dist.all_gather`` the result, which is what the
-JAX package's callers need over ``dp``. :func:`all_to_all` and
-:func:`ppermute` over a ``dp`` that spans processes have no caller there and
-raise ``NotImplementedError``.
+then ``dist.all_reduce`` or ``dist.all_gather`` the result;
+:func:`all_to_all` sends every other process, in one
+``dist.all_to_all_single``, the chunks its rows owe that process's rows; and
+:func:`ppermute` posts the sends and receives of every pair whose ends lie in
+different processes in one ``dist.batch_isend_irecv``. Pairs within a
+process stay ``.to`` copies. Integer types whose sums wrap cross processes
+as int64, which every backend takes.
 
 :func:`reduce_points` folds partial curve-point sums, which no collective
 library can add, on the group's first device.
@@ -165,11 +169,23 @@ def all_gather(x: Parts, axis: str = "shard", *, mesh: Mesh, gather_axis: int = 
     return _scatter(outs, mesh)
 
 
-def _local_only(name: str, axis: str, mesh: Mesh) -> None:
-    if _spans(axis, mesh):
-        raise NotImplementedError(
-            f"{name} over the axis {axis!r}, which spans {mesh.processes} processes: only psum "
-            "and all_gather reach across processes")
+def _wire(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the backends carry it: the wrapping integer types as int64."""
+    return t.to(torch.int64) if t.dtype in _WRAP_BITS else t
+
+
+def _chunks(x: Parts, group, n: int, split_axis: int, tiled: bool) -> List[List[torch.Tensor]]:
+    """Each local member's part of ``group`` cut into its ``n`` chunks along
+    ``split_axis``, chunk i for member i: blocks (``tiled``) or the entries
+    of an axis of size ``n``."""
+    if tiled:
+        chunks = [list(x[d][s].chunk(n, dim=split_axis)) for d, s in group]
+        if any(len(c) != n or c[0].shape != c[-1].shape for c in chunks):
+            raise ValueError(f"all_to_all: dimension {split_axis} does not split into {n} blocks")
+        return chunks
+    if any(x[d][s].shape[split_axis] != n for d, s in group):
+        raise ValueError(f"all_to_all: dimension {split_axis} is not the axis size {n}")
+    return [list(x[d][s].unbind(split_axis)) for d, s in group]
 
 
 def all_to_all(x: Parts, axis: str, split_axis: int, concat_axis: int, *, mesh: Mesh,
@@ -179,49 +195,83 @@ def all_to_all(x: Parts, axis: str, split_axis: int, concat_axis: int, *, mesh: 
     per member, chunk i goes to member i, and each member joins what it
     gets in the senders' order along ``concat_axis`` (``tiled=True``: the
     block transpose; ``tiled=False``: ``split_axis`` has one entry per
-    member, taken away, and the senders stack on a new ``concat_axis``)."""
+    member, taken away, and the senders stack on a new ``concat_axis``).
+    Over a ``dp`` that spans processes, every process's rows take part."""
     _check(x, mesh)
-    _local_only("all_to_all", axis, mesh)
-    groups = _groups(axis, mesh)
+    n = axis_size(axis, mesh=mesh)
     outs = {}
-    for group in groups:
-        n = len(group)
-        if tiled:
-            chunks = [x[d][s].chunk(n, dim=split_axis) for d, s in group]
-            if any(len(c) != n or c[0].shape != c[-1].shape for c in chunks):
-                raise ValueError(f"all_to_all: dimension {split_axis} does not split into {n} blocks")
-        elif any(x[d][s].shape[split_axis] != n for d, s in group):
-            raise ValueError(f"all_to_all: dimension {split_axis} is not the axis size {n}")
+    for group in _groups(axis, mesh):
+        dev = x[group[0][0]][group[0][1]].device
+        chunks = _chunks(x, group, n, split_axis, tiled)  # [local source][global destination]
+        if _spans(axis, mesh):
+            chunks = _exchange(chunks, mesh.process_index, mesh.processes, dev)
         for i, (d, s) in enumerate(group):
-            dev = x[d][s].device
-            if tiled:
-                outs[(d, s)] = torch.cat([c[i].to(dev) for c in chunks], dim=concat_axis)
-            else:
-                outs[(d, s)] = torch.stack([x[a][b].select(split_axis, i).to(dev) for a, b in group],
-                                           dim=concat_axis)
+            me = mesh.process_index * len(group) + i if _spans(axis, mesh) else i
+            got = [c[me].to(x[d][s].device) for c in chunks]  # every source, in axis order
+            outs[(d, s)] = torch.cat(got, dim=concat_axis) if tiled else torch.stack(got, dim=concat_axis)
     return _scatter(outs, mesh)
+
+
+def _exchange(chunks: List[List[torch.Tensor]], rank: int, processes: int, dev) -> List[List[torch.Tensor]]:
+    """One ``dist.all_to_all_single`` of a group's chunks: ``chunks[d][j]``,
+    from this process's member d to the global member j, in; the chunks of
+    every source in axis order that this process's members get out, as
+    ``[global source][global destination]`` with only this process's
+    destinations filled."""
+    local = len(chunks)
+    dtype = chunks[0][0].dtype
+    # send[q][d][e]: from local member d to member e of process q
+    send = torch.stack([torch.stack([torch.stack([_wire(chunks[d][q * local + e]).to(dev)
+                                                  for e in range(local)]) for d in range(local)])
+                        for q in range(processes)]).contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send)  # recv[q][d][e]: from member d of process q to local member e
+    n = processes * local
+    out = [[None] * n for _ in range(n)]
+    for q in range(processes):
+        for d in range(local):
+            for e in range(local):
+                out[q * local + d][rank * local + e] = recv[q, d, e].to(dtype)
+    return out
 
 
 def ppermute(x: Parts, axis: str, perm, *, mesh: Mesh) -> Parts:
     """Point-to-point exchange across a mesh axis: for each ``(src, dst)``
     of ``perm`` the member ``dst`` gets member ``src``'s part; a member no
-    pair sends to gets zeros."""
+    pair sends to gets zeros. Over a ``dp`` that spans processes the pairs
+    whose ends lie in different processes go through one
+    ``dist.batch_isend_irecv``."""
     _check(x, mesh)
-    _local_only("ppermute", axis, mesh)
-    groups = _groups(axis, mesh)
-    n = len(groups[0])
+    n = axis_size(axis, mesh=mesh)
     src_of = {int(b): int(a) for a, b in perm}
     srcs = set(src_of.values())
     if len(src_of) != len(perm) or len(srcs) != len(perm) or not all(0 <= i < n for i in srcs | set(src_of)):
         raise ValueError(f"ppermute: {perm} is no permutation of {n} members")
-    outs = {}
-    for group in groups:
-        for i, (d, s) in enumerate(group):
-            if i in src_of:
-                a, b = group[src_of[i]]
+    spans = _spans(axis, mesh)
+    outs, ops, received = {}, [], []
+    for k, group in enumerate(_groups(axis, mesh)):
+        base = mesh.process_index * len(group) if spans else 0
+        mine = {base + i: pos for i, pos in enumerate(group)}  # global member -> local position
+        for dst, src in sorted(src_of.items()):
+            tag = (k * n + src) * n + dst
+            if src in mine and dst not in mine:
+                a, b = mine[src]
+                ops.append(dist.P2POp(dist.isend, _wire(x[a][b]).contiguous(), dst // len(group), tag=tag))
+            elif dst in mine and src not in mine:
+                d, s = mine[dst]
+                buf = torch.empty_like(_wire(x[d][s]))
+                ops.append(dist.P2POp(dist.irecv, buf, src // len(group), tag=tag))
+                received.append(((d, s), buf))
+            elif dst in mine:
+                (a, b), (d, s) = mine[src], mine[dst]
                 outs[(d, s)] = x[a][b].to(x[d][s].device)
-            else:
-                outs[(d, s)] = torch.zeros_like(x[d][s])
+        for d, s in group:
+            outs.setdefault((d, s), torch.zeros_like(x[d][s]))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    for (d, s), buf in received:
+        outs[(d, s)] = buf.to(x[d][s].dtype)
     return _scatter(outs, mesh)
 
 

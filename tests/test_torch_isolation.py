@@ -97,6 +97,15 @@ ok = ok and collective.axis_size("dp", mesh=cpu4) == 2 and mesh.init_distributed
 ok = ok and ntt.ntt_sharded(F128.p, list(range(16)), cpu4) == ntt.ntt_py(F128, list(range(16)))
 ok = ok and ntt.coset_lde_batch(F128.p, [[1] * 8] * 3, 8, 3, device="cpu", mesh=cpu4) == ntt.coset_lde_batch(
     F128.p, [[1] * 8] * 3, 8, 3, device="cpu")
+# the device BLAKE3 tree, the Ristretto decode and encode, round-1 key files
+leaves, levels = blake3_device.merkle_tree_device([b"a", b"b"], device="cpu")
+ok = ok and levels[0][0] == merkle.MerkleTree(leaves).root
+ok = ok and merkle.hash_element_rows(F128, [[5]], device="cpu") == merkle.hash_element_rows(F128, [[5]])
+from libzkp_tpu_torch.ops import ed25519 as ed
+enc = ristretto.ristretto_compress_device([ed.BASEPOINT], device="cpu")
+ok = ok and enc == [ed.compress(ed.BASEPOINT)]
+ok = ok and ristretto.ristretto_decompress_device(enc + [b"x"], device="cpu") == [ed.decompress(enc[0]), None]
+ok = ok and groth16.pk_from_bytes(b"LZTK" + bytes(4)) is None
 mods = [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "libzkp_tpu."))
         or m == "libzkp_tpu"]
 print(json.dumps({{"ok": ok, "mods": mods}}))
@@ -129,6 +138,11 @@ print(json.dumps({{"ok": ok, "mods": mods}}))
     "zkp.prove_range_cached(7, 0, 10)",
     "zkp.benchmark_proof_generation_numeric('improvement', 1)",
     "dryrun.dryrun_multichip(4)",
+    "blake3_device.hash_leaves_device([b'x'])",
+    "blake3_device.merkle_tree_device([b'x', b'y'])",
+    "merkle.hash_element_rows(F128, [[1]], device='cuda')",
+    "ristretto.ristretto_decompress_device([bytes(32)])",
+    "ristretto.ristretto_compress_device([(0, 1, 1, 0)])",
 ])
 def test_entry_points_raise_without_cuda(call):
     code = f"""
@@ -137,6 +151,9 @@ from libzkp_tpu_torch import probes
 from libzkp_tpu_torch.models import bulletproofs as bp
 from libzkp_tpu_torch.models.strobe import Transcript
 from libzkp_tpu_torch.parallel import dryrun, mesh
+from libzkp_tpu_torch.models import merkle
+from libzkp_tpu_torch.ops import blake3_device, ristretto
+from libzkp_tpu_torch.ops.field import F128
 try:
     {call}
 except RuntimeError as e:

@@ -19,6 +19,7 @@ import subprocess
 import sys
 import zlib
 from pathlib import Path
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -289,7 +290,8 @@ def test_init_failure_raises(spy, monkeypatch):
 def test_mesh_spans_processes_after_init(monkeypatch):
     """With a group of 3 up and this process third, a local (2, 2) mesh's
     dp has 6 members and its rows are global rows 4 and 5; shard stays
-    local."""
+    local; ``all_to_all`` and ``ppermute`` over that dp hand the exchange
+    to ``torch.distributed`` (stubbed here)."""
     monkeypatch.setattr(dist, "is_initialized", lambda: True)
     monkeypatch.setattr(dist, "get_world_size", lambda: 3)
     monkeypatch.setattr(dist, "get_rank", lambda: 2)
@@ -299,13 +301,34 @@ def test_mesh_spans_processes_after_init(monkeypatch):
     assert collective.axis_size("shard", mesh=mesh) == 2
     assert collective.axis_index("dp", mesh=mesh) == ((4, 4), (5, 5))
     assert collective.axis_index("shard", mesh=mesh) == ((0, 1), (0, 1))
-    parts = meshmod.replicated(mesh).put(torch.zeros(2))
-    for call in (lambda: collective.all_to_all(parts, "dp", 0, 0, mesh=mesh),
-                 lambda: collective.ppermute(parts, "dp", [(0, 1)], mesh=mesh)):
-        with pytest.raises(NotImplementedError, match="'dp'"):
-            call()
+    parts = meshmod.replicated(mesh).put(torch.arange(12, dtype=torch.int32))
+    # all_to_all over the global dp: one exchange a shard column, every
+    # (process, local source, local destination) chunk of 2, as int64
+    sent = []
+
+    def a2a(recv, send):
+        sent.append((tuple(send.shape), send.dtype))
+        recv.copy_(send)  # as if every process sent what this one does
+
+    monkeypatch.setattr(dist, "all_to_all_single", a2a)
+    out = collective.all_to_all(parts, "dp", 0, 0, mesh=mesh)
+    assert sent == [((3, 2, 2, 2), torch.int64)] * 2
+    # local member e (global 4 + e) gets, from each source (q, d) in axis
+    # order, the chunk that source's part owes member 2q + e
+    assert out[1][0].tolist() == [2, 3, 2, 3, 6, 7, 6, 7, 10, 11, 10, 11]
+    assert out[0][1].dtype == torch.int32
+    # ppermute over the global dp: the pairs leaving or entering this
+    # process's members 4 and 5 are posted at once; 0 -> 1 is none of its
+    posted = []
+    monkeypatch.setattr(dist, "P2POp", lambda op, tensor, peer, tag=0: SimpleNamespace(op=op, peer=peer))
+    monkeypatch.setattr(dist, "batch_isend_irecv",
+                        lambda ops: posted.append([(o.op.__name__, o.peer) for o in ops]) or [])
+    collective.ppermute(parts, "dp", [(4, 0), (1, 5), (0, 1)], mesh=mesh)
+    assert posted == [[("isend", 0), ("irecv", 0), ("isend", 0), ("irecv", 0)]]
+    got = collective.ppermute(parts, "dp", [(0, 1)], mesh=mesh)
+    assert len(posted) == 1 and all(not p.any() for row in got for p in row)
     # within a process, shard still exchanges
-    assert collective.ppermute(parts, "shard", [(0, 1)], mesh=mesh)[0][1].shape == (2,)
+    assert collective.ppermute(parts, "shard", [(0, 1)], mesh=mesh)[0][1].shape == (12,)
 
 
 # ---------------------------------------------------------------------------
@@ -332,26 +355,30 @@ res = {
     "psum": collective.psum(parts, "dp", mesh=mesh),
     "gather": collective.all_gather(parts, "dp", mesh=mesh),
     "gather_tiled": collective.all_gather(parts, "dp", mesh=mesh, gather_axis=1, tiled=True),
+    "a2a": collective.all_to_all(parts, "dp", 0, 1, mesh=mesh),
+    "a2a_untiled": collective.all_to_all(parts, "dp", 0, 1, mesh=mesh, tiled=False),
+    "ring": collective.ppermute(parts, "dp", RING, mesh=mesh),
+    "pairs": collective.ppermute(parts, "dp", PAIRS, mesh=mesh),
 }
 np.savez(out, **{k: np.stack([np.asarray(row[0]) for row in v]) for k, v in res.items()},
          index=np.asarray([row[0] for row in collective.axis_index("dp", mesh=mesh)]),
          size=np.asarray(collective.axis_size("dp", mesh=mesh)))
-try:
-    collective.all_to_all(parts, "dp", 0, 0, mesh=mesh)
-    raised = ""
-except NotImplementedError as e:
-    raised = str(e)
 dist.barrier()
 dist.destroy_process_group()
-print(json.dumps({"rank": rank, "raised": raised}))
+print(json.dumps({"rank": rank}))
 """
+RING = [(i, (i + 1) % 4) for i in range(4)]
+PAIRS = [(0, 3), (2, 1), (1, 0)]  # across processes both ways, within one; member 2 gets zeros
+WORKER = f"RING, PAIRS = {RING!r}, {PAIRS!r}\n" + WORKER
 
 
 def test_two_gloo_processes_match_jax(tmp_path):
     """Two processes, each a local mesh of two ``cpu`` positions, over a
-    ``file://`` rendezvous: ``psum`` and ``all_gather`` over the global dp
-    of 4 equal the JAX collectives on 4 virtual devices, ``axis_index`` is
-    global, and ``all_to_all`` over that dp raises."""
+    ``file://`` rendezvous: ``psum``, ``all_gather``, ``all_to_all`` (tiled
+    and untiled) and ``ppermute`` (a ring, and pairs across the processes
+    both ways, within one, and to no member) over the global dp of 4 equal
+    the JAX collectives on 4 virtual devices, and ``axis_index`` is
+    global."""
     x = _input(4, 1, np.uint32, seed=11)
     np.save(tmp_path / "x.npy", x)
     env = {k: v for k, v in os.environ.items() if k not in _ENV}
@@ -372,14 +399,17 @@ def test_two_gloo_processes_match_jax(tmp_path):
                 p.kill()
                 p.wait()
     assert [r["rank"] for r in results] == [0, 1]
-    assert all("'dp'" in r["raised"] and "2 processes" in r["raised"] for r in results)
 
     def ref(fn):
         return _reference(fn, x, 4, 1)  # one entry per global dp position
 
     want = {"psum": ref(lambda xl: jcollective.psum(xl, "dp")),
             "gather": ref(lambda xl: jcollective.all_gather(xl, "dp")),
-            "gather_tiled": ref(lambda xl: jcollective.all_gather(xl, "dp", gather_axis=1, tiled=True))}
+            "gather_tiled": ref(lambda xl: jcollective.all_gather(xl, "dp", gather_axis=1, tiled=True)),
+            "a2a": ref(lambda xl: jcollective.all_to_all(xl, "dp", 0, 1)),
+            "a2a_untiled": ref(lambda xl: jcollective.all_to_all(xl, "dp", 0, 1, tiled=False)),
+            "ring": ref(lambda xl: jcollective.ppermute(xl, "dp", RING)),
+            "pairs": ref(lambda xl: jcollective.ppermute(xl, "dp", PAIRS))}
     outs = [np.load(tmp_path / f"out{r}.npz") for r in range(2)]
     for key, w in want.items():
         got = np.concatenate([o[key] for o in outs])
