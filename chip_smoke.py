@@ -225,6 +225,7 @@ device it exits non-zero at once.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import random
 import subprocess
@@ -1970,7 +1971,6 @@ def groth16_path(dev) -> dict:
     import libzkp_tpu_torch as zkp
     from libzkp_tpu_torch.models import groth16, snark_backend
     from libzkp_tpu_torch.ops import kernels
-    from libzkp_tpu_torch.profile_prover import _wrap
     from libzkp_tpu_torch.utils.commitment import commit_value_snark
     from libzkp_tpu_torch.utils.envelope import Proof as Envelope
 
@@ -2089,7 +2089,6 @@ def groth16_grouped(dev) -> dict:
     import libzkp_tpu_torch as zkp
     from libzkp_tpu_torch.models import groth16, snark_backend
     from libzkp_tpu_torch.ops import kernels
-    from libzkp_tpu_torch.profile_prover import _wrap
     from libzkp_tpu_torch.utils.commitment import commit_value_snark
     from libzkp_tpu_torch.utils.envelope import Proof as Envelope
 
@@ -2234,7 +2233,6 @@ def membership(dev) -> dict:
     import libzkp_tpu_torch as zkp
     from libzkp_tpu_torch.models import groth16, snark_backend
     from libzkp_tpu_torch.ops import kernels
-    from libzkp_tpu_torch.profile_prover import _wrap
     from libzkp_tpu_torch.utils.commitment import commit_value_snark
 
     t0 = time.perf_counter()
@@ -2455,7 +2453,6 @@ def improvement(dev) -> dict:
     from libzkp_tpu_torch.ops import blake3_device, kernels, ntt, stark_device as sd
     from libzkp_tpu_torch.ops.field import F128
     from libzkp_tpu_torch.ops.limb import get_context
-    from libzkp_tpu_torch.profile_prover import _wrap
     from libzkp_tpu_torch.utils.envelope import Proof
 
     start = time.perf_counter()
@@ -3591,6 +3588,31 @@ def main_path(dev) -> dict:
         bp._random_scalar = saved
     emit({"phase": "byte_exact", "lanes": lanes, "proof_bytes": 672, "identical": True})
     return {"counts": counts, "ms_per_batch": ms_batch, "envs": envs, "triples": triples}
+
+
+def _wrap(owner, attr: str, label: str, spent: dict, depth: list):
+    """Replace owner.attr by a timer that syncs the device around the call;
+    only the outermost timed call counts, so nested components do not
+    double count. Returns a function that puts the original back."""
+    orig = vars(owner)[attr]
+    fn = getattr(owner, attr)
+
+    @functools.wraps(fn)
+    def timed(*args, **kwargs):
+        if depth[0]:
+            return fn(*args, **kwargs)
+        depth[0] += 1
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            torch.cuda.synchronize()
+            spent[label] += time.perf_counter() - t0
+            depth[0] -= 1
+
+    setattr(owner, attr, timed)
+    return lambda: setattr(owner, attr, orig)
 
 
 @contextlib.contextmanager

@@ -17,7 +17,7 @@ from typing import Dict, List
 
 from ..device import resolve
 from ..parallel.batch_prover import process_operations
-from ..utils import validation
+from ..utils import tracing, validation
 from ..utils.composition import BatchOperation, ProofBatch
 from ..utils.errors import InvalidInput
 from . import batch_store
@@ -85,15 +85,17 @@ def process_batch(batch_id: int, *, device=None) -> List[bytes]:
     """Generate all proofs for the batch on ``device``; the batch is
     CONSUMED (batch.rs:110-140), and its file deleted, before the proving.
 
-    Failure of any single operation fails the whole batch.
+    Failure of any single operation fails the whole batch. Its spans
+    (:mod:`..utils.tracing`) carry ``batch_id``.
     """
-    device = resolve(device)
-    with _registry_lock:
-        batch = _registry.pop(batch_id, None)
-    if batch is None:
-        raise InvalidInput(f"Invalid batch ID: {batch_id}")
-    batch_store.delete_batch_file_if_configured(batch_id)
-    return process_operations(batch.operations, device=device)
+    with tracing.span("batch", batch=batch_id):
+        device = resolve(device)
+        with _registry_lock:
+            batch = _registry.pop(batch_id, None)
+        if batch is None:
+            raise InvalidInput(f"Invalid batch ID: {batch_id}")
+        batch_store.delete_batch_file_if_configured(batch_id)
+        return process_operations(batch.operations, device=device)
 
 
 def get_batch_status(batch_id: int) -> Dict[str, int]:

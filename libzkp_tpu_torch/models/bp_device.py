@@ -30,6 +30,7 @@ from ..ops import scalar_device as sd
 from ..ops.keccak_device import TranscriptDevice
 from ..ops.limbfold import FieldOps, int_to_limbs
 from ..ops.ristretto import _compress_consts, _compress_impl
+from ..utils import tracing
 from . import bp_generators as gens
 
 L = ed.L
@@ -330,128 +331,136 @@ def prove_insts_device(
     K, Kp = table.K, table.Kp
 
     # -- randomness --------------------------------------------------------
-    if rnd is None:
-        if rand is None:
-            rand = os.urandom(per * B)
-        if len(rand) != per * B:
-            raise ValueError("rand must hold (2n+4) 64-byte draws per lane")
-        rnd = [
-            [
-                ed.scalar_from_bytes_mod_order_wide(rand[per * b + 64 * s : per * b + 64 * s + 64])
-                for s in range(2 * n + 4)
+    with tracing.span("bp.draw"):
+        if rnd is None:
+            if rand is None:
+                rand = os.urandom(per * B)
+            if len(rand) != per * B:
+                raise ValueError("rand must hold (2n+4) 64-byte draws per lane")
+            rnd = [
+                [
+                    ed.scalar_from_bytes_mod_order_wide(
+                        rand[per * b + 64 * s : per * b + 64 * s + 64])
+                    for s in range(2 * n + 4)
+                ]
+                for b in range(B)
             ]
-            for b in range(B)
-        ]
-    a_blind = [r[0] for r in rnd]
-    s_blind = [r[1] for r in rnd]
-    s_L = [[r[2 + i] for r in rnd] for i in range(n)]  # (n)(B)
-    s_R = [[r[2 + n + i] for r in rnd] for i in range(n)]
-    t1_blind = [r[2 + 2 * n] for r in rnd]
-    t2_blind = [r[3 + 2 * n] for r in rnd]
+        a_blind = [r[0] for r in rnd]
+        s_blind = [r[1] for r in rnd]
+        s_L = [[r[2 + i] for r in rnd] for i in range(n)]  # (n)(B)
+        s_R = [[r[2 + n + i] for r in rnd] for i in range(n)]
+        t1_blind = [r[2 + 2 * n] for r in rnd]
+        t2_blind = [r[3 + 2 * n] for r in rnd]
 
     # -- host-known MSMs: V, A, S (digits prepared on host) ---------------
-    gamma = [b % L for b in blindings]
-    aL = [[(v >> i) & 1 for v in values] for i in range(n)]  # (n)(B)
-    # basis rows: 0 = B_blinding, 1..n = G, n+1..2n = H, 2n+1 = B
-    v_scals = [[gamma[b], *(0 for _ in range(2 * n)), values[b] % L] for b in range(B)]
-    a_scals = [
-        [a_blind[b]] + [aL[i][b] for i in range(n)] + [(aL[i][b] - 1) % L for i in range(n)] + [0]
-        for b in range(B)
-    ]
-    s_scals = [
-        [s_blind[b]] + [s_L[i][b] for i in range(n)] + [s_R[i][b] for i in range(n)] + [0]
-        for b in range(B)
-    ]
-
-    def host_msm(scals):
-        digits = torch.from_numpy(curve._digits_from_scalars(scals, K, Kp)).to(dev)
-        return curve.msm_windows(table, curve._digits_to_windows(digits))  # (C, n_f, B)
+    with tracing.span("bp.digits"):
+        gamma = [b % L for b in blindings]
+        aL = [[(v >> i) & 1 for v in values] for i in range(n)]  # (n)(B)
+        # basis rows: 0 = B_blinding, 1..n = G, n+1..2n = H, 2n+1 = B
+        v_scals = [[gamma[b], *(0 for _ in range(2 * n)), values[b] % L] for b in range(B)]
+        a_scals = [
+            [a_blind[b]] + [aL[i][b] for i in range(n)] + [(aL[i][b] - 1) % L for i in range(n)]
+            + [0]
+            for b in range(B)
+        ]
+        s_scals = [
+            [s_blind[b]] + [s_L[i][b] for i in range(n)] + [s_R[i][b] for i in range(n)] + [0]
+            for b in range(B)
+        ]
+        vas_digits = [torch.from_numpy(curve._digits_from_scalars(scals, K, Kp)).to(dev)
+                      for scals in (v_scals, a_scals, s_scals)]
 
     segs = _Segs(Kp, dev)
-    V_b = segs.compress(host_msm(v_scals))
-    A_b = segs.compress(host_msm(a_scals))
-    S_b = segs.compress(host_msm(s_scals))
+    V_b, A_b, S_b = (segs.compress(curve.msm_windows(table, curve._digits_to_windows(d)))
+                     for d in vas_digits)
 
     # -- transcript to y, z --------------------------------------------------
-    t = TranscriptDevice.from_transcripts(transcripts, device=dev)
-    y_raw, z_raw = t.run_phase([
-        ("msg", b"dom-sep", b"rangeproof v1"),
-        ("msg", b"n", n.to_bytes(8, "little")),
-        ("msg", b"m", (1).to_bytes(8, "little")),
-        ("msg", b"V", V_b),
-        ("msg", b"A", A_b),
-        ("msg", b"S", S_b),
-        ("chal", b"y", 64),
-        ("chal", b"z", 64),
-    ])
-
-    aL_d = torch.stack([_encode_cols(sc, aL[i], dev) for i in range(n)], dim=0)  # (n, nl, B)
-    sL_d = torch.stack([_encode_cols(sc, s_L[i], dev) for i in range(n)], dim=0)
-    sR_d = torch.stack([_encode_cols(sc, s_R[i], dev) for i in range(n)], dim=0)
-    gamma_d = _encode_cols(sc, gamma, dev)
-    a_blind_d = _encode_cols(sc, a_blind, dev)
-    s_blind_d = _encode_cols(sc, s_blind, dev)
-    t1_blind_d = _encode_cols(sc, t1_blind, dev)
-    t2_blind_d = _encode_cols(sc, t2_blind, dev)
-
-    y, z2, l0, r0, r1, dwT1, dwT2 = segs.setup(
-        y_raw, z_raw, aL_d, sL_d, sR_d, t1_blind_d, t2_blind_d
-    )
-
-    # T1/T2 (and each round's L/R below) share the basis: one double-wide
-    # MSM batch and one compress
-    Tb = segs.compress(curve.msm_windows(table, torch.cat([dwT1, dwT2], dim=2)))
-    T1_b, T2_b = Tb[:, :B], Tb[:, B:]
-    (x_raw,) = t.run_phase([
-        ("msg", b"T_1", T1_b),
-        ("msg", b"T_2", T2_b),
-        ("chal", b"x", 64),
-    ])
-
-    l_vec, r_vec, tx_r, txb_r, eb_r = segs.after_x(
-        x_raw, l0, r0, r1, sL_d, z2, gamma_d, t1_blind_d, t2_blind_d, a_blind_d, s_blind_d
-    )
-    (w_raw,) = t.run_phase([
-        ("msg", b"t_x", tx_r),
-        ("msg", b"t_x_blinding", txb_r),
-        ("msg", b"e_blinding", eb_r),
-        ("chal", b"w", 64),
-        ("msg", b"dom-sep", b"ipp v1"),
-        ("msg", b"n", n.to_bytes(8, "little")),
-    ])
-    w = segs.w(w_raw)
-    gc, hc = segs.hc(y)
-
-    a_v, b_v = l_vec, r_vec
-    L_bytes: List = []
-    R_bytes: List = []
-    m = n
-    while m > 1:
-        dwL, dwR = segs.ipp_pre(w, a_v, b_v, gc, hc)
-        LRb = segs.compress(curve.msm_windows(table, torch.cat([dwL, dwR], dim=2)))
-        Lb, Rb = LRb[:, :B], LRb[:, B:]
-        L_bytes.append(Lb)
-        R_bytes.append(Rb)
-        (u_raw,) = t.run_phase([
-            ("msg", b"L", Lb),
-            ("msg", b"R", Rb),
-            ("chal", b"u", 64),
+    with tracing.span("bp.transcript"):
+        t = TranscriptDevice.from_transcripts(transcripts, device=dev)
+        y_raw, z_raw = t.run_phase([
+            ("msg", b"dom-sep", b"rangeproof v1"),
+            ("msg", b"n", n.to_bytes(8, "little")),
+            ("msg", b"m", (1).to_bytes(8, "little")),
+            ("msg", b"V", V_b),
+            ("msg", b"A", A_b),
+            ("msg", b"S", S_b),
+            ("chal", b"y", 64),
+            ("chal", b"z", 64),
         ])
-        a_v, b_v, gc, hc = segs.ipp_post(u_raw, a_v, b_v, gc, hc)
-        m //= 2
 
-    a_rows, b_rows = segs.final(a_v[0], b_v[0])
+    with tracing.span("bp.upload"):
+        aL_d = torch.stack([_encode_cols(sc, aL[i], dev) for i in range(n)], dim=0)  # (n, nl, B)
+        sL_d = torch.stack([_encode_cols(sc, s_L[i], dev) for i in range(n)], dim=0)
+        sR_d = torch.stack([_encode_cols(sc, s_R[i], dev) for i in range(n)], dim=0)
+        gamma_d = _encode_cols(sc, gamma, dev)
+        a_blind_d = _encode_cols(sc, a_blind, dev)
+        s_blind_d = _encode_cols(sc, s_blind, dev)
+        t1_blind_d = _encode_cols(sc, t1_blind, dev)
+        t2_blind_d = _encode_cols(sc, t2_blind, dev)
+
+    with tracing.span("bp.poly"):
+        y, z2, l0, r0, r1, dwT1, dwT2 = segs.setup(
+            y_raw, z_raw, aL_d, sL_d, sR_d, t1_blind_d, t2_blind_d
+        )
+
+        # T1/T2 (and each round's L/R below) share the basis: one double-wide
+        # MSM batch and one compress
+        Tb = segs.compress(curve.msm_windows(table, torch.cat([dwT1, dwT2], dim=2)))
+        T1_b, T2_b = Tb[:, :B], Tb[:, B:]
+        with tracing.span("bp.transcript"):
+            (x_raw,) = t.run_phase([
+                ("msg", b"T_1", T1_b),
+                ("msg", b"T_2", T2_b),
+                ("chal", b"x", 64),
+            ])
+
+        l_vec, r_vec, tx_r, txb_r, eb_r = segs.after_x(
+            x_raw, l0, r0, r1, sL_d, z2, gamma_d, t1_blind_d, t2_blind_d, a_blind_d, s_blind_d
+        )
+    with tracing.span("bp.transcript"):
+        (w_raw,) = t.run_phase([
+            ("msg", b"t_x", tx_r),
+            ("msg", b"t_x_blinding", txb_r),
+            ("msg", b"e_blinding", eb_r),
+            ("chal", b"w", 64),
+            ("msg", b"dom-sep", b"ipp v1"),
+            ("msg", b"n", n.to_bytes(8, "little")),
+        ])
+
+    with tracing.span("bp.ipp"):
+        w = segs.w(w_raw)
+        gc, hc = segs.hc(y)
+        a_v, b_v = l_vec, r_vec
+        L_bytes: List = []
+        R_bytes: List = []
+        m = n
+        while m > 1:
+            dwL, dwR = segs.ipp_pre(w, a_v, b_v, gc, hc)
+            LRb = segs.compress(curve.msm_windows(table, torch.cat([dwL, dwR], dim=2)))
+            Lb, Rb = LRb[:, :B], LRb[:, B:]
+            L_bytes.append(Lb)
+            R_bytes.append(Rb)
+            with tracing.span("bp.transcript"):
+                (u_raw,) = t.run_phase([
+                    ("msg", b"L", Lb),
+                    ("msg", b"R", Rb),
+                    ("chal", b"u", 64),
+                ])
+            a_v, b_v, gc, hc = segs.ipp_post(u_raw, a_v, b_v, gc, hc)
+            m //= 2
+        a_rows, b_rows = segs.final(a_v[0], b_v[0])
 
     # -- assemble: (704, B) byte rows, one download ---------------------------
-    rows = [A_b, S_b, T1_b, T2_b, tx_r, txb_r, eb_r]
-    for Lb, Rb in zip(L_bytes, R_bytes):
-        rows.append(Lb)
-        rows.append(Rb)
-    rows += [a_rows, b_rows, V_b]
-    blob = torch.cat(rows, dim=0).to(torch.uint8).cpu().numpy()  # (704, B)
-    cols = np.ascontiguousarray(blob.T)  # (B, 704)
-    out = []
-    for bidx in range(B0):  # drop pad lanes
-        col = cols[bidx].tobytes()
-        out.append((col[:672], col[672:704]))
+    with tracing.span("bp.assemble"):
+        rows = [A_b, S_b, T1_b, T2_b, tx_r, txb_r, eb_r]
+        for Lb, Rb in zip(L_bytes, R_bytes):
+            rows.append(Lb)
+            rows.append(Rb)
+        rows += [a_rows, b_rows, V_b]
+        blob = torch.cat(rows, dim=0).to(torch.uint8).cpu().numpy()  # (704, B)
+        cols = np.ascontiguousarray(blob.T)  # (B, 704)
+        out = []
+        for bidx in range(B0):  # drop pad lanes
+            col = cols[bidx].tobytes()
+            out.append((col[:672], col[672:704]))
     return out

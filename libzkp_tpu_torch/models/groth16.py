@@ -47,6 +47,7 @@ from ..ops import bn254 as bn
 from ..ops import ntt as poly
 from ..ops.field import BN254_FR
 from ..ops.groth16_device import h_batch_device
+from ..utils import tracing
 from .r1cs import ConstraintSystem
 
 R = BN254_FR.p
@@ -347,11 +348,14 @@ def _h_many(pk: ProvingKey, distinct: List[List[int]], num_instance: int, csr, *
     products, their rows handed over as bytes, then the seven NTTs of all of
     them in one :func:`~..ops.groth16_device.h_batch_device` program on
     ``device``."""
-    n = len(pk.h_query) + 1
-    packed = _packed_csr(csr)
-    abc = [native.groth16_spmv(n, len(csr[0][0]) - 1, num_instance, R, packed, z)
-           for z in distinct]
-    return h_batch_device(n, abc, COSET, device=device)
+    with tracing.span("g16.h"):
+        n = len(pk.h_query) + 1
+        with tracing.span("g16.h.spmv"):
+            packed = _packed_csr(csr)
+            abc = [native.groth16_spmv(n, len(csr[0][0]) - 1, num_instance, R, packed, z)
+                   for z in distinct]
+        with tracing.span("g16.h.ntt"):
+            return h_batch_device(n, abc, COSET, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -404,12 +408,14 @@ def _accs_many(pk: ProvingKey, z_list: List[List[int]], num_instance: int, h_lis
     """The five query MSMs of a batch on ``device``: each proving-key table
     is walked once for the whole batch. Returns one (a, b_g2, b_g1, h, l)
     tuple per z."""
-    b_g2_accs = bn.g2_msm_fixed_many(z_list, pk.b_g2_query, device=device)
-    a_accs = bn.g1_msm_fixed_many(z_list, pk.a_query, device=device)
-    b_g1_accs = bn.g1_msm_fixed_many(z_list, pk.b_g1_query, device=device)
-    h_accs = bn.g1_msm_fixed_many(h_list, pk.h_query, device=device)
-    l_accs = bn.g1_msm_fixed_many([z[num_instance:] for z in z_list], pk.l_query, device=device)
-    return list(zip(a_accs, b_g2_accs, b_g1_accs, h_accs, l_accs))
+    with tracing.span("g16.msm"):
+        b_g2_accs = bn.g2_msm_fixed_many(z_list, pk.b_g2_query, device=device)
+        a_accs = bn.g1_msm_fixed_many(z_list, pk.a_query, device=device)
+        b_g1_accs = bn.g1_msm_fixed_many(z_list, pk.b_g1_query, device=device)
+        h_accs = bn.g1_msm_fixed_many(h_list, pk.h_query, device=device)
+        l_accs = bn.g1_msm_fixed_many([z[num_instance:] for z in z_list], pk.l_query,
+                                      device=device)
+        return list(zip(a_accs, b_g2_accs, b_g1_accs, h_accs, l_accs))
 
 
 def prove_assigned_many(
@@ -432,13 +438,15 @@ def prove_assigned_many(
     accs = _accs_many(pk, distinct, num_instance, h_list, device=device)
 
     out: List[Optional[Proof]] = [None] * len(assign)
-    for slot, idxs in _by_slot(assign).items():
-        if len(idxs) >= GROUP_MIN:
-            for i, pr in zip(idxs, _finish_proof_group(pk, accs[slot], len(idxs), device=device)):
-                out[i] = pr
-        else:
-            for i in idxs:
-                out[i] = _finish_proof(pk, *accs[slot])
+    with tracing.span("g16.finish"):
+        for slot, idxs in _by_slot(assign).items():
+            if len(idxs) >= GROUP_MIN:
+                group = _finish_proof_group(pk, accs[slot], len(idxs), device=device)
+                for i, pr in zip(idxs, group):
+                    out[i] = pr
+            else:
+                for i in idxs:
+                    out[i] = _finish_proof(pk, *accs[slot])
     return out  # type: ignore[return-value]
 
 

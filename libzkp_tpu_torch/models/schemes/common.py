@@ -8,6 +8,7 @@ from __future__ import annotations
 
 from typing import List, Optional, Tuple
 
+from ...utils import tracing
 from ...utils.encoding import u32_le
 from ...utils.envelope import PROOF_VERSION, Proof
 from ...utils.errors import InvalidProofFormat
@@ -96,8 +97,9 @@ def prove_prepared(prepared: List, *, device) -> List[bytes]:
     results = prove_single_batch(instances, device=device)
     out = []
     pos = 0
-    for scheme_id, insts, finish in prepared:
-        backend_proof = finish(results[pos : pos + len(insts)])
-        pos += len(insts)
-        out.append(create_proof(scheme_id, *extract_bulletproofs_components(backend_proof)))
+    with tracing.span("bp.envelope"):
+        for scheme_id, insts, finish in prepared:
+            backend_proof = finish(results[pos : pos + len(insts)])
+            pos += len(insts)
+            out.append(create_proof(scheme_id, *extract_bulletproofs_components(backend_proof)))
     return out

@@ -33,6 +33,7 @@ from typing import List, Optional, Tuple
 
 from ..ops.field import BN254_FR
 from ..ops.mimc import fr_from_commitment, mimc_constants
+from ..utils import tracing
 from ..utils.encoding import read_u64_le
 from ..utils.errors import ConfigError
 from . import groth16
@@ -308,15 +309,16 @@ class SnarkBackend:
         empty bytes; the rest are proved."""
         pk = _get_equality_setup()
         z_list, where = [], []
-        for i, (a, b, commitment) in enumerate(entries):
-            commitment_fr = fr_from_commitment(bytes(commitment))
-            if a != b or commitment_fr is None:
-                continue
-            z = _equality_assignment(a, b, commitment_fr)
-            if z[-1] != commitment_fr:  # the last MiMC wire is MiMC5(a)
-                continue
-            z_list.append(z)
-            where.append(i)
+        with tracing.span("g16.assign"):
+            for i, (a, b, commitment) in enumerate(entries):
+                commitment_fr = fr_from_commitment(bytes(commitment))
+                if a != b or commitment_fr is None:
+                    continue
+                z = _equality_assignment(a, b, commitment_fr)
+                if z[-1] != commitment_fr:  # the last MiMC wire is MiMC5(a)
+                    continue
+                z_list.append(z)
+                where.append(i)
         return _prove_many(pk, _equality_shape(), z_list, where, len(entries), device=device)
 
     @staticmethod
@@ -335,11 +337,12 @@ class SnarkBackend:
         cannot be proved gets empty bytes; the rest are proved."""
         pk = _get_membership_setup()
         z_list, where = [], []
-        for i, (value, the_set, commitment) in enumerate(entries):
-            z = _membership_statement(value, list(the_set), commitment)
-            if z is not None:
-                z_list.append(z)
-                where.append(i)
+        with tracing.span("g16.assign"):
+            for i, (value, the_set, commitment) in enumerate(entries):
+                z = _membership_statement(value, list(the_set), commitment)
+                if z is not None:
+                    z_list.append(z)
+                    where.append(i)
         return _prove_many(pk, _membership_shape(), z_list, where, len(entries), device=device)
 
     @staticmethod

@@ -35,6 +35,7 @@ from .. import native
 from ..device import resolve
 from ..ops.field import F128
 from ..ops.stark_device import coset_lde_commit_batch
+from ..utils import tracing
 from ..utils.encoding import read_u64_le
 from . import stark
 
@@ -122,10 +123,12 @@ def prove_improvement_batch(pairs, *, device=None) -> List[bytes]:
         return []
     airs = [ImprovementAir(TRACE_LENGTH, [old, new], DEFAULT_OPTIONS) for old, new in pairs]
     cols = [_build_trace(air, old) for air, (old, _) in zip(airs, pairs)]
-    polys, ldes, leaf_rows = coset_lde_commit_batch(F128.p, cols, DEFAULT_OPTIONS.blowup,
-                                                    stark.DOMAIN_OFFSET, device=device)
-    return [stark.prove(air, [col], precomputed=([poly], [lde], leaves))
-            for air, col, poly, lde, leaves in zip(airs, cols, polys, ldes, leaf_rows)]
+    with tracing.span("stark.lde"):
+        polys, ldes, leaf_rows = coset_lde_commit_batch(F128.p, cols, DEFAULT_OPTIONS.blowup,
+                                                        stark.DOMAIN_OFFSET, device=device)
+    with tracing.span("stark.prove"):
+        return [stark.prove(air, [col], precomputed=([poly], [lde], leaves))
+                for air, col, poly, lde, leaves in zip(airs, cols, polys, ldes, leaf_rows)]
 
 
 def prove_improvement(old: int, new: int, *, device=None) -> bytes:

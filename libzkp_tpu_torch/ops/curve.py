@@ -30,6 +30,7 @@ import torch
 
 from ..parallel.collective import reduce_points
 from ..parallel.mesh import Mesh, pad_to_multiple
+from ..utils import tracing
 from . import kernels
 from .edwards import EdwardsEngine, _tree_reduce, edwards_engine  # noqa: F401  (re-exported)
 from .weierstrass import get_engine
@@ -62,28 +63,29 @@ class DeviceTable:
     """
 
     def __init__(self, base_np: np.ndarray, *, device, curve: str = "ed25519"):
-        eng = get_engine(curve)
-        C, n = eng.coords, eng.n
-        self.curve = curve
-        self.K = base_np.shape[0]
-        kc = min(K_CHUNK, _pad_batch(self.K))
-        self.Kp = ((self.K + kc - 1) // kc) * kc
-        self.device = torch.device(device)
-        self.consts = torch.from_numpy(eng.consts_np).to(self.device)
-        if self.Kp != self.K:
-            pad = np.broadcast_to(eng.identity_np()[None], (self.Kp - self.K, C, n))
-            base_np = np.concatenate([base_np, pad], axis=0)
-        baseT = torch.from_numpy(np.ascontiguousarray(np.transpose(base_np, (1, 2, 0))))
-        baseT = baseT.to(self.device)  # (C, n, Kp)
-        acc = eng.identity(self.Kp, self.device)
-        rows = [acc]
-        for _ in range(255):
-            acc = kernels.pair_add(self.consts, acc, baseT, curve=curve)
-            rows.append(acc)
-        table = torch.stack(rows, dim=0)  # (256, C, n, Kp)
-        self.table = (
-            table.permute(3, 0, 1, 2).reshape(self.Kp * 256, C, n).to(torch.int16).contiguous()
-        )
+        with tracing.span("table.build"):
+            eng = get_engine(curve)
+            C, n = eng.coords, eng.n
+            self.curve = curve
+            self.K = base_np.shape[0]
+            kc = min(K_CHUNK, _pad_batch(self.K))
+            self.Kp = ((self.K + kc - 1) // kc) * kc
+            self.device = torch.device(device)
+            self.consts = torch.from_numpy(eng.consts_np).to(self.device)
+            if self.Kp != self.K:
+                pad = np.broadcast_to(eng.identity_np()[None], (self.Kp - self.K, C, n))
+                base_np = np.concatenate([base_np, pad], axis=0)
+            baseT = torch.from_numpy(np.ascontiguousarray(np.transpose(base_np, (1, 2, 0))))
+            baseT = baseT.to(self.device)  # (C, n, Kp)
+            acc = eng.identity(self.Kp, self.device)
+            rows = [acc]
+            for _ in range(255):
+                acc = kernels.pair_add(self.consts, acc, baseT, curve=curve)
+                rows.append(acc)
+            table = torch.stack(rows, dim=0)  # (256, C, n, Kp)
+            self.table = (
+                table.permute(3, 0, 1, 2).reshape(self.Kp * 256, C, n).to(torch.int16).contiguous()
+            )
 
 
 def _digits_from_scalars(scalar_vecs, K: int, Kp: int) -> np.ndarray:
@@ -136,15 +138,18 @@ def msm_many(table: DeviceTable, scalar_vecs: Sequence[Sequence[int]]):
     B = len(scalar_vecs)
     if B == 0:
         return []
-    digits = _digits_from_scalars(scalar_vecs, table.K, table.Kp)
-    Bp = _pad_batch(B)
-    if Bp != B:
-        digits = np.pad(digits, ((0, Bp - B), (0, 0), (0, 0)))
-    dw = _digits_to_windows(torch.from_numpy(digits).to(table.device))
+    with tracing.span("msm.digits"):
+        digits = _digits_from_scalars(scalar_vecs, table.K, table.Kp)
+        Bp = _pad_batch(B)
+        if Bp != B:
+            digits = np.pad(digits, ((0, Bp - B), (0, 0), (0, 0)))
+        digits = torch.from_numpy(digits).to(table.device)
     walk = msm_windows if table.curve == "ed25519" else msm_windows4
-    out = walk(table, dw).cpu().numpy()
-    pts_np = np.transpose(out, (2, 0, 1))[:B]  # (B, C, n)
-    return get_engine(table.curve).decode_points(pts_np)
+    with tracing.span("msm.walk"):  # the host waits for the card in .cpu()
+        out = walk(table, _digits_to_windows(digits)).cpu().numpy()
+    with tracing.span("msm.decode"):
+        pts_np = np.transpose(out, (2, 0, 1))[:B]  # (B, C, n)
+        return get_engine(table.curve).decode_points(pts_np)
 
 
 # ---------------------------------------------------------------------------

@@ -37,6 +37,7 @@ from ..models.schemes.equality_proof import prove_equality_batch
 from ..models.schemes.improvement_proof import prove_improvement_batch
 from ..models.schemes.set_membership import prove_membership_batch
 from ..ops.mimc import fr_to_commitment, mimc_hash_batch
+from ..utils import tracing
 from ..utils.composition import BatchOperation
 from ..utils.envelope import SCHEME_CONSISTENCY, SCHEME_RANGE, SCHEME_THRESHOLD
 from ..utils.errors import BackendError, InvalidInput
@@ -93,16 +94,23 @@ def process_operations(ops: Sequence[BatchOperation], *, device=None) -> List[by
         for i, proof in zip(idx, proofs):
             results[i] = proof
 
-    commitments = snark_commitments(items, device=device)
-    for kind, prove in (("equality", prove_equality_batch), ("membership", prove_membership_batch)):
+    with tracing.span("prehash"):
+        commitments = snark_commitments(items, device=device)
+    for kind, name, prove in (("equality", "g16.equality", prove_equality_batch),
+                              ("membership", "g16.membership", prove_membership_batch)):
         idx = bucket(kind)
         if idx:
             given = None if commitments is None else [commitments[items[i].args[0]] for i in idx]
-            put(idx, prove([items[i].args for i in idx], device=device, commitments=given))
+            with tracing.span(name):
+                put(idx, prove([items[i].args for i in idx], device=device, commitments=given))
     idx = bucket("range", "threshold", "consistency")
     if idx:
-        put(idx, prove_prepared([_prepare(items[i], device=device) for i in idx], device=device))
+        with tracing.span("bp.prepare"):
+            prepared = [_prepare(items[i], device=device) for i in idx]
+        with tracing.span("bp.prove"):
+            put(idx, prove_prepared(prepared, device=device))
     idx = bucket("improvement")
     if idx:
-        put(idx, prove_improvement_batch([items[i].args for i in idx], device=device))
+        with tracing.span("stark"):
+            put(idx, prove_improvement_batch([items[i].args for i in idx], device=device))
     return results
